@@ -1,0 +1,28 @@
+"""gpuraytracer_tpu_torch — the PyTorch/CUDA port of the path tracer.
+
+Module for module the counterpart of ``gpuraytracer_tpu`` (which stays the
+reference), for NVIDIA Hopper:
+
+  * ``types``     scene dataclasses of tensors, ``RenderConfig``
+  * ``scene``     Cornell-box constructors
+  * ``sampling``  Halton/hash RNG, camera, hemisphere and light samplers
+  * ``intersect`` brute-force batched ray-scene queries
+  * ``render``    eager PyTorch oracle (path / direct)
+  * ``ops``       hand-written CUDA kernels for the hot path
+  * ``image``     tonemap + PNG I/O
+  * ``convert``   scenes to and from numpy trees
+  * ``cli``       command-line renderer
+
+Every entry point takes ``device`` (default ``"cuda"``) and raises when the
+card is asked for and absent. Importing the package needs neither a card
+nor a CUDA toolchain: kernels are built inside the first call that launches
+them.
+"""
+
+from .types import (BoxLights, Camera, CompiledScene, RenderConfig, Scene,
+                    SphereLights, Spheres, SquareLight, TriangleScene)
+from .scene import cornell_box, cornell_box_with_spheres
+from .intersect import any_hit, closest_hit, compile_scene
+from .render import RenderOutput, render
+
+__version__ = "0.1.0"
