@@ -8,7 +8,9 @@ reference), for NVIDIA Hopper:
   * ``sampling``  Halton/hash RNG, camera, hemisphere and light samplers
   * ``intersect`` brute-force batched ray-scene queries
   * ``render``    eager PyTorch oracle (path / direct)
-  * ``ops``       hand-written CUDA kernels for the hot path
+  * ``ops``       hand-written CUDA kernels for the hot path, forward and
+                  backward
+  * ``grad``      pixel losses and inverse rendering
   * ``image``     tonemap + PNG I/O
   * ``convert``   scenes to and from numpy trees
   * ``cli``       command-line renderer

@@ -10,16 +10,20 @@ name:
 
 ``scene_from_numpy`` also accepts any object with those attributes whose
 leaves ``numpy.asarray`` understands (so a test can hand over the other
-package's ``Scene`` after mapping its leaves to numpy).
+package's ``Scene`` after mapping its leaves to numpy). ``grads_to_numpy``
+gives the gradients of a scene's leaves as a tree of the same shape, and
+``params_from_numpy`` / ``params_to_numpy`` carry the optimizable subset
+(``grad.inverse.SceneParams``) across.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .grad.inverse import SceneParams
 from .types import (BoxLights, Camera, Scene, SphereLights, Spheres,
                     SquareLight, TriangleScene)
 
@@ -64,3 +68,36 @@ def scenes_equal(a: Scene, b: Scene) -> bool:
         and x.tobytes() == y.tobytes()
         for part in _PARTS
         for x, y in ((ta[part][k], tb[part][k]) for k in ta[part]))
+
+
+def grads_to_numpy(scene: Scene, grads: Optional[Sequence] = None
+                   ) -> Dict[str, Dict[str, Optional[np.ndarray]]]:
+    """Gradients of a scene's leaves as a tree shaped like
+    ``scene_to_numpy``: each leaf's ``.grad`` after a ``backward()``, or the
+    entries of ``grads`` — a ``torch.autograd.grad`` result over
+    ``list(scene.tensors())``. A leaf without a gradient maps to None."""
+    if grads is None:
+        grads = [t.grad for t in scene.tensors()]
+    it = iter(grads)
+    tree = {}
+    for part, cls in _PARTS.items():
+        tree[part] = {}
+        for f in dataclasses.fields(cls):
+            g = next(it)
+            tree[part][f.name] = None if g is None else g.detach().cpu().numpy()
+    return tree
+
+
+def params_from_numpy(tree: Any) -> SceneParams:
+    """``SceneParams`` of CPU tensors from a dict, tuple or other object with
+    its three fields as numpy-convertible leaves."""
+    if isinstance(tree, (tuple, list)) and not hasattr(tree, "_fields"):
+        tree = dict(zip(SceneParams._fields, tree))
+    return SceneParams(*(
+        torch.from_numpy(np.array(np.asarray(_get(tree, name)), order="C"))
+        for name in SceneParams._fields))
+
+
+def params_to_numpy(params: SceneParams) -> Dict[str, np.ndarray]:
+    return {name: getattr(params, name).detach().cpu().numpy()
+            for name in SceneParams._fields}

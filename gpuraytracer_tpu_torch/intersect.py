@@ -270,8 +270,8 @@ def potential_occluders(scene, config=None, tol_scale: float = 1e-6,
     # True light frame corners (float32 basis, as the samplers build it).
     lt, lb = (host64(x) for x in build_orthonormal_basis(
         light.normal.detach().cpu().to(torch.float32)))
-    w2 = float(light.width) / 2.0
-    d2 = float(light.depth) / 2.0
+    w2 = float(light.width.detach()) / 2.0
+    d2 = float(light.depth.detach()) / 2.0
     for sx in (-1.0, 1.0):
         for sy in (-1.0, 1.0):
             pts.append((lc + sx * w2 * lt + sy * d2 * lb)[None])

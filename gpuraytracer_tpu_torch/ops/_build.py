@@ -3,10 +3,11 @@
 Each ``ops/csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/gpuraytracer_tpu_torch/lib<name>-<hash>.so``
 beside the package (a git-ignored directory), then loaded with ``ctypes``.
-The hash covers the source text and the compiler flags, so an edited source
-is rebuilt and an unchanged one is reused. Nothing here runs at import: the
-build happens inside the first call that needs the card, and a failed build
-raises — there is no fallback.
+The hash covers the source text, the headers beside it (``csrc/*.cuh``) and
+the compiler flags, so an edited source is rebuilt and an unchanged one is
+reused. Nothing here runs at import: the build happens inside the first call
+that needs the card, and a failed build raises — there is no fallback.
+``load_libraries`` builds several sources at once, one ``nvcc`` each.
 """
 from __future__ import annotations
 
@@ -16,9 +17,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
@@ -44,6 +47,7 @@ class BuiltLibrary:
 
 
 _LOADED: Dict[str, BuiltLibrary] = {}
+_LOCK = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -68,7 +72,8 @@ def load_library(name: str) -> BuiltLibrary:
     if name in _LOADED:
         return _LOADED[name]
     source = CSRC_DIR / f"{name}.cu"
-    text = source.read_bytes()
+    text = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
     log_path = out.with_suffix(".log")
@@ -78,7 +83,7 @@ def load_library(name: str) -> BuiltLibrary:
         log = log_path.read_text()
     else:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        tmp = out.with_suffix(f".tmp{os.getpid()}-{threading.get_ident()}.so")
         start = time.perf_counter()
         proc = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
@@ -92,5 +97,11 @@ def load_library(name: str) -> BuiltLibrary:
         os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     built = BuiltLibrary(lib=ctypes.CDLL(str(out)), path=out, nvcc=nvcc,
                          log=log, seconds=seconds)
-    _LOADED[name] = built
-    return built
+    with _LOCK:
+        return _LOADED.setdefault(name, built)
+
+
+def load_libraries(names: Sequence[str]) -> List[BuiltLibrary]:
+    """Build and load several sources, their ``nvcc`` runs side by side."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(load_library, names))

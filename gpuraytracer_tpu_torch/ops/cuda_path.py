@@ -9,7 +9,9 @@ Counterpart of ``gpuraytracer_tpu/ops/pallas_path.py`` (static tier: at most
     in three modes: hdr only; ``emit_records`` (int32 decision records, draws
     read from planes); ``records_only`` (records, draws regenerated in the
     kernel).
-  * ``render_path_cuda``       the forward entry point, hdr only.
+  * ``render_path_cuda``       the entry point, hdr only; differentiable: its
+    backward re-traces with records and runs the backward kernel
+    (``ops/cuda_shade.py``).
 
 The kernels are CUDA C++ (``csrc/path_kernels.cu``), built at first use
 (``_build.py``). Beside each stands a plain PyTorch version of the same
@@ -78,6 +80,20 @@ class PackedScene(NamedTuple):
     num_spheres: int
 
 
+def camera_vector(cam, config: RenderConfig) -> torch.Tensor:
+    """The camera as the kernels take it, [12] float32: position, then the
+    basis prescaled by the half-extents of the image plane (u * half_width,
+    v * half_height, w). Differentiable in position, direction and up."""
+    f32 = torch.float32
+    res_x, res_y = config.resolution
+    aspect = float(res_x // res_y) if config.integer_aspect else res_x / res_y
+    half_width = torch.tan(cam.horizontal_fov.to(f32) / 2.0)
+    half_height = half_width / aspect
+    u, v, w = smp.camera_basis(cam.direction.to(f32), cam.up.to(f32))
+    return torch.cat([cam.position.to(f32), u * half_width,
+                      v * half_height, w])
+
+
 def _pack_inputs(scene: Scene, config: RenderConfig) -> PackedScene:
     """Marshal a scene for the trace kernel: triangle constants to a
     [NROWS, T] table, the camera to a prescaled basis, the light to six
@@ -96,14 +112,7 @@ def _pack_inputs(scene: Scene, config: RenderConfig) -> PackedScene:
     ])  # [NROWS, T]
     dev = tri.device
 
-    cam = scene.camera
-    res_x, res_y = config.resolution
-    aspect = float(res_x // res_y) if config.integer_aspect else res_x / res_y
-    half_width = torch.tan(cam.horizontal_fov.to(f32) / 2.0)
-    half_height = half_width / aspect
-    u, v, w = smp.camera_basis(cam.direction.to(f32), cam.up.to(f32))
-    cam_vec = torch.cat([cam.position.to(f32), u * half_width,
-                         v * half_height, w])
+    cam_vec = camera_vector(scene.camera, config)
 
     light = scene.light
     light_vec = torch.cat([light.center.to(f32).reshape(-1),
@@ -532,12 +541,16 @@ def path_trace_kernel(offsets: torch.Tensor, rid_base: int,
 
 
 def reject_grad(scene: Scene) -> None:
-    """The port has no backward kernel yet: refuse a scene that asks for
-    gradients instead of returning an image that silently carries none."""
+    """The trace alone carries no gradient: refuse a scene that asks for one
+    instead of returning an image that silently has none. The differentiable
+    entry points (``render_path_cuda``, ``render_path_decoupled``) trace a
+    detached copy and attach the backward kernel themselves."""
     if any(t.requires_grad for t in scene.tensors()):
         raise NotImplementedError(
-            "a scene tensor has requires_grad=True, but the trace kernel is "
-            "forward only so far (backward kernel: slice 2 of the port)")
+            "a scene tensor has requires_grad=True, but the bare trace is not "
+            "differentiable: render with render_path_cuda or "
+            "render_path_decoupled (they attach the backward kernel), or "
+            "pass scene.detach()")
 
 
 def shadow_indices(occluders, num_tris: int, device) -> torch.Tensor:
@@ -634,8 +647,47 @@ def render_path_cuda_impl(scene: Scene, config: RenderConfig,
     return hdr, TraceAux(rec, *(draws if reads_draws else (None,) * 6))
 
 
+class _RetraceGrad(torch.autograd.Function):
+    """``render_path_cuda`` for a scene that asks for gradients: the forward
+    is the hdr-only trace and costs nothing extra; the backward re-traces
+    with records and runs the backward kernel through
+    ``cuda_shade.render_path_decoupled_fused``. A training loop should call
+    that function itself (one trace per step instead of two)."""
+
+    @staticmethod
+    def forward(ctx, scene, config, device, *leaves):
+        ctx.scene, ctx.config, ctx.device = scene, config, device
+        ctx.save_for_backward(*leaves)
+        return render_path_cuda_impl(scene.detach(), config, device=device)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        from .cuda_shade import render_path_decoupled_fused
+        needs = ctx.needs_input_grad[3:]
+        leaves = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, needs)]
+        it = iter(leaves)
+        scene = ctx.scene.map(lambda _: next(it))
+        with torch.enable_grad():
+            out = render_path_decoupled_fused(scene, ctx.config,
+                                              device=ctx.device)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in leaves if t.requires_grad], g,
+                allow_unused=True))
+        return (None, None, None) + tuple(
+            next(grads) if need else None for need in needs)
+
+
 def render_path_cuda(scene: Scene, config: RenderConfig,
                      device="cuda") -> torch.Tensor:
     """Variant-B path trace through the trace kernel. Returns [H, W, 3]
-    linear radiance. Forward only: a scene that requires gradients raises."""
+    linear radiance. Differentiable: where a scene tensor requires
+    gradients, the backward pass re-traces with records and runs the
+    backward kernel (gradients equal to autograd through the eager oracle;
+    visibility is piecewise constant)."""
+    device = resolve_device(device)
+    leaves = list(scene.tensors())
+    if any(t.requires_grad for t in leaves):
+        return _RetraceGrad.apply(scene, config, device, *leaves)
     return render_path_cuda_impl(scene, config, device=device)

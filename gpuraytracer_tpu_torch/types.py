@@ -2,8 +2,9 @@
 
 Counterpart of ``gpuraytracer_tpu/types.py``: the same struct-of-arrays
 scene, as plain dataclasses of ``torch`` tensors instead of JAX pytrees.
-Every struct has a ``.to(device)`` that moves all of its tensors (nested
-structs included) and a ``tensors()`` iterator over them.
+Every struct has a ``map(fn)`` that rebuilds it with ``fn`` applied to each
+of its tensors (nested structs included), ``.to(device)`` and ``.detach()``
+built on it, and a ``tensors()`` iterator over the tensors in the same order.
 
 All geometry and shading math is float32; images accumulate in float32 and
 are quantized to uint8 only at the PNG boundary (``image.py``).
@@ -19,11 +20,24 @@ import torch
 class _TensorStruct:
     """Mixin for dataclasses whose fields are tensors or nested structs."""
 
+    def map(self, fn):
+        """Copy of this struct with ``fn`` applied to every tensor, in the
+        order ``tensors()`` yields them."""
+        def apply(value):
+            return value.map(fn) if isinstance(value, _TensorStruct) \
+                else fn(value)
+        return dataclasses.replace(self, **{
+            f.name: apply(getattr(self, f.name))
+            for f in dataclasses.fields(self)})
+
     def to(self, device):
         """Copy of this struct with every tensor moved to ``device``."""
-        return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)})
+        return self.map(lambda t: t.to(device))
+
+    def detach(self):
+        """Copy of this struct whose tensors are cut from the autograd
+        graph (the discrete trace runs on such a copy)."""
+        return self.map(lambda t: t.detach())
 
     def tensors(self) -> Iterator[torch.Tensor]:
         for f in dataclasses.fields(self):
@@ -176,8 +190,9 @@ class RenderConfig:
       area_light_half_extent  hardcoded 0.25 half-extents in sampleAreaLight
                               regardless of the scene's actual 1x1 light.
 
-    ``lane_pad`` and ``replay_sample_chunk`` are carried for parity of the
-    two configs and are not read by the forward path tracer of this port.
+    ``lane_pad`` is carried for parity of the two configs and is not read
+    by this port; ``replay_sample_chunk`` is the sample chunk of
+    ``ops.decoupled.shade_replay``.
     """
 
     width: int = 800

@@ -291,10 +291,16 @@ def test_requires_grad_raises():
     light = dataclasses.replace(
         scene.light, color=scene.light.color.clone().requires_grad_(True))
     wants_grad = dataclasses.replace(scene, light=light)
+    # The bare trace carries no gradient and says so; the differentiable
+    # entry points trace a detached copy and attach the backward kernel.
     with pytest.raises(NotImplementedError, match="backward kernel"):
-        decoupled.render_path_decoupled(wants_grad, _cfg(), device="cpu")
+        decoupled.trace_records(wants_grad, _cfg(), device="cpu")
     with pytest.raises(NotImplementedError, match="backward kernel"):
-        cuda_path.render_path_cuda(wants_grad, _cfg(), device="cpu")
+        cuda_path.render_path_cuda_impl(wants_grad, _cfg(), device="cpu")
+    for entry in (decoupled.render_path_decoupled, cuda_path.render_path_cuda):
+        hdr = entry(wants_grad, _cfg(), device="cpu")
+        (g,) = torch.autograd.grad(hdr.mean(), [wants_grad.light.color])
+        assert torch.isfinite(g).all() and g.abs().max() > 0
 
 
 def test_wrong_occluder_count_and_bounces_raise():

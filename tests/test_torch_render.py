@@ -184,16 +184,24 @@ def test_png_round_trip(tmp_path):
 def _port_sources():
     files = sorted((REPO / "gpuraytracer_tpu_torch").rglob("*.py"))
     files += sorted((REPO / "gpuraytracer_tpu_torch").rglob("*.cu"))
+    files += sorted((REPO / "gpuraytracer_tpu_torch").rglob("*.cuh"))
     files.append(REPO / "chip_smoke.py")
     return files
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     pattern = re.compile(
-        r"^\s*(import\s+jax\b|from\s+jax\b|import\s+gpuraytracer_tpu\b(?!_torch)"
+        r"^\s*(import\s+jax\b|from\s+jax\b|import\s+optax\b|from\s+optax\b"
+        r"|import\s+gpuraytracer_tpu\b(?!_torch)"
         r"|from\s+gpuraytracer_tpu\b(?!_torch))", re.MULTILINE)
     files = _port_sources()
     assert len(files) > 15 and files[-1].exists()
+    names = {str(p.relative_to(REPO)) for p in files}
+    assert {"gpuraytracer_tpu_torch/grad/__init__.py",
+            "gpuraytracer_tpu_torch/grad/inverse.py",
+            "gpuraytracer_tpu_torch/ops/cuda_shade.py",
+            "gpuraytracer_tpu_torch/ops/csrc/shade_kernels.cu",
+            "gpuraytracer_tpu_torch/ops/csrc/halton.cuh"} <= names
     for path in files:
         found = pattern.findall(path.read_text())
         assert not found, f"{path}: {found}"
