@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, holds each against
-its plain PyTorch version on the card, renders three frames through the
-command-line entry point and trains through the library entry points (the
-main paths), times the kernels, and prints
+its plain PyTorch version on the card, renders six frames through the
+command-line entry point (three with the path tracer, three with the MIS
+integrator) and trains through the library entry points (the main paths),
+times the kernels, and prints
 
   * a ``kernels`` JSON line (time, bound, plain-version time, launches on the
     main path, largest difference from the plain version, per kernel),
@@ -17,8 +18,8 @@ It needs a card: without one it exits non-zero and prints no result. Every
 failed check raises, so a run that ends in the ``ok`` line passed them all.
 
 Phases
-  build   nvcc builds ops/csrc/path_kernels.cu and shade_kernels.cu side by
-          side; registers and spills printed.
+  build   nvcc builds ops/csrc/path_kernels.cu, shade_kernels.cu and
+          mis_kernels.cu side by side; registers and spills printed.
   small   128 x 96, 4 spp, 3 bounces, both scenes, both samplers: draws
           kernel bit-equal to its plain version; trace kernel in its three
           modes against the plain version (records equal except a printed
@@ -26,6 +27,13 @@ Phases
           kernel, draws read and draws regenerated, against its plain
           version (autograd through the replay) on the same records and a
           seeded cotangent, and two launches bit-equal.
+  mis     128 x 96, 2 camera rays, 12 MIS samples; box, sphere and glossy
+          scenes; Halton and stratified tables; light probes culled and not:
+          the MIS kernel against its plain version — both record streams
+          field by field, the image where the decisions agree — records-on
+          image bit-equal to records-off image, two launches bit-equal.
+          Once more with 2,700 samples (a sample table beyond 48 KiB of
+          shared memory).
   A, B    ``cli.main([png, "--kernel", "cuda"])`` at the reference's frame,
           800 x 600 x 400 spp x 3 bounces, box scene and sphere scene.
   C       ``--kernel decoupled`` at 512 x 512 x 16 spp x 3 bounces: draws
@@ -40,8 +48,20 @@ Phases
           centers, albedo and emission: the loss is finite and falls. The
           fit is then run twice more, warm: for the steady step time, and
           under ``torch.profiler`` for the share of it the card is busy.
-  full    the kernels at the shapes of A, B, C, D and E against their plain
-          versions, and their times.
+  F, G    ``cli.main([png, "--integrator", "mis", "--kernel", "cuda"])`` at
+          the reference's variant-A settings, 800 x 600 x 6 camera rays x 300
+          MIS samples, box scene and sphere scene; F once more under
+          ``torch.profiler`` for the card's busy share.
+  H       ``--integrator mis --kernel decoupled`` at 512 x 512 x 6 x 300:
+          records on, light probes culled.
+  MIS gradients
+          ``render_mis_cuda`` on a scene that asks for gradients, 128 x 96:
+          the backward (autograd through the eager oracle) in three pixel
+          ranges against the whole frame's graph; then one range near the
+          default budget, for its time and the memory it holds.
+  full    the kernels at the shapes of A to H against their plain versions
+          (the MIS kernel's on the whole frame, records and all), and their
+          times.
 
 Tolerances. Draws: bit-equal (the radical inverse spells out each rounding).
 Records: a share of at most 0.5 % of the decisions may differ — the kernel and
@@ -66,7 +86,14 @@ both the difference and that distance are printed, and beside them how far
 the kernel and the plain version each lie from the same function evaluated in
 float64. Draws read against draws
 regenerated: atol 5e-8 + rtol 1e-6 of the group's largest magnitude, nothing
-added.
+added. MIS kernel: the same 0.5 % limit on differing decisions (a decision is
+the primary hit everywhere, the three sample decisions where the primary ray
+landed on a surface, a secondary probe's bit where its lobe ray landed on
+geometry); image atol 2e-5 / rtol 1e-4 on the pixels whose decisions all
+agree — the kernel and its plain version read the same host-made sample
+table and hold no transcendental, so they run the same correctly rounded
+operations in the same order — and the largest difference over all pixels is
+printed against the integrator's own atol 5e-4 / rtol 1e-3.
 """
 from __future__ import annotations
 
@@ -88,12 +115,14 @@ import torch
 from gpuraytracer_tpu_torch import cli, image
 from gpuraytracer_tpu_torch.grad import inverse
 from gpuraytracer_tpu_torch.intersect import potential_occluders
-from gpuraytracer_tpu_torch.ops import _build, cuda_path, cuda_shade, decoupled
-from gpuraytracer_tpu_torch.render import pixel_rng_offsets
+from gpuraytracer_tpu_torch.ops import (_build, cuda_mis, cuda_path, cuda_shade,
+                                        decoupled)
+from gpuraytracer_tpu_torch.render import pixel_rng_offsets, render_mis
 from gpuraytracer_tpu_torch.sampling import PRIMES
-from gpuraytracer_tpu_torch.scene import cornell_box, cornell_box_with_spheres
+from gpuraytracer_tpu_torch.scene import (cornell_box, cornell_box_glossy,
+                                          cornell_box_with_spheres)
 from gpuraytracer_tpu_torch.types import RenderConfig
-from gpuraytracer_tpu_torch.utils.metrics import mrays_per_s
+from gpuraytracer_tpu_torch.utils.metrics import mrays_per_s, nominal_rays
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth and the
 # float32 rate outside the tensor cores. The bounds below are stated against
@@ -135,6 +164,31 @@ FRAME = dict(width=800, height=600, spp=400, bounces=3)   # cli.py defaults
 BENCH = dict(width=512, height=512, spp=16, bounces=3)    # training-loop size
 SMALL = dict(width=128, height=96, spp=4, bounces=3)
 INVERSE = dict(width=256, height=256, spp=4, bounces=2)   # inverse-render size
+# Variant A: the reference's own settings, the 512 x 512 training-loop size,
+# and the small comparison size.
+MIS_FRAME = dict(width=800, height=600, camera_rays=6, mis_samples=300)
+MIS_BENCH = dict(width=512, height=512, camera_rays=6, mis_samples=300)
+MIS_SMALL = dict(width=128, height=96, camera_rays=2, mis_samples=12)
+# A sample table beyond 48 KiB of shared memory; one pixel range of the
+# oracle backward.
+MIS_LONG = dict(width=32, height=24, camera_rays=1, mis_samples=2700)
+MIS_GRAD_RANGE = dict(width=320, height=216, camera_rays=6, mis_samples=15,
+                      pixel_chunk=320 * 216)
+# Backward in pixel ranges against the whole frame's graph: the same per-pixel
+# terms, summed over pixels in another order.
+MIS_GRAD_ATOL, MIS_GRAD_RTOL = 1e-5, 1e-4
+MIS_SCENES = dict(SCENES, **{"cornell-glossy": cornell_box_glossy})
+MIS_SOURCE = "gpuraytracer_tpu_torch/ops/csrc/mis_kernels.cu"
+MIS_REPLACES = "gpuraytracer_tpu/ops/pallas_mis.py:217"
+MIS_HDR_ATOL, MIS_HDR_RTOL = 5e-4, 1e-3   # the integrator's own tolerance
+# Float32 operations of the MIS kernel besides its primitive tests, counted
+# from mis_kernels.cu like the counts above: per camera ray (hash jitter, ray,
+# basis, the stretched view frame); per sample whose primary ray landed on a
+# surface (three directions, seven pdfs, three heuristics, the light sample
+# with its BRDF, two lobe BRDFs); per light sample at a bounce point, reached
+# (with its BRDF) and blocked.
+OPS_MIS_CAMERA, OPS_MIS_SAMPLE = 140, 832
+OPS_MIS_SECONDARY, OPS_MIS_SECONDARY_BLOCKED = 182, 36
 SHADE_SOURCE = "gpuraytracer_tpu_torch/ops/csrc/shade_kernels.cu"
 SHADE_REPLACES = "gpuraytracer_tpu/ops/pallas_shade.py:72"
 
@@ -274,13 +328,15 @@ def compare_draws(what, got, ref):
 
 
 def reset_launches() -> None:
-    for counts in (cuda_path.LAUNCHES, cuda_shade.LAUNCHES):
+    for counts in (cuda_path.LAUNCHES, cuda_shade.LAUNCHES,
+                   cuda_mis.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
 
 def read_launches() -> dict:
-    return {**cuda_path.LAUNCHES, **cuda_shade.LAUNCHES}
+    return {**cuda_path.LAUNCHES, **cuda_shade.LAUNCHES,
+            **cuda_mis.LAUNCHES}
 
 
 class ShadeInputs:
@@ -542,6 +598,147 @@ def shade_bound(sh: ShadeInputs, regenerate: bool):
 
 
 # ---------------------------------------------------------------------------
+# The MIS kernel: inputs, comparison, bound
+# ---------------------------------------------------------------------------
+
+class MisInputs:
+    """What the MIS wrapper and its plain version take, on the card."""
+
+    def __init__(self, scene_name: str, cfg: RenderConfig, cull: bool):
+        dev = torch.device("cuda")
+        self.cfg = cfg
+        self.scene = MIS_SCENES[scene_name](resolution=cfg.resolution)
+        self.packed = cuda_mis._pack_inputs(self.scene.to(dev), cfg)
+        self.num_tris = self.scene.triangles.num_triangles
+        occ = potential_occluders(self.scene, cfg) if cull else None
+        self.shadow_idx = cuda_path.shadow_indices(occ, self.num_tris, dev)
+
+    def kernel(self, emit=False):
+        return cuda_mis.mis_trace_kernel(
+            self.cfg.num_pixels, 0, self.packed, self.shadow_idx, self.cfg,
+            emit)
+
+    def plain(self, emit=False, pixel_chunk=None):
+        cfg = (self.cfg if pixel_chunk is None
+               else self.cfg.replace(pixel_chunk=pixel_chunk))
+        return cuda_mis.render_mis_plain(
+            cfg.num_pixels, 0, self.packed, self.shadow_idx, cfg, emit)
+
+
+def mis_fields(rec: cuda_mis.MisRecords):
+    """The sample record's five decisions: three probe bits and the two lobe
+    rays' winners (prim + 1, 0 = miss)."""
+    r = rec.samples
+    mask = cuda_mis.REC_CODE_MASK
+    return dict(reach1=(r & 1) != 0, reach2=(r & 2) != 0, reach3=(r & 4) != 0,
+                cos_prim=(r >> cuda_mis.REC_SHIFT_C) & mask,
+                vndf_prim=(r >> cuda_mis.REC_SHIFT_V) & mask)
+
+
+def mis_live(rec: cuda_mis.MisRecords, packed):
+    """Where each decision of a record stream feeds the image: the primary
+    hit everywhere; the light probe and the two lobe winners where the
+    primary ray landed on a non-emissive surface (``surf`` [rays, 1, n]); a
+    secondary probe where, besides, its lobe ray landed on non-emissive
+    geometry. Dead lanes write records too; they feed nothing."""
+    is_em = packed.atab[8] > 0.5
+
+    def on_geometry(code):
+        return (code > 0) & ~is_em[(code.long() - 1).clamp_min(0)]
+
+    f = mis_fields(rec)
+    surf = on_geometry(rec.camera)[:, None, :]
+    return surf, dict(reach1=surf, cos_prim=surf, vndf_prim=surf,
+                      reach2=surf & on_geometry(f["cos_prim"]),
+                      reach3=surf & on_geometry(f["vndf_prim"]))
+
+
+def compare_mis(what, hdr_k, rec_k, hdr_p, rec_p, packed):
+    """Flip-aware comparison of an MIS trace with the plain version's, field
+    by field. Returns (share of live decisions that differ, largest image
+    difference on the pixels all of whose decisions agree)."""
+    surf, live = mis_live(rec_p, packed)
+    cam_differ = rec_k.camera != rec_p.camera
+    fk, fp = mis_fields(rec_k), mis_fields(rec_p)
+    n_live = cam_differ.numel()
+    n_differ = int(cam_differ.sum())
+    bad_pixel = cam_differ.any(dim=0)
+    parts = [f"camera {n_differ}/{n_live}"]
+    for name, where in live.items():
+        where = where.expand_as(fk[name])
+        differ = (fk[name] != fp[name]) & where
+        n_live += int(where.sum())
+        n_differ += int(differ.sum())
+        bad_pixel |= differ.any(dim=0).any(dim=0)
+        parts.append(f"{name} {int(differ.sum())}/{int(where.sum())}")
+    flip_share = n_differ / n_live
+    raw_share = (rec_k.samples != rec_p.samples).float().mean().item()
+    agree = ~bad_pixel
+    diff_all = (hdr_k - hdr_p).abs()
+    loose = MIS_HDR_ATOL + MIS_HDR_RTOL * hdr_p.abs()
+    diff = diff_all[:, agree]
+    bound = HDR_ATOL + HDR_RTOL * hdr_p.abs()[:, agree]
+    max_err = diff.max().item() if diff.numel() else 0.0
+    log(f"  {what}: live decisions differ {flip_share:.3e} ("
+        + ", ".join(parts) + f"; all sample records, dead lanes too: "
+        f"{raw_share:.3e}); pixels compared {int(agree.sum())}/"
+        f"{agree.numel()}, max |hdr - plain| there {max_err:.3e}, over all "
+        f"pixels {diff_all.max().item():.3e} ({int((diff_all > loose).sum())}"
+        f" values beyond atol {MIS_HDR_ATOL} / rtol {MIS_HDR_RTOL})")
+    check(flip_share <= FLIP_SHARE_MAX,
+          f"{what}: {flip_share:.4%} of the decisions differ from the plain "
+          f"version (limit {FLIP_SHARE_MAX:.2%})")
+    check(bool((diff <= bound).all()),
+          f"{what}: image differs from the plain version beyond atol "
+          f"{HDR_ATOL} / rtol {HDR_RTOL} on pixels whose decisions agree "
+          f"(max {max_err:.3e})")
+    check(bool(torch.isfinite(hdr_k).all()), f"{what}: non-finite radiance")
+    return flip_share, max_err
+
+
+def mis_bound(inp: MisInputs, rec: cuda_mis.MisRecords, emit: bool):
+    """(bound_ms, bound_by, counts) of one MIS trace from the records of
+    this frame: the primitive tests its rays need — a closest hit tests
+    every primitive, a probe that reaches the light every occluder, a
+    blocked probe at least one — and the shading of its live samples,
+    against the bytes in and out. Only live lanes count, with records as
+    without: a lane whose primary ray missed or landed on the light still
+    writes records, but nothing reads them (``mis_live``), so the function
+    needs none of its traversals; ``emit`` adds the records' bytes alone."""
+    cfg, n = inp.cfg, inp.cfg.num_pixels
+    t, s, n_shadow = inp.num_tris, inp.packed.num_spheres, len(inp.shadow_idx)
+    s_per = cfg.mis_samples // 3
+    closest = t * OPS_TRI_CLOSEST + s * OPS_SPH_CLOSEST
+    probe = n_shadow * OPS_TRI_SHADOW + s * OPS_SPH_SHADOW
+    rays = cfg.camera_rays * n
+    f = mis_fields(rec)
+    surf, live = mis_live(rec, inp.packed)
+    samples = int(surf.sum()) * s_per
+    ops = rays * (closest + OPS_MIS_CAMERA)
+    ops += samples * (2 * closest + OPS_MIS_SAMPLE)
+    probes = dict(reached=0, blocked=0)
+    for name in ("reach1", "reach2", "reach3"):
+        where = live[name].expand_as(f[name])
+        reached = int((f[name] & where).sum())
+        blocked = int(where.sum()) - reached
+        probes["reached"] += reached
+        probes["blocked"] += blocked
+        ops += reached * probe + blocked * OPS_TRI_SHADOW
+        if name != "reach1":
+            ops += (reached * OPS_MIS_SECONDARY
+                    + blocked * OPS_MIS_SECONDARY_BLOCKED)
+    tables = 4 * sum(x.numel() for x in inp.packed[:6]) + 4 * n_shadow
+    nbytes = 12 * n + tables
+    if emit:
+        nbytes += 4 * rays * (1 + s_per)
+    bound, by = roofline(nbytes, ops)
+    counts = dict(live_samples=samples, probes_reached=probes["reached"],
+                  probes_blocked=probes["blocked"],
+                  traversals=rays + 2 * samples + sum(probes.values()))
+    return bound, by, counts
+
+
+# ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
 
@@ -554,6 +751,9 @@ def ptxas_resources(log_text: str):
             mangled = m.group(1)
             name = ("reduce_partials_kernel"
                     if "reduce_partials_kernel" in mangled else "draws_kernel")
+            m = re.search(r"mis_kernelILb(\d)E", mangled)
+            if m:
+                name = f"mis_kernel<EMIT={m.group(1)}>"
             m = re.search(r"path_kernelILb(\d)ELb(\d)E", mangled)
             if m:
                 name = (f"path_kernel<EMIT={m.group(1)}, "
@@ -565,7 +765,9 @@ def ptxas_resources(log_text: str):
             resources[name] = {}
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
-        if m and name:
+        if m and name and "stack_bytes" not in resources[name]:
+            # The entry's own line comes first; the lines of the device
+            # functions it calls follow and are not the kernel's.
             resources[name].update(
                 stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
                 spill_load_bytes=int(m.group(3)))
@@ -577,23 +779,24 @@ def ptxas_resources(log_text: str):
 
 def phase_build():
     log("== build")
-    built, built_shade = _build.load_libraries(["path_kernels",
-                                                "shade_kernels"])
+    libs = _build.load_libraries()
+    built = libs[0]
     version = subprocess.run([built.nvcc, "--version"], capture_output=True,
                              text=True, check=True).stdout.strip()
     log("  " + version.splitlines()[-2] + " | " + version.splitlines()[-1])
     log(f"  nvcc {' '.join(_build.NVCC_FLAGS)}")
-    for lib in (built, built_shade):
+    for lib in libs:
         log(f"  built {lib.path.name} in {lib.seconds:.1f} s")
-    resources = ptxas_resources(built.log + "\n" + built_shade.log)
+    logs = "\n".join(lib.log for lib in libs)
+    resources = ptxas_resources(logs)
     for name, res in resources.items():
         log(f"  ptxas: {name}: {res['registers']} registers, "
             f"{res['stack_bytes']} B stack, {res['spill_store_bytes']} B "
             f"spill stores, {res['spill_load_bytes']} B spill loads")
-    check(len(resources) == 9, "ptxas did not report the draws kernel, the "
+    check(len(resources) == 11, "ptxas did not report the draws kernel, the "
           "three trace-kernel instantiations, the four backward-kernel "
-          f"instantiations and the reduction: {resources}\n{built.log}\n"
-          f"{built_shade.log}")
+          "instantiations, the reduction and the two MIS-kernel "
+          f"instantiations: {resources}\n{logs}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -694,6 +897,137 @@ def phase_small():
     return plain_ms
 
 
+def phase_mis_small():
+    cfg0 = RenderConfig(integrator="mis", **MIS_SMALL)
+    log(f"== mis: the MIS kernel against its plain version, {cfg0.width} x "
+        f"{cfg0.height}, {cfg0.camera_rays} camera rays, {cfg0.mis_samples} "
+        "MIS samples")
+    times = {}
+    for scene_name in MIS_SCENES:
+        for sampler in ("halton", "stratified"):
+            cfg = cfg0.replace(sampler=sampler)
+            tag = f"{scene_name}/{sampler}"
+            full = MisInputs(scene_name, cfg, cull=False)
+            culled = MisInputs(scene_name, cfg, cull=True)
+            check(len(culled.shadow_idx) < len(full.shadow_idx),
+                  f"K4 {tag}: the occluder cull kept every triangle")
+            hdr_h, none = full.kernel()
+            hdr_e, rec_e = full.kernel(emit=True)
+            hdr_again, rec_again = full.kernel(emit=True)
+            hdr_c, rec_c = culled.kernel(emit=True)
+            torch.cuda.synchronize()
+            check(none is None, "hdr mode returned records")
+            check(torch.equal(hdr_h, hdr_e), f"K4 {tag}: the image with "
+                  "records on is not bit-equal to the image with records off")
+            check(torch.equal(hdr_e, hdr_again)
+                  and torch.equal(rec_e.camera, rec_again.camera)
+                  and torch.equal(rec_e.samples, rec_again.samples),
+                  f"K4 {tag}: two launches on the same inputs differ")
+            hdr_p, rec_p = full.plain(emit=True)
+            compare_mis(f"K4 {tag}", hdr_e, rec_e, hdr_p, rec_p, full.packed)
+            hdr_q, rec_q = culled.plain(emit=True)
+            compare_mis(f"K4 {tag} culled probes", hdr_c, rec_c, hdr_q,
+                        rec_q, full.packed)
+            # The cull changes no decision that feeds the image.
+            compare_mis(f"K4 {tag} culled vs all probes (kernel)", hdr_c,
+                        rec_c, hdr_e, rec_e, full.packed)
+            check(torch.allclose(hdr_c, hdr_e, atol=5e-8, rtol=1e-6),
+                  f"K4 {tag}: the occluder cull changes the image")
+            if tag == "cornell/halton":
+                times["mis_plain"] = time_ms(lambda: full.plain(), repeats=3)
+                times["mis_kernel"] = time_ms(lambda: full.kernel())
+                times["mis_kernel_records"] = time_ms(
+                    lambda: full.kernel(emit=True))
+    log(f"  {cfg0.width} x {cfg0.height} x {cfg0.camera_rays} x "
+        f"{cfg0.mis_samples}, cornell: plain {times['mis_plain'][1]:.1f} ms, "
+        f"kernel {times['mis_kernel'][1]:.3f} ms, with records "
+        f"{times['mis_kernel_records'][1]:.3f} ms")
+
+    # A sample table longer than the 48 KiB of shared memory every launch
+    # may have: the launcher asks for the larger size.
+    cfg = RenderConfig(integrator="mis", **MIS_LONG)
+    long = MisInputs("cornell-spheres", cfg, cull=True)
+    staged = 4 * cuda_mis.NTAB_EXT * (cfg.mis_samples // 3)
+    check(staged > 48 * 1024, "the long sample table fits the default size")
+    hdr_h, _ = long.kernel()
+    hdr_k, rec_k = long.kernel(emit=True)
+    check(torch.equal(hdr_h, hdr_k), "K4, long sample table: records on and "
+          "off give different images")
+    hdr_p, rec_p = long.plain(emit=True)
+    compare_mis(f"K4 {cfg.width} x {cfg.height} x {cfg.camera_rays} x "
+                f"{cfg.mis_samples} ({staged} B of sample table)", hdr_k,
+                rec_k, hdr_p, rec_p, long.packed)
+    return times
+
+
+def phase_mis_grad():
+    """``render_mis_cuda`` on a scene that asks for gradients, on the card:
+    the kernel's image forward, the oracle's gradients backward, one pixel
+    range at a time — against autograd through the whole frame of the eager
+    oracle; then the memory and time of one full range of the backward."""
+    cfg = RenderConfig(integrator="mis", **MIS_SMALL)
+    steps = cfg.camera_rays * (cfg.mis_samples // 3)
+    log(f"== MIS gradients: render_mis_cuda(scene).mean() on the card, glossy "
+        f"box, {cfg.width} x {cfg.height} x {cfg.camera_rays} x "
+        f"{cfg.mis_samples}")
+    budget = cuda_mis.BACKWARD_LANE_STEPS
+    weight = torch.rand((cfg.height, cfg.width, 3), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(7))
+    try:
+        # Room for 5,000 of the 12,288 pixels: three ranges.
+        cuda_mis.BACKWARD_LANE_STEPS = 5000 * steps
+        scene = with_grad(cornell_box_glossy(resolution=cfg.resolution))
+        reset_launches()
+        hdr = cuda_mis.render_mis_cuda(scene, cfg)
+        got = scene_grads(scene, hdr * weight)
+        launched = read_launches()
+    finally:
+        cuda_mis.BACKWARD_LANE_STEPS = budget
+    check(launched["mis_kernel"] == 1,
+          f"render_mis_cuda with gradients launched {launched}")
+    ref_scene = with_grad(cornell_box_glossy(resolution=cfg.resolution))
+    ref = scene_grads(ref_scene, render_mis(ref_scene, cfg).hdr * weight)
+    check(set(got) == set(ref) and len(ref) >= 12,
+          f"gradient groups {sorted(got)} against {sorted(ref)}")
+    worst = 0.0
+    for name, r in ref.items():
+        scale = max(r.abs().max().item(), 1.0)
+        err = (got[name] - r).abs().max().item() / scale
+        worst = max(worst, err)
+        check(bool(torch.isfinite(got[name]).all()), f"{name}: not finite")
+        check(bool(torch.allclose(got[name], r, atol=MIS_GRAD_ATOL * scale,
+                                  rtol=MIS_GRAD_RTOL)),
+              f"d {name}: in pixel ranges differs from the whole frame by "
+              f"{err:.3e} of its largest magnitude")
+    log(f"  {len(ref)} gradient groups, three pixel ranges against the whole "
+        f"frame's graph: largest difference {worst:.3e} of a group's largest "
+        f"magnitude (atol {MIS_GRAD_ATOL} of it, rtol {MIS_GRAD_RTOL})")
+
+    # One range of the backward near the default budget, at the reference's
+    # scene: what the graph of that many sample steps takes.
+    cfg = RenderConfig(integrator="mis", **MIS_GRAD_RANGE)
+    lane_steps = cfg.num_pixels * cfg.camera_rays * (cfg.mis_samples // 3)
+    check(lane_steps <= budget, "the timed backward is more than one range")
+    scene = with_grad(cornell_box(resolution=cfg.resolution))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    grads = scene_grads(scene, cuda_mis.render_mis_cuda(scene, cfg))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    held = torch.cuda.max_memory_allocated() - before
+    check(all(bool(torch.isfinite(g).all()) for g in grads.values()),
+          "non-finite gradient")
+    log(f"  one range, {cfg.width} x {cfg.height} x {cfg.camera_rays} x "
+        f"{cfg.mis_samples} = {lane_steps} sample steps of the budget's "
+        f"{budget}: {seconds:.2f} s forward and backward, {held / 2**30:.2f} "
+        f"GiB held at the peak, {held / lane_steps:.0f} B per sample step")
+    return dict(lane_steps=lane_steps, seconds=seconds, peak_bytes=held,
+                budget_lane_steps=budget, max_rel_err_vs_whole_frame=worst)
+
+
 def check_frame(png_path, debug_path, cfg):
     """The frame is a Cornell box: right shape, finite rows, red left wall,
     green right wall, the light's rows brightest."""
@@ -726,23 +1060,36 @@ def check_frame(png_path, debug_path, cfg):
 
 def drive_cli(label, tmp, kernel, scene_name, size):
     """One frame through the command line, with the launch counts reset
-    just before and read just after."""
-    cfg = RenderConfig(**size)
+    just before and read just after. ``size`` with ``camera_rays`` in it is
+    a frame of the MIS integrator."""
+    mis = "camera_rays" in size
+    cfg = RenderConfig(integrator="mis" if mis else "path", **size)
     png = os.path.join(tmp, f"{label}.png")
     dbg = os.path.join(tmp, f"{label}.txt")
+    if mis:
+        flags = ["--integrator", "mis", "--camera-rays", str(cfg.camera_rays),
+                 "--mis-samples", str(cfg.mis_samples)]
+        depth = f"{cfg.camera_rays} camera rays x {cfg.mis_samples} samples"
+    else:
+        flags = ["--spp", str(cfg.spp), "--bounces", str(cfg.bounces)]
+        depth = f"{cfg.spp} spp x {cfg.bounces}"
     reset_launches()
     start = time.perf_counter()
     rc = cli.main([png, "--kernel", kernel, "--scene", scene_name,
                    "--width", str(cfg.width), "--height", str(cfg.height),
-                   "--spp", str(cfg.spp), "--bounces", str(cfg.bounces),
-                   "--debug-output", dbg])
+                   "--debug-output", dbg] + flags)
     seconds = time.perf_counter() - start
     launches = read_launches()
     check(rc == 0, f"path {label}: cli.main returned {rc}")
-    check_frame(png, dbg, cfg)
+    rows = check_frame(png, dbg, cfg)
+    if mis:
+        # Raw accumulated colour: the sum over the camera rays of a few
+        # units of radiance per ray on the walls (the light itself is 38).
+        mean = rows.mean() / cfg.camera_rays
+        check(0.3 < mean < 10.0, f"path {label}: mean radiance per camera "
+              f"ray {mean:.3f} is not a lit Cornell box's")
     log(f"  path {label}: {kernel} {scene_name} {cfg.width}x{cfg.height} "
-        f"x {cfg.spp} spp x {cfg.bounces}: {seconds:.3f} s with PNG, "
-        f"launches {launches}")
+        f"x {depth}: {seconds:.3f} s with PNG, launches {launches}")
     return launches
 
 
@@ -758,6 +1105,29 @@ def phase_main_path(tmp):
     check(launches["C"]["draws_kernel"] > 0 and launches["C"]["path_kernel"]
           > 0, "path C did not launch both kernels")
     return launches
+
+
+def phase_mis_path(tmp):
+    log("== MIS paths through cli.main")
+    launches = {
+        "F": drive_cli("F", tmp, "cuda", "cornell", MIS_FRAME),
+        "G": drive_cli("G", tmp, "cuda", "cornell-spheres", MIS_FRAME),
+        "H": drive_cli("H", tmp, "decoupled", "cornell", MIS_BENCH),
+    }
+    for label, counts in launches.items():
+        check(counts["mis_kernel"] == 1 and counts["path_kernel"] == 0,
+              f"path {label}: launches {counts}, expected one MIS kernel")
+    # Path F's library call once more, under the profiler: one kernel is
+    # the frame, so the card should be busy nearly all of it.
+    cfg = RenderConfig(integrator="mis", **MIS_FRAME)
+    scene = cornell_box(resolution=cfg.resolution)
+    wall_ms, busy_ms, top = device_busy(
+        lambda: cuda_mis.render_mis_cuda(scene, cfg))
+    share = f"{busy_ms / wall_ms:.1%}" if busy_ms else "not measured"
+    log(f"  path F, render_mis_cuda under the profiler: {wall_ms:.1f} ms of "
+        f"which the card is busy {busy_ms:.1f} ms ({share}); most device "
+        "time: " + ", ".join(f"{name} {ms:.3f} ms" for name, ms in top))
+    return launches, dict(profiled_ms=wall_ms, device_busy_ms=busy_ms)
 
 
 def phase_train():
@@ -795,7 +1165,7 @@ def phase_train():
         after = read_launches()
         per_step = {k: after[k] - before[k] for k in after}
         check(per_step == {"draws_kernel": 0, "path_kernel": 1,
-                           "shade_bwd_kernel": 1},
+                           "shade_bwd_kernel": 1, "mis_kernel": 0},
               f"path D step {step}: launches {per_step}, expected one trace "
               "and one backward")
     launches = read_launches()
@@ -855,7 +1225,7 @@ def phase_inverse():
     for name, value in zip(result.params._fields, result.params):
         check(bool(torch.isfinite(value).all()), f"path E: {name} not finite")
     check(launches == {"draws_kernel": 1, "path_kernel": steps,
-                       "shade_bwd_kernel": steps},
+                       "shade_bwd_kernel": steps, "mis_kernel": 0},
           f"path E: launches {launches}")
     log(f"  path E: loss {losses[0].item():.4e} -> {losses[-1].item():.4e} "
         f"in {steps} steps, {1e3 * seconds / steps:.2f} ms per step (host "
@@ -929,6 +1299,79 @@ def shade_rows(launches):
         del sh, ref, nudged
         torch.cuda.empty_cache()
     return rows
+
+
+def mis_rows(launches):
+    """The MIS kernel at the shapes of paths F, G and H, as those paths
+    launch it, against its plain version on the whole frame: its time and
+    its bound from the records of the same frame."""
+    rows = []
+    # The plain version at two lighter shapes as well: the reference's frame
+    # with 1 camera ray and 30 samples, and the small frame at the
+    # reference's depth (600 sample steps, launch-bound).
+    plain = {}
+    for key, size in (
+            ("800x600 x 1 x 30", dict(MIS_FRAME, camera_rays=1,
+                                      mis_samples=30)),
+            ("128x96 x 6 x 300", dict(MIS_FRAME, width=128, height=96))):
+        cfg = RenderConfig(integrator="mis", **size)
+        inp = MisInputs("cornell", cfg, cull=False)
+        hdr_k, rec_k = inp.kernel(emit=True)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        hdr_p, rec_p = inp.plain(emit=True, pixel_chunk=cfg.num_pixels)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - start)
+        flips, err = compare_mis(f"K4 at {key}", hdr_k, rec_k, hdr_p, rec_p,
+                                 inp.packed)
+        k_ms = time_ms(lambda: inp.kernel())
+        plain[key] = dict(plain_ms=plain_ms, kernel_ms=k_ms[1],
+                          flip_share=flips, max_abs_err=err)
+        log(f"  K4 at {key}, cornell: plain {plain_ms:.1f} ms, kernel "
+            f"{k_ms[1]:.3f} ms")
+        del hdr_p, rec_p, rec_k
+        torch.cuda.empty_cache()
+
+    for label, scene_name, size, emit, cull in (
+            ("F", "cornell", MIS_FRAME, False, False),
+            ("G", "cornell-spheres", MIS_FRAME, False, False),
+            ("H", "cornell", MIS_BENCH, True, True)):
+        cfg = RenderConfig(integrator="mis", **size)
+        inp = MisInputs(scene_name, cfg, cull=cull)
+        hdr_h, _ = inp.kernel()
+        hdr_e, rec = inp.kernel(emit=True)
+        torch.cuda.synchronize()
+        check(torch.equal(hdr_h, hdr_e), f"K4 at {label}: records on and off "
+              "give different images")
+        # The plain version on the whole frame, records and all.
+        start = time.perf_counter()
+        hdr_p, rec_p = inp.plain(emit=True, pixel_chunk=cfg.num_pixels)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - start)
+        flips, err = compare_mis(f"K4 at {label}", hdr_e, rec, hdr_p, rec_p,
+                                 inp.packed)
+        del hdr_p, rec_p
+        bound, by, counts = mis_bound(inp, rec, emit)
+        del rec, hdr_e
+        torch.cuda.empty_cache()
+        k_ms = time_ms(lambda: inp.kernel(emit=emit))
+        other_ms = time_ms(lambda: inp.kernel(emit=not emit), repeats=3)
+        row = dict(
+            name=f"mis_kernel[{'records, occluder cull' if emit else 'hdr'}, "
+                 f"{scene_name}]", route="cuda", source=MIS_SOURCE,
+            replaces=MIS_REPLACES,
+            shape=f"{label}: {cfg.width}x{cfg.height} x {cfg.camera_rays} "
+                  f"camera rays x {cfg.mis_samples} samples, {inp.num_tris} "
+                  f"triangles, {inp.packed.num_spheres} spheres",
+            launches=launches[label]["mis_kernel"], max_abs_err=err,
+            flip_share=flips, ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2],
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+            mrays_per_s=nominal_rays(cfg) / k_ms[1] / 1e3, **counts)
+        row["records_on_ms" if not emit else "records_off_ms"] = other_ms[1]
+        rows.append(row)
+        log(f"  K4 at {label}: {counts}; the other mode (records "
+            f"{'off' if emit else 'on'}) {other_ms[1]:.3f} ms")
+    return rows, plain
 
 
 def phase_full(launches, plain_small):
@@ -1035,13 +1478,15 @@ def phase_full(launches, plain_small):
         torch.cuda.empty_cache()
 
     rows += shade_rows(launches)
+    k4_rows, mis_plain = mis_rows(launches)
+    rows += k4_rows
     for row in rows:
         log(f"  {row['name']} @ {row['shape']}: kernel {row['ms']:.3f} ms "
             f"(min {row['ms_min']:.3f}, max {row['ms_max']:.3f}), bound "
             f"{row['bound_ms']:.3f} ms by {row['bound_by']}, plain "
             f"{row['plain_ms']:.1f} ms, launches {row['launches']}")
     row_small = {k: v[1] for k, v in plain_small.items()}
-    return rows, row_small
+    return rows, row_small, mis_plain
 
 
 def main() -> int:
@@ -1056,18 +1501,25 @@ def main() -> int:
     try:
         resources, smi = phase_build()
         plain_small = phase_small()
+        plain_small.update(phase_mis_small())
         launches = phase_main_path(tmp)
         launches["D"], step_ms = phase_train()
         launches["E"], inverse_ms = phase_inverse()
-        rows, small_ms = phase_full(launches, plain_small)
+        mis_launches, mis_frame_ms = phase_mis_path(tmp)
+        launches.update(mis_launches)
+        mis_grad = phase_mis_grad()
+        rows, small_ms, mis_plain = phase_full(launches, plain_small)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.synchronize()
     log(f"== done in {time.perf_counter() - started:.1f} s; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(json.dumps({"kernels": rows, "small_128x96x4spp_ms": small_ms,
+    print(json.dumps({"kernels": rows, "small_128x96_ms": small_ms,
                       "path_D_step_ms": step_ms,
                       "path_E_step_ms": inverse_ms,
+                      "path_F_profiled_ms": mis_frame_ms,
+                      "mis_plain_ms": mis_plain,
+                      "mis_oracle_backward": mis_grad,
                       "ptxas": resources}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

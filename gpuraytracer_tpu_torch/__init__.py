@@ -5,9 +5,10 @@ reference), for NVIDIA Hopper:
 
   * ``types``     scene dataclasses of tensors, ``RenderConfig``
   * ``scene``     Cornell-box constructors
-  * ``sampling``  Halton/hash RNG, camera, hemisphere and light samplers
+  * ``sampling``  Halton/hash RNG, camera, hemisphere, light and GGX samplers
+  * ``brdf``      metallic-roughness microfacet BRDF
   * ``intersect`` brute-force batched ray-scene queries
-  * ``render``    eager PyTorch oracle (path / direct)
+  * ``render``    eager PyTorch oracles (path / direct / mis)
   * ``ops``       hand-written CUDA kernels for the hot path, forward and
                   backward
   * ``grad``      pixel losses and inverse rendering
@@ -23,8 +24,9 @@ them.
 
 from .types import (BoxLights, Camera, CompiledScene, RenderConfig, Scene,
                     SphereLights, Spheres, SquareLight, TriangleScene)
-from .scene import cornell_box, cornell_box_with_spheres
+from .scene import cornell_box, cornell_box_glossy, cornell_box_with_spheres
+from .brdf import brdf_contribution
 from .intersect import any_hit, closest_hit, compile_scene
-from .render import RenderOutput, render
+from .render import RenderOutput, render, render_mis, tonemap_mis
 
 __version__ = "0.1.0"

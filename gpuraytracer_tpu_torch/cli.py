@@ -3,8 +3,10 @@
 Counterpart of ``gpuraytracer_tpu/cli.py``: the same flags and prints
 (positional output filename, "Render completed in %.2f seconds"), plus
 ``--device``. ``--kernel eager`` is the plain PyTorch oracle, ``cuda`` the
-trace kernel in hdr mode, ``decoupled`` the draws kernel + the trace kernel
-with records and the static occluder cull.
+trace kernel in hdr mode, ``decoupled`` the record-emitting trace with the
+static occluder cull (for the path tracer with the draws kernel before it).
+``--integrator mis`` renders variant A through the same three routes and
+writes the PNG from its own tone curve (``render.tonemap_mis``).
 """
 from __future__ import annotations
 
@@ -51,10 +53,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    if args.integrator in ("mis", "legacy"):
+    if args.integrator == "legacy":
         raise SystemExit(
-            f"--integrator {args.integrator} is not ported yet (a later "
-            "slice of the port: MIS kernels / legacy tier)")
+            "--integrator legacy is not ported yet (a later slice of the "
+            "port: the legacy tier)")
     if args.devices != 1:
         raise SystemExit(
             "--devices N>1 is not ported yet (a later slice of the port: "
@@ -63,7 +65,7 @@ def main(argv=None) -> int:
     import torch
 
     from . import image as img
-    from .render import render
+    from .render import render, tonemap_mis
     from .scene import cornell_box, cornell_box_with_spheres
     from .types import RenderConfig
     from .utils.host import fetch, resolve_device
@@ -82,7 +84,19 @@ def main(argv=None) -> int:
            else config)
 
     start = time.perf_counter()
-    if args.kernel == "cuda":
+    if args.integrator == "mis":
+        if args.kernel == "cuda":
+            from .ops import render_mis_cuda
+            hdr = render_mis_cuda(scene, config, device=device)
+        elif args.kernel == "decoupled":
+            from .intersect import potential_occluders
+            from .ops import render_mis_decoupled
+            hdr = render_mis_decoupled(
+                scene, config, occluders=potential_occluders(scene, config),
+                device=device)
+        else:
+            hdr = render(scene, config, device=device).hdr
+    elif args.kernel == "cuda":
         from .ops import render_path_cuda
         hdr = render_path_cuda(scene, cfg, device=device)
     elif args.kernel == "decoupled":
@@ -103,7 +117,14 @@ def main(argv=None) -> int:
     elapsed = time.perf_counter() - start
 
     hdr_np = fetch(hdr)
-    img.write_png(args.output, img.tonemap(hdr_np, exposure=args.exposure))
+    if args.integrator == "mis":
+        # Variant A tonemaps with the camera's exposure (mean over camera
+        # rays, ev100, Reinhard, gamma 2.2).
+        ldr = tonemap_mis(hdr, config.camera_rays, scene.camera.ev100)
+        img.write_png(args.output, img.to_uint8(fetch(ldr)))
+    else:
+        img.write_png(args.output,
+                      img.tonemap(hdr_np, exposure=args.exposure))
     if args.debug_output:
         img.write_debug_file(args.debug_output, hdr_np)
 

@@ -24,6 +24,9 @@ from pathlib import Path
 from typing import Dict, List, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+# Every kernel source of the package: the path tracer's draws and trace, its
+# backward, the MIS integrator.
+SOURCES = ("path_kernels", "shade_kernels", "mis_kernels")
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
              / "gpuraytracer_tpu_torch")
 
@@ -101,7 +104,8 @@ def load_library(name: str) -> BuiltLibrary:
         return _LOADED.setdefault(name, built)
 
 
-def load_libraries(names: Sequence[str]) -> List[BuiltLibrary]:
-    """Build and load several sources, their ``nvcc`` runs side by side."""
+def load_libraries(names: Sequence[str] = SOURCES) -> List[BuiltLibrary]:
+    """Build and load several sources (all of them unless told otherwise),
+    their ``nvcc`` runs side by side."""
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         return list(pool.map(load_library, names))

@@ -152,6 +152,10 @@ RED = dict(diffuse=(0.9, 0.0, 0.0), metallic=0.05, roughness=0.3)
 GREEN = dict(diffuse=(0.0, 0.7, 0.0), metallic=0.05, roughness=0.8)
 WHITE = dict(diffuse=(0.9, 0.9, 0.9), metallic=0.05, roughness=0.8)
 DIFFUSE_BOX = dict(diffuse=(0.9, 0.9, 0.9), metallic=0.05, roughness=0.3)
+SPECULAR_BOX = dict(diffuse=(0.9, 0.9, 0.9), metallic=0.9, roughness=0.3)
+# Glossier variant of the specular material (not in the reference): the
+# tighter lobe stresses the VNDF sampling branch harder than roughness 0.3.
+GLOSSY_BOX = dict(diffuse=(0.9, 0.9, 0.9), metallic=0.9, roughness=0.1)
 LIGHT_MATERIAL = dict(diffuse=(1.0, 0.95, 0.9), metallic=0.0, roughness=0.0,
                       emissive=(1.0, 1.0, 1.0))
 
@@ -232,6 +236,19 @@ def cornell_box(
         sphere_lights=empty_sphere_lights(),
         box_lights=empty_box_lights(),
     )
+
+
+def cornell_box_glossy(resolution: Tuple[int, int] = (512, 512),
+                       room_size: float = 5.0) -> Scene:
+    """The Cornell box with glossy/specular box materials: the reference's
+    unused specular material (metallic 0.9 / roughness 0.3,
+    RTrace/scene.swift:76) on the tall box and a tighter-lobe glossy variant
+    on the short box. The only stock scene where metallic and roughness are
+    non-trivial; render it with the MIS integrator (the specular BRDF and
+    VNDF branches are variant A's) and ``sampler="stratified"``."""
+    return cornell_box(resolution=resolution, room_size=room_size,
+                       tall_box_material=SPECULAR_BOX,
+                       short_box_material=GLOSSY_BOX)
 
 
 def make_spheres(centers, radii, materials) -> Spheres:

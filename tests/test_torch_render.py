@@ -13,8 +13,9 @@ import gpuraytracer_tpu.types as jtypes
 from gpuraytracer_tpu.render import render as jax_render
 from gpuraytracer_tpu_torch import cli, convert, image
 from gpuraytracer_tpu_torch import scene as tscene
-from gpuraytracer_tpu_torch.ops import render_path_cuda, render_path_decoupled
-from gpuraytracer_tpu_torch.render import render
+from gpuraytracer_tpu_torch.ops import (render_mis_cuda, render_path_cuda,
+                                        render_path_decoupled)
+from gpuraytracer_tpu_torch.render import render, tonemap_mis
 from gpuraytracer_tpu_torch.types import RenderConfig
 from gpuraytracer_tpu_torch.utils.metrics import mrays_per_s, nominal_rays
 
@@ -93,8 +94,7 @@ def test_seed_changes_the_image():
     assert not torch.equal(a, b)
 
 
-@pytest.mark.parametrize("integrator,slice_name",
-                         [("mis", "MIS"), ("legacy", "legacy")])
+@pytest.mark.parametrize("integrator,slice_name", [("legacy", "legacy")])
 def test_unported_integrators_raise(integrator, slice_name):
     _, scene = _scenes("cornell")
     _, cfg = _cfgs(integrator=integrator)
@@ -102,6 +102,8 @@ def test_unported_integrators_raise(integrator, slice_name):
         render(scene, cfg, device="cpu")
     with pytest.raises(SystemExit, match="later"):
         cli.main(["x.png", "--integrator", integrator, "--device", "cpu"])
+    with pytest.raises(ValueError, match="unknown integrator"):
+        render(scene, cfg.replace(integrator="bidirectional"), device="cpu")
 
 
 def test_render_default_device_raises_without_a_card():
@@ -121,8 +123,15 @@ def test_ray_accounting():
     assert nominal_rays(cfg.replace(integrator="direct")) == (
         800 * 600 * 400 * 2)
     assert mrays_per_s(cfg, 2.0) == pytest.approx(800 * 600 * 400 * 3 / 1e6)
+    # Variant A by the executed count: a primary ray and five traversals
+    # per sample of each strategy, per camera ray.
+    mis = RenderConfig(width=800, height=600, integrator="mis",
+                       camera_rays=6, mis_samples=300)
+    assert nominal_rays(mis) == 800 * 600 * 6 * (1 + 100 * 5)
+    assert nominal_rays(mis.replace(mis_samples=302)) == nominal_rays(mis)
+    assert mrays_per_s(mis, 1.0) == pytest.approx(1442.88)
     with pytest.raises(ValueError, match="no ray accounting"):
-        nominal_rays(cfg.replace(integrator="mis"))
+        nominal_rays(cfg.replace(integrator="legacy"))
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +165,41 @@ def test_cli_renders_a_png(kernel, scene_name, tmp_path, capsys):
     # Eager and kernel paths may differ by one grey level where a value
     # sits on a rounding boundary.
     assert np.abs(rgb.astype(int) - expect.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("kernel", ["eager", "cuda", "decoupled"])
+@pytest.mark.parametrize("scene_name", ["cornell", "cornell-spheres"])
+def test_cli_renders_a_mis_png(kernel, scene_name, tmp_path, capsys):
+    """``--integrator mis`` through the three routes: the two lines of the
+    reference, a PNG tonemapped by ``tonemap_mis`` and the raw hdr's rows."""
+    out = tmp_path / "mis.png"
+    dbg = tmp_path / "debug.txt"
+    rc = cli.main([str(out), "--device", "cpu", "--integrator", "mis",
+                   "--kernel", kernel, "--scene", scene_name,
+                   "--width", "24", "--height", "12", "--camera-rays", "2",
+                   "--mis-samples", "6", "--debug-output", str(dbg)])
+    assert rc == 0
+    printed = capsys.readouterr().out
+    assert re.search(r"Render completed in \d+\.\d\d seconds", printed)
+    assert f"Image saved to {out}" in printed
+    rgb = image.read_png(str(out))
+    assert rgb.shape == (12, 24, 3) and rgb.dtype == np.uint8
+    assert rgb.max() > 0
+    rows = np.loadtxt(dbg)
+    assert rows.shape == (12, 3) and np.isfinite(rows).all()
+
+    ctor = (tscene.cornell_box if scene_name == "cornell"
+            else tscene.cornell_box_with_spheres)
+    cfg = RenderConfig(width=24, height=12, integrator="mis", camera_rays=2,
+                       mis_samples=6)
+    scene = ctor(resolution=(24, 12))
+    hdr = render_mis_cuda(scene, cfg, device="cpu")
+    expect = image.to_uint8(tonemap_mis(hdr, 2, scene.camera.ev100).numpy())
+    # Eager and kernel paths may differ by a grey level or two where a
+    # value sits on a rounding boundary.
+    assert np.abs(rgb.astype(int) - expect.astype(int)).max() <= 2
+    np.testing.assert_allclose(rows, hdr.numpy().mean(axis=1), rtol=2e-3,
+                               atol=1e-3)
 
 
 def test_cli_direct_integrator_and_devices_flag(tmp_path):
@@ -197,7 +241,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_sources()
     assert len(files) > 15 and files[-1].exists()
     names = {str(p.relative_to(REPO)) for p in files}
-    assert {"gpuraytracer_tpu_torch/grad/__init__.py",
+    assert {"gpuraytracer_tpu_torch/brdf.py",
+            "gpuraytracer_tpu_torch/ops/cuda_mis.py",
+            "gpuraytracer_tpu_torch/ops/csrc/mis_kernels.cu",
+            "gpuraytracer_tpu_torch/grad/__init__.py",
             "gpuraytracer_tpu_torch/grad/inverse.py",
             "gpuraytracer_tpu_torch/ops/cuda_shade.py",
             "gpuraytracer_tpu_torch/ops/csrc/shade_kernels.cu",
