@@ -6,8 +6,9 @@
 Builds the CUDA kernels from the sources in this checkout, holds each against
 its plain PyTorch version on the card, renders six frames through the
 command-line entry point (three with the path tracer, three with the MIS
-integrator) and trains through the library entry points (the main paths),
-times the kernels, and prints
+integrator) and trains through the library entry points (the main paths:
+the path tracer's and the MIS integrator's gradients), times the kernels,
+and prints
 
   * a ``kernels`` JSON line (time, bound, plain-version time, launches on the
     main path, largest difference from the plain version, per kernel),
@@ -18,8 +19,9 @@ It needs a card: without one it exits non-zero and prints no result. Every
 failed check raises, so a run that ends in the ``ok`` line passed them all.
 
 Phases
-  build   nvcc builds ops/csrc/path_kernels.cu, shade_kernels.cu and
-          mis_kernels.cu side by side; registers and spills printed.
+  build   nvcc builds ops/csrc/path_kernels.cu, shade_kernels.cu,
+          mis_kernels.cu and mis_bwd_kernels.cu side by side; registers and
+          spills printed.
   small   128 x 96, 4 spp, 3 bounces, both scenes, both samplers: draws
           kernel bit-equal to its plain version; trace kernel in its three
           modes against the plain version (records equal except a printed
@@ -54,13 +56,27 @@ Phases
           ``torch.profiler`` for the card's busy share.
   H       ``--integrator mis --kernel decoupled`` at 512 x 512 x 6 x 300:
           records on, light probes culled.
+  mis_bwd the MIS backward kernel against its plain version on the records
+          of the MIS kernel and a seeded cotangent, three scenes at 128 x 96
+          x 2 x 12 and 256 x 192 x 2 x 30, two launches bit-equal; then the
+          gradients ``render_mis_decoupled`` gives every scene tensor at 128 x
+          96, against autograd through ``cuda_mis_bwd.replay_mis`` on the
+          same records (three scenes), and against ``render_mis_cuda``'s
+          oracle backward (held on the two triangle scenes, printed on the
+          sphere scene).
+  I       the MIS training workload at full width: gradients of
+          ``render_mis_decoupled(scene).mean()`` for every float tensor at
+          512 x 512 x 6 camera rays x 300 samples (``bench.py``'s second
+          line), occluder mask made once, box and sphere scene; four steps,
+          one MIS kernel and one MIS backward launch each; two more under
+          ``torch.profiler`` for the card's busy share.
   MIS gradients
           ``render_mis_cuda`` on a scene that asks for gradients, 128 x 96:
           the backward (autograd through the eager oracle) in three pixel
           ranges against the whole frame's graph; then one range near the
           default budget, for its time and the memory it holds.
-  full    the kernels at the shapes of A to H against their plain versions
-          (the MIS kernel's on the whole frame, records and all), and their
+  full    the kernels at the shapes of A to I against their plain versions
+          (the MIS kernels' on the whole frame, records and all), and their
           times.
 
 Tolerances. Draws: bit-equal (the radical inverse spells out each rounding).
@@ -93,7 +109,16 @@ geometry); image atol 2e-5 / rtol 1e-4 on the pixels whose decisions all
 agree — the kernel and its plain version read the same host-made sample
 table and hold no transcendental, so they run the same correctly rounded
 operations in the same order — and the largest difference over all pixels is
-printed against the integrator's own atol 5e-4 / rtol 1e-3.
+printed against the integrator's own atol 5e-4 / rtol 1e-3. MIS backward
+kernel: per output group atol 1e-6 max(scale, 1) + rtol 1e-4 of the group's
+largest magnitude (same records: only the order of the sums over lanes
+differs), plus four times the distance the plain version moves under a
+one-ulp change of a sample-table row. Its path: against autograd through
+the replay of the same records, the same atol and rtol without the
+addition; against the oracle backward, which makes its own decisions, the
+JAX package's MIS gradient tolerance atol 1e-5 max(scale, 1) + rtol 2e-4 on
+the triangle scenes (on the sphere scene an ulp flips grazing decisions
+that carry large geometry gradients: that distance is printed, not held).
 """
 from __future__ import annotations
 
@@ -115,8 +140,8 @@ import torch
 from gpuraytracer_tpu_torch import cli, image
 from gpuraytracer_tpu_torch.grad import inverse
 from gpuraytracer_tpu_torch.intersect import potential_occluders
-from gpuraytracer_tpu_torch.ops import (_build, cuda_mis, cuda_path, cuda_shade,
-                                        decoupled)
+from gpuraytracer_tpu_torch.ops import (_build, cuda_mis, cuda_mis_bwd,
+                                        cuda_path, cuda_shade, decoupled)
 from gpuraytracer_tpu_torch.render import pixel_rng_offsets, render_mis
 from gpuraytracer_tpu_torch.sampling import PRIMES
 from gpuraytracer_tpu_torch.scene import (cornell_box, cornell_box_glossy,
@@ -189,6 +214,27 @@ MIS_HDR_ATOL, MIS_HDR_RTOL = 5e-4, 1e-3   # the integrator's own tolerance
 # (with its BRDF) and blocked.
 OPS_MIS_CAMERA, OPS_MIS_SAMPLE = 140, 832
 OPS_MIS_SECONDARY, OPS_MIS_SECONDARY_BLOCKED = 182, 36
+# Float32 operations of the MIS backward kernel per path through it, counted
+# from mis_bwd_kernels.cu (one per multiply, add, divide, square root, compare,
+# min, max or |x|; selects not counted) by running its device functions on the
+# host with a counting float type: the hoisted stage forward and reversed,
+# per camera ray on a surface; strategy 1 per reached light sample; the cosine
+# and VNDF strategies per lobe ray on the light and per lobe ray on geometry
+# whose light sample was reached (with the secondary light sample); what a
+# recorded sphere winner adds (its quadratic and point normal, forward and
+# reversed). A lane whose camera ray missed or landed on the light, a blocked
+# light sample and a lobe ray that left the scene or was blocked need none.
+OPS_K5_HOIST, OPS_K5_LIGHT = 493, 603
+OPS_K5_COS_ON_LIGHT, OPS_K5_COS_ON_GEO = 686, 1241
+OPS_K5_VNDF_ON_LIGHT, OPS_K5_VNDF_ON_GEO = 850, 1405
+OPS_K5_SPHERE_HIT = 139
+MIS_BWD_SOURCE = "gpuraytracer_tpu_torch/ops/csrc/mis_bwd_kernels.cu"
+MIS_BWD_REPLACES = "gpuraytracer_tpu/ops/pallas_mis_bwd.py:1099"
+# The MIS backward against its plain version at a second, mid size.
+MIS_BWD_MID = dict(width=256, height=192, camera_rays=2, mis_samples=30)
+# The MIS backward kernel's path against the oracle backward on the triangle
+# scenes: the JAX package's MIS gradient tolerance (tests/test_mis_fused.py).
+MIS_ORACLE_ATOL, MIS_ORACLE_RTOL = 1e-5, 2e-4
 SHADE_SOURCE = "gpuraytracer_tpu_torch/ops/csrc/shade_kernels.cu"
 SHADE_REPLACES = "gpuraytracer_tpu/ops/pallas_shade.py:72"
 
@@ -329,14 +375,14 @@ def compare_draws(what, got, ref):
 
 def reset_launches() -> None:
     for counts in (cuda_path.LAUNCHES, cuda_shade.LAUNCHES,
-                   cuda_mis.LAUNCHES):
+                   cuda_mis.LAUNCHES, cuda_mis_bwd.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
 
 def read_launches() -> dict:
     return {**cuda_path.LAUNCHES, **cuda_shade.LAUNCHES,
-            **cuda_mis.LAUNCHES}
+            **cuda_mis.LAUNCHES, **cuda_mis_bwd.LAUNCHES}
 
 
 class ShadeInputs:
@@ -739,6 +785,141 @@ def mis_bound(inp: MisInputs, rec: cuda_mis.MisRecords, emit: bool):
 
 
 # ---------------------------------------------------------------------------
+# The MIS backward kernel: inputs, comparison, bound
+# ---------------------------------------------------------------------------
+
+class MisBwdInputs:
+    """What the MIS backward wrapper and its plain version take, on the card:
+    the records of the MIS kernel's trace of ``scene_name`` (light probes
+    culled, as the differentiable path traces), the parameter views, the
+    sample table and a cotangent from a seeded generator."""
+
+    def __init__(self, scene_name: str, cfg: RenderConfig):
+        self.cfg = cfg
+        self.trace = MisInputs(scene_name, cfg, cull=True)
+        _, self.records = self.trace.kernel(emit=True)
+        views = cuda_mis_bwd._pack_diff_inputs_mis(
+            self.trace.scene.to("cuda"), cfg)
+        self.table, self.cam, self.light = (v.contiguous() for v in views)
+        self.stab = cuda_mis.sample_table(cfg).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(4321)
+        self.g = torch.randn((3, cfg.num_pixels), generator=gen,
+                             device="cuda")
+
+    def _args(self, stab):
+        return (self.g, self.records, self.table, self.cam, self.light, stab,
+                self.cfg)
+
+    def kernel(self):
+        return cuda_mis_bwd.mis_bwd_kernel(*self._args(self.stab))
+
+    def plain(self, nudge=False, whole_frame=False):
+        """The plain version; with ``nudge`` on a sample table whose cosine
+        lobe's w0 row is one ulp up, to measure how well conditioned the
+        sums are."""
+        stab = self.stab
+        if nudge:
+            stab = stab.clone()
+            row = stab[cuda_mis.TAB_W0C]
+            stab[cuda_mis.TAB_W0C] = torch.nextafter(row, row + 1.0)
+        args = list(self._args(stab))
+        if whole_frame:
+            args[-1] = self.cfg.replace(pixel_chunk=self.cfg.num_pixels)
+        return cuda_mis_bwd.mis_bwd_plain(*args)
+
+
+def k5_groups(dtab, dscal):
+    """The MIS backward's outputs by what they are the cotangent of."""
+    groups = {"d normal": dtab[:, 0:3], "d c0": dtab[:, 3:4],
+              "d diffuse": dtab[:, 4:7], "d metallic": dtab[:, 7:8],
+              "d roughness": dtab[:, 8:9]}
+    if dtab.shape[1] == cuda_mis_bwd.NDIF_SPH:
+        groups["d center"] = dtab[:, 10:13]
+        groups["d radius"] = dtab[:, 13:14]
+    names = ("camera position", "camera u", "camera v", "camera w",
+             "light center", "light radiance", "light width", "light depth",
+             "light normal", "light tangent", "light bitangent")
+    sizes = (3, 3, 3, 3, 3, 3, 1, 1, 3, 3, 3)
+    start = 0
+    for name, size in zip(names, sizes):
+        groups[name] = dscal[start:start + size]
+        start += size
+    return groups
+
+
+def compare_k5(what, got, ref, nudged):
+    """Each group within 1e-6 max(scale, 1) + 1e-4 scale of the plain
+    version (scale: the group's largest magnitude; the path-gradient
+    tolerance), plus CONDITION_FACTOR times the distance the plain version
+    moves under a one-ulp nudge of a sample-table row; both distances are
+    printed. The selector columns must be zero. Returns the largest absolute
+    difference."""
+    dtab = got[0]
+    check(not dtab[:, 9].any() and (dtab.shape[1] == cuda_mis_bwd.NDIF
+                                    or not dtab[:, 14].any()),
+          f"{what}: a selector column has a cotangent")
+    k, r, m = (k5_groups(*x) for x in (got, ref, nudged))
+    worst, parts = 0.0, []
+    for name in r:
+        check(bool(torch.isfinite(k[name]).all()), f"{what}: {name} not finite")
+        scale = r[name].abs().max().item()
+        err = (k[name] - r[name]).abs().max().item()
+        moved = (m[name] - r[name]).abs().max().item()
+        limit = (GRAD_ATOL * max(scale, 1.0) + GRAD_RTOL * scale
+                 + CONDITION_FACTOR * moved)
+        parts.append(f"{name} {err / (scale or 1.0):.1e} "
+                     f"({moved / (scale or 1.0):.1e})")
+        check(err <= limit, f"{what}: {name} differs by {err:.3e} (largest "
+              f"magnitude {scale:.3e}, limit {limit:.3e})")
+        worst = max(worst, err)
+    log(f"  {what}: largest difference over largest magnitude (and how far "
+        "one ulp in a sample-table row moves the plain version): "
+        + ", ".join(parts))
+    return worst
+
+
+def k5_bound(inp: MisBwdInputs):
+    """(bound_ms, bound_by, counts) of one MIS backward from the records it
+    replays: the operations of the paths these records need (OPS_K5_*)
+    against the cotangent, the camera records, the sample records of the
+    camera rays on a surface and the tables read once, the outputs written
+    once."""
+    cfg, rec = inp.cfg, inp.records
+    is_em = inp.table[9] > 0.5
+    n_tris = inp.trace.num_tris
+
+    def on_geometry(code):
+        return (code > 0) & ~is_em[(code.long() - 1).clamp_min(0)]
+
+    surf = on_geometry(rec.camera)                     # [rays, n]
+    f = mis_fields(rec)
+    live = surf[:, None, :]
+    counts = dict(surf_rays=int(surf.sum()),
+                  live_samples=int(surf.sum()) * (cfg.mis_samples // 3),
+                  light=int((f["reach1"] & live).sum()))
+    ops = (counts["surf_rays"] * OPS_K5_HOIST
+           + counts["light"] * OPS_K5_LIGHT
+           + int((surf & (rec.camera > n_tris)).sum()) * OPS_K5_SPHERE_HIT)
+    for lobe, reach, on_light_ops, on_geo_ops in (
+            ("cos_prim", "reach2", OPS_K5_COS_ON_LIGHT, OPS_K5_COS_ON_GEO),
+            ("vndf_prim", "reach3", OPS_K5_VNDF_ON_LIGHT, OPS_K5_VNDF_ON_GEO)):
+        code = f[lobe]
+        geo = on_geometry(code) & live & f[reach]
+        on_light = (code > 0) & live & ~on_geometry(code)
+        counts[f"{lobe[:-5]}_on_light"] = int(on_light.sum())
+        counts[f"{lobe[:-5]}_on_geometry"] = int(geo.sum())
+        ops += (int(on_light.sum()) * on_light_ops + int(geo.sum()) * on_geo_ops
+                + int((geo & (code > n_tris)).sum()) * OPS_K5_SPHERE_HIT)
+    outputs = inp.table.numel() + cuda_mis_bwd.NSCAL
+    nbytes = (12 * cfg.num_pixels + 4 * rec.camera.numel()
+              + 4 * counts["live_samples"] + 4 * outputs
+              + 4 * (inp.stab.numel() + cuda_mis_bwd.NSCAL))
+    bound, by = roofline(nbytes, ops)
+    counts["operations"] = ops
+    return bound, by, counts
+
+
+# ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
 
@@ -754,6 +935,9 @@ def ptxas_resources(log_text: str):
             m = re.search(r"mis_kernelILb(\d)E", mangled)
             if m:
                 name = f"mis_kernel<EMIT={m.group(1)}>"
+            m = re.search(r"mis_bwd_kernelILb(\d)E", mangled)
+            if m:
+                name = f"mis_bwd_kernel<SPH={m.group(1)}>"
             m = re.search(r"path_kernelILb(\d)ELb(\d)E", mangled)
             if m:
                 name = (f"path_kernel<EMIT={m.group(1)}, "
@@ -788,15 +972,21 @@ def phase_build():
     for lib in libs:
         log(f"  built {lib.path.name} in {lib.seconds:.1f} s")
     logs = "\n".join(lib.log for lib in libs)
-    resources = ptxas_resources(logs)
+    resources = {}
+    for lib in libs:
+        # Two libraries hold a reduce_partials_kernel (reduce.cuh).
+        source = lib.path.name.split("-")[0][3:]
+        for name, res in ptxas_resources(lib.log).items():
+            resources[name if name not in resources
+                      else f"{name} ({source})"] = res
     for name, res in resources.items():
         log(f"  ptxas: {name}: {res['registers']} registers, "
             f"{res['stack_bytes']} B stack, {res['spill_store_bytes']} B "
             f"spill stores, {res['spill_load_bytes']} B spill loads")
-    check(len(resources) == 11, "ptxas did not report the draws kernel, the "
+    check(len(resources) == 14, "ptxas did not report the draws kernel, the "
           "three trace-kernel instantiations, the four backward-kernel "
-          "instantiations, the reduction and the two MIS-kernel "
-          f"instantiations: {resources}\n{logs}")
+          "instantiations, the two reductions, the two MIS-kernel and the "
+          f"two MIS-backward instantiations: {resources}\n{logs}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1028,6 +1218,202 @@ def phase_mis_grad():
                 budget_lane_steps=budget, max_rel_err_vs_whole_frame=worst)
 
 
+def phase_mis_bwd():
+    """The MIS backward kernel against its plain version on the same records
+    and cotangent, three scenes at two sizes, and two launches bit-equal;
+    then its path, ``render_mis_decoupled``, against the oracle backward of
+    ``render_mis_cuda`` on scenes that ask for gradients."""
+    log("== mis_bwd: the MIS backward kernel against its plain version")
+    worst = {}
+    for size in (MIS_SMALL, MIS_BWD_MID):
+        cfg = RenderConfig(integrator="mis", **size)
+        for scene_name in MIS_SCENES:
+            tag = (f"K5 {scene_name} {cfg.width}x{cfg.height} x "
+                   f"{cfg.camera_rays} x {cfg.mis_samples}")
+            inp = MisBwdInputs(scene_name, cfg)
+            got, again = inp.kernel(), inp.kernel()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{tag}: two launches on the same inputs differ")
+            worst[tag] = compare_k5(tag, got, inp.plain(),
+                                    inp.plain(nudge=True))
+
+    cfg = RenderConfig(integrator="mis", **MIS_SMALL)
+    log(f"== mis_bwd: the gradients of render_mis_decoupled(scene).mean(), "
+        f"{cfg.width} x {cfg.height} x {cfg.camera_rays} x {cfg.mis_samples}")
+    for scene_name in MIS_SCENES:
+        ctor = MIS_SCENES[scene_name]
+        scene = with_grad(ctor(resolution=cfg.resolution))
+        occluders = potential_occluders(scene, cfg)
+        reset_launches()
+        got = scene_grads(scene, cuda_mis_bwd.render_mis_decoupled(
+            scene, cfg, occluders=occluders))
+        launched = read_launches()
+        check(launched["mis_kernel"] == 1 and launched["mis_bwd_kernel"] == 1,
+              f"render_mis_decoupled with gradients launched {launched}")
+        # The same records, autograd through the replay built from the
+        # forwards alone.
+        ref_scene = with_grad(ctor(resolution=cfg.resolution))
+        _, rec = cuda_mis.render_mis_cuda_impl(
+            ref_scene.detach(), cfg, emit_records=True, occluders=occluders)
+        views = cuda_mis_bwd._pack_diff_inputs_mis(ref_scene, cfg)
+        replay = cuda_mis_bwd.replay_mis(*views, rec,
+                                         cuda_mis.sample_table(cfg).cuda(),
+                                         cfg)
+        ref = scene_grads(ref_scene, replay.T.reshape(cfg.height, cfg.width,
+                                                      3))
+        check(set(got) == set(ref) and len(ref) >= 12,
+              f"gradient groups {sorted(got)} against {sorted(ref)}")
+        parts = []
+        for name, r in ref.items():
+            scale = r.abs().max().item()
+            err = (got[name] - r).abs().max().item()
+            check(bool(torch.isfinite(got[name]).all()), f"{name}: not finite")
+            check(err <= GRAD_ATOL * max(scale, 1.0) + GRAD_RTOL * scale,
+                  f"K5 path, {scene_name}: d {name} differs from autograd "
+                  f"through the replay by {err:.3e} (largest magnitude "
+                  f"{scale:.3e})")
+            parts.append(f"{name} {err / max(scale, 1.0):.1e}")
+        log(f"  K5 path vs autograd through the replay of the same records, "
+            f"{scene_name}, {len(ref)} groups, largest difference over "
+            "max(largest magnitude, 1): " + ", ".join(parts))
+
+        # The oracle backward retraces with the eager oracle's own
+        # decisions. On the triangle scenes they are the trace kernel's; on
+        # the sphere scene an ulp flips grazing sphere decisions, which carry
+        # large geometry gradients: the distance is printed there.
+        o_scene = with_grad(ctor(resolution=cfg.resolution))
+        oracle = scene_grads(o_scene, cuda_mis.render_mis_cuda(o_scene, cfg))
+        parts, n_beyond = [], 0
+        for name, r in oracle.items():
+            scale = max(r.abs().max().item(), 1.0)
+            d = (got[name] - r).abs()
+            n_out = int((d > MIS_ORACLE_ATOL * scale
+                         + MIS_ORACLE_RTOL * r.abs()).sum())
+            n_beyond += n_out
+            parts.append(f"{name} {d.max().item() / scale:.1e}"
+                         + (f" ({n_out} beyond)" if n_out else ""))
+        log(f"  K5 path vs the oracle backward, {scene_name}: "
+            + ", ".join(parts))
+        if scene_name != "cornell-spheres":
+            check(n_beyond == 0, f"K5 path, {scene_name}: {n_beyond} "
+                  f"gradient elements differ from the oracle backward beyond "
+                  f"atol {MIS_ORACLE_ATOL} max(scale, 1) / rtol "
+                  f"{MIS_ORACLE_RTOL}")
+    return worst
+
+
+def phase_mis_train():
+    """Path I: gradients of ``render_mis_decoupled(scene).mean()`` for every
+    float tensor of the scene at 512 x 512 x 6 camera rays x 300 samples,
+    occluder mask made once; warm steps on the host clock, one MIS kernel and
+    one MIS backward launch per step; then steps under the profiler for the
+    card's busy share. Box scene and sphere scene."""
+    cfg = RenderConfig(integrator="mis", **MIS_BENCH)
+    out = {}
+    for scene_name in ("cornell", "cornell-spheres"):
+        log(f"== I: gradients of render_mis_decoupled(scene).mean(), "
+            f"{scene_name}, {cfg.width}x{cfg.height} x {cfg.camera_rays} x "
+            f"{cfg.mis_samples}")
+        scene = with_grad(SCENES[scene_name](resolution=cfg.resolution))
+        occluders = potential_occluders(scene, cfg)
+
+        def one_step():
+            hdr = cuda_mis_bwd.render_mis_decoupled(scene, cfg,
+                                                    occluders=occluders)
+            return hdr, scene_grads(scene, hdr)
+
+        reset_launches()
+        step_ms, grads, hdr = [], {}, None
+        for step in range(4):
+            before = read_launches()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            hdr, grads = one_step()
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - start))
+            after = read_launches()
+            per_step = {k: after[k] - before[k] for k in after}
+            check(per_step == {"draws_kernel": 0, "path_kernel": 0,
+                               "shade_bwd_kernel": 0, "mis_kernel": 1,
+                               "mis_bwd_kernel": 1},
+                  f"path I step {step}: launches {per_step}")
+        launches = read_launches()
+        check(hdr.shape == (cfg.height, cfg.width, 3)
+              and bool(torch.isfinite(hdr).all()), "path I: image")
+        check(len(grads) >= 12 and all(bool(torch.isfinite(g).all())
+                                       for g in grads.values()),
+              f"path I: gradients {sorted(grads)}")
+        for name in ("light.emitted_radiance", "light.center",
+                     "triangles.verts", "triangles.roughness",
+                     "camera.position"):
+            check(grads[name].abs().max().item() > 0.0,
+                  f"path I: gradient of {name} is all zero")
+        warm = step_ms[1:]
+        mrays = [nominal_rays(cfg) / (ms / 1e3) / 1e6 for ms in warm]
+        wall_ms, busy_ms, top = device_busy(lambda: [one_step()
+                                                     for _ in range(2)])
+        share = f"{busy_ms / wall_ms:.1%}" if busy_ms else "not measured"
+        log(f"  path I {scene_name}: step times " + ", ".join(
+            f"{t:.1f}" for t in step_ms) + " ms (host clock, the first with "
+            "warm-up), " + ", ".join(f"{m:.1f}" for m in mrays) + " Mrays/s "
+            f"warm; under the profiler {wall_ms / 2:.1f} ms per step of which "
+            f"the card is busy {busy_ms / 2:.1f} ms ({share}); most device "
+            "time: " + ", ".join(f"{name} {ms / 2:.3f} ms" for name, ms in top)
+            + f"; launches {launches}")
+        out[scene_name] = dict(steps_ms=step_ms, warm_mrays_per_s=mrays,
+                               profiled_ms=wall_ms / 2,
+                               device_busy_ms=busy_ms / 2, launches=launches)
+    return out
+
+
+def mis_bwd_rows(path_i, resources):
+    """The MIS backward kernel at path I's shapes, as path I launches it:
+    against its plain version on the whole frame, its time and its bound
+    from the records of the same frame."""
+    rows = []
+    cfg = RenderConfig(integrator="mis", **MIS_BENCH)
+    for scene_name in ("cornell", "cornell-spheres"):
+        inp = MisBwdInputs(scene_name, cfg)
+        got, again = inp.kernel(), inp.kernel()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K5 at I, {scene_name}: two launches differ")
+        start = time.perf_counter()
+        ref = inp.plain(whole_frame=True)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - start)
+        err = compare_k5(f"K5 at I, {scene_name}", got, ref,
+                         inp.plain(nudge=True, whole_frame=True))
+        del ref
+        torch.cuda.empty_cache()
+        k_ms = time_ms(inp.kernel)
+        bound, by, counts = k5_bound(inp)
+        sph = int(inp.table.shape[0] == cuda_mis_bwd.NDIF_SPH)
+        res = resources[f"mis_bwd_kernel<SPH={sph}>"]
+        row = dict(
+            name=f"mis_bwd_kernel[{scene_name}]", route="cuda",
+            source=MIS_BWD_SOURCE, replaces=MIS_BWD_REPLACES,
+            shape=f"I: {cfg.width}x{cfg.height} x {cfg.camera_rays} camera "
+                  f"rays x {cfg.mis_samples} samples, {inp.trace.num_tris} "
+                  f"triangles, {inp.trace.packed.num_spheres} spheres",
+            launches=path_i[scene_name]["launches"]["mis_bwd_kernel"],
+            max_abs_err=err, ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2],
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+            registers=res["registers"], stack_bytes=res["stack_bytes"],
+            spill_store_bytes=res["spill_store_bytes"],
+            spill_load_bytes=res["spill_load_bytes"], **counts)
+        rows.append(row)
+        log(f"  {row['name']} @ {row['shape']}: kernel {k_ms[1]:.3f} ms (min "
+            f"{k_ms[0]:.3f}, max {k_ms[2]:.3f}), bound {bound:.3f} ms by {by}, "
+            f"plain {plain_ms:.1f} ms, launches {row['launches']}, "
+            f"{res['registers']} registers, {res['stack_bytes']} B stack; "
+            f"{counts}")
+        del inp, got, again
+        torch.cuda.empty_cache()
+    return rows
+
+
 def check_frame(png_path, debug_path, cfg):
     """The frame is a Cornell box: right shape, finite rows, red left wall,
     green right wall, the light's rows brightest."""
@@ -1165,7 +1551,8 @@ def phase_train():
         after = read_launches()
         per_step = {k: after[k] - before[k] for k in after}
         check(per_step == {"draws_kernel": 0, "path_kernel": 1,
-                           "shade_bwd_kernel": 1, "mis_kernel": 0},
+                           "shade_bwd_kernel": 1, "mis_kernel": 0,
+                           "mis_bwd_kernel": 0},
               f"path D step {step}: launches {per_step}, expected one trace "
               "and one backward")
     launches = read_launches()
@@ -1225,7 +1612,8 @@ def phase_inverse():
     for name, value in zip(result.params._fields, result.params):
         check(bool(torch.isfinite(value).all()), f"path E: {name} not finite")
     check(launches == {"draws_kernel": 1, "path_kernel": steps,
-                       "shade_bwd_kernel": steps, "mis_kernel": 0},
+                       "shade_bwd_kernel": steps, "mis_kernel": 0,
+                       "mis_bwd_kernel": 0},
           f"path E: launches {launches}")
     log(f"  path E: loss {losses[0].item():.4e} -> {losses[-1].item():.4e} "
         f"in {steps} steps, {1e3 * seconds / steps:.2f} ms per step (host "
@@ -1352,6 +1740,7 @@ def mis_rows(launches):
                                  inp.packed)
         del hdr_p, rec_p
         bound, by, counts = mis_bound(inp, rec, emit)
+        other_bound, other_by, _ = mis_bound(inp, rec, not emit)
         del rec, hdr_e
         torch.cuda.empty_cache()
         k_ms = time_ms(lambda: inp.kernel(emit=emit))
@@ -1367,10 +1756,14 @@ def mis_rows(launches):
             flip_share=flips, ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2],
             plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
             mrays_per_s=nominal_rays(cfg) / k_ms[1] / 1e3, **counts)
-        row["records_on_ms" if not emit else "records_off_ms"] = other_ms[1]
+        other = "records_on" if not emit else "records_off"
+        row.update({f"{other}_ms": other_ms[1],
+                    f"{other}_bound_ms": other_bound,
+                    f"{other}_bound_by": other_by})
         rows.append(row)
         log(f"  K4 at {label}: {counts}; the other mode (records "
-            f"{'off' if emit else 'on'}) {other_ms[1]:.3f} ms")
+            f"{'off' if emit else 'on'}) {other_ms[1]:.3f} ms, bound "
+            f"{other_bound:.3f} ms by {other_by}")
     return rows, plain
 
 
@@ -1507,8 +1900,11 @@ def main() -> int:
         launches["E"], inverse_ms = phase_inverse()
         mis_launches, mis_frame_ms = phase_mis_path(tmp)
         launches.update(mis_launches)
+        mis_bwd_small = phase_mis_bwd()
+        path_i = phase_mis_train()
         mis_grad = phase_mis_grad()
         rows, small_ms, mis_plain = phase_full(launches, plain_small)
+        rows += mis_bwd_rows(path_i, resources)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.synchronize()
@@ -1520,6 +1916,10 @@ def main() -> int:
                       "path_F_profiled_ms": mis_frame_ms,
                       "mis_plain_ms": mis_plain,
                       "mis_oracle_backward": mis_grad,
+                      "path_I": {k: {kk: vv for kk, vv in v.items()
+                                     if kk != "launches"}
+                                 for k, v in path_i.items()},
+                      "mis_bwd_small_max_abs_err": mis_bwd_small,
                       "ptxas": resources}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

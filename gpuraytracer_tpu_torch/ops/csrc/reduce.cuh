@@ -1,0 +1,78 @@
+// Fixed-order reductions shared by the port's backward kernels (sm_90a):
+// shade_bwd_kernel (shade_kernels.cu) and mis_bwd_kernel
+// (mis_bwd_kernels.cu).
+//
+// A backward kernel scatters per-lane cotangent rows into a per-primitive
+// table and sums per-lane scalars.  It does so without float atomics, so that
+// two launches on equal inputs give equal bits: the lanes of a warp that
+// recorded the same primitive are summed by a butterfly of shuffles and added
+// by one lane to that warp's own copy of the table in shared memory; warps are
+// then summed in index order into one partial per block, and
+// reduce_partials_kernel sums the partials in block order in float64.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace grt {
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int REDUCE_X = 32;  // reduce_partials_kernel: elements per block
+constexpr int REDUCE_Y = 8;   //   and block-strided partial sums per element
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(FULL_MASK, v, m);
+  return v;
+}
+
+// Adds row[0 .. NCOL) of every lane with `act` to table[key * NCOL ...], the
+// lanes that share a key summed first, one key at a time in the order of the
+// lowest lane that holds it.  `rem` is __ballot_sync(FULL_MASK, act), which
+// the caller may already hold.  Every lane of the warp must call it.
+template <int NCOL>
+__device__ __forceinline__ void warp_scatter_rows(unsigned rem, bool act, int key,
+                                                  const float* row, float* table,
+                                                  int lane) {
+  while (rem != 0u) {
+    const int leader = __ffs(rem) - 1;
+    const int k = __shfl_sync(FULL_MASK, key, leader);
+    const bool mine = act && (key == k);
+    rem &= ~__ballot_sync(FULL_MASK, mine);
+    for (int c = 0; c < NCOL; ++c) {
+      const float v = warp_sum(mine ? row[c] : 0.0f);
+      if (lane == leader) table[k * NCOL + c] += v;
+    }
+  }
+}
+
+// Sums the per-block partials [blocks, count] into out [count], in block
+// order, in float64: element e is the sum over y of the sums of blocks
+// y, y + REDUCE_Y, ... — the same order on every launch.
+__global__ void __launch_bounds__(REDUCE_X * REDUCE_Y)
+reduce_partials_kernel(const float* __restrict__ partials, int blocks, int count,
+                       float* __restrict__ out) {
+  __shared__ double s_sum[REDUCE_Y][REDUCE_X];
+  const int e = blockIdx.x * REDUCE_X + threadIdx.x;
+  double acc = 0.0;
+  if (e < count) {
+    for (int b = threadIdx.y; b < blocks; b += REDUCE_Y) {
+      acc += (double)partials[(size_t)b * count + e];
+    }
+  }
+  s_sum[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < count) {
+    double total = 0.0;
+    for (int y = 0; y < REDUCE_Y; ++y) total += s_sum[y][threadIdx.x];
+    out[e] = (float)total;
+  }
+}
+
+// Launches reduce_partials_kernel on `stream` for [blocks, count] partials.
+inline void launch_reduce_partials(const float* partials, int blocks, int count,
+                                   float* out, cudaStream_t stream) {
+  const dim3 rblock(REDUCE_X, REDUCE_Y);
+  reduce_partials_kernel<<<(count + REDUCE_X - 1) / REDUCE_X, rblock, 0, stream>>>(
+      partials, blocks, count, out);
+}
+
+}  // namespace grt

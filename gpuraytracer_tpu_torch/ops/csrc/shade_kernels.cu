@@ -39,11 +39,8 @@
 //     is skipped there — it adds nothing, rather than garbage times zero;
 //   * the sums over all lanes are taken in a FIXED order, without float
 //     atomics: the 21 scalars accumulate in registers over a thread's
-//     samples; table rows are summed over the lanes of a warp that recorded
-//     the same primitive by a butterfly of shuffles and added by one lane to
-//     that warp's own copy of the table in shared memory; warps are summed in
-//     index order into one partial per block; a second kernel
-//     (reduce_partials_kernel) sums the partials in block order in float64.
+//     samples; the table rows go through reduce.cuh (shuffles by primitive
+//     into a per-warp table, per-block partials, a float64 second kernel).
 //     Two launches on equal inputs give equal bits.
 // ---------------------------------------------------------------------------
 
@@ -51,20 +48,21 @@
 #include <stdint.h>
 
 #include "halton.cuh"
+#include "reduce.cuh"
 
 namespace {
 
 using grt::camera_jitter;
 using grt::halton;
+using grt::warp_scatter_rows;
+using grt::warp_sum;
 
 constexpr int OCC_BIT = 1 << 20;
 constexpr int BLOCK_THREADS = 128;
 constexpr int WARPS = BLOCK_THREADS / 32;
 constexpr int MAX_BOUNCES = 4;   // the Halton table has 24 bases: 2 + 5 * 3 + 3 < 24
 constexpr int NSCAL = 21;        // pos, hu, hv, wb | light center, color, normal
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int REDUCE_X = 32;     // reduce_partials_kernel: elements per block
-constexpr int REDUCE_Y = 8;      //   and block-strided partial sums per element
+constexpr unsigned FULL = grt::FULL_MASK;
 
 // Table rows ([rows, P] in global memory, [P, rows] in shared memory).
 constexpr int R_N = 0, R_C0 = 3, R_DF = 4, R_EM = 7, R_ISEM = 10;
@@ -397,11 +395,6 @@ __device__ __forceinline__ void bounce_reverse(
   rows[R_C0] = d_num;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
-  return v;
-}
-
 template <bool SPH, bool RNG>
 __global__ void __launch_bounds__(BLOCK_THREADS) shade_bwd_kernel(const ShadeParams p) {
   constexpr int NROWS = SPH ? 16 : 11;
@@ -509,7 +502,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS) shade_bwd_kernel(const ShadePar
     float d_col[3] = {0.0f, 0.0f, 0.0f};
     for (int b = B - 1; b >= 0; --b) {
       const bool act = b < n_active;
-      unsigned rem = __ballot_sync(FULL, act);
+      const unsigned rem = __ballot_sync(FULL, act);
       if (rem == 0u) continue;
       float rows[NTAB];
       for (int k = 0; k < NTAB; ++k) rows[k] = 0.0f;
@@ -527,16 +520,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS) shade_bwd_kernel(const ShadePar
       }
       // Sum the rows over the lanes that recorded the same primitive, one
       // primitive at a time, and add each sum to this warp's table.
-      while (rem != 0u) {
-        const int leader = __ffs(rem) - 1;
-        const int key = __shfl_sync(FULL, pc, leader);
-        const bool mine = act && (pc == key);
-        rem &= ~__ballot_sync(FULL, mine);
-        for (int k = 0; k < NTAB; ++k) {
-          const float v = warp_sum(mine ? rows[k] : 0.0f);
-          if (lane == leader) my_wtab[key * NTAB + k] += v;
-        }
-      }
+      warp_scatter_rows<NTAB>(rem, act, pc, rows, my_wtab, lane);
     }
 
     // ---- camera: the ray at entry of bounce 0
@@ -569,29 +553,6 @@ __global__ void __launch_bounds__(BLOCK_THREADS) shade_bwd_kernel(const ShadePar
                           : s_wscal[w * NSCAL + (k - ntab_total)];
     }
     out[k] = v;
-  }
-}
-
-// Sums the per-block partials [blocks, count] into out [count], in block
-// order, in float64: element e is the sum over y of the sums of blocks
-// y, y + REDUCE_Y, ... — the same order on every launch.
-__global__ void __launch_bounds__(REDUCE_X * REDUCE_Y)
-reduce_partials_kernel(const float* __restrict__ partials, int blocks, int count,
-                       float* __restrict__ out) {
-  __shared__ double s_sum[REDUCE_Y][REDUCE_X];
-  const int e = blockIdx.x * REDUCE_X + threadIdx.x;
-  double acc = 0.0;
-  if (e < count) {
-    for (int b = threadIdx.y; b < blocks; b += REDUCE_Y) {
-      acc += (double)partials[(size_t)b * count + e];
-    }
-  }
-  s_sum[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && e < count) {
-    double total = 0.0;
-    for (int y = 0; y < REDUCE_Y; ++y) total += s_sum[y][threadIdx.x];
-    out[e] = (float)total;
   }
 }
 
@@ -649,9 +610,7 @@ int grt_shade_bwd(const float* g, const int32_t* records, const float* nee0,
   int code = (int)cudaGetLastError();
   if (code != 0) return code;
   const int count = num_prims * ntab + NSCAL;
-  const dim3 rblock(REDUCE_X, REDUCE_Y);
-  reduce_partials_kernel<<<(count + REDUCE_X - 1) / REDUCE_X, rblock, 0, st>>>(
-      partials, grid, count, out);
+  grt::launch_reduce_partials(partials, grid, count, out, st);
   return (int)cudaGetLastError();
 }
 

@@ -2,18 +2,17 @@
 version.
 
 Counterpart of ``gpuraytracer_tpu/ops/pallas_mis.py`` (static tier: at most
-64 triangles, plus analytic spheres) and of the forward half of
-``ops/pallas_mis_bwd.py:render_mis_decoupled``:
+64 triangles, plus analytic spheres):
 
   * ``render_mis_cuda_impl``  the full camera-ray x sample loop
     (``mis_kernel``): hdr only, or with ``emit_records`` the two int32
     decision streams beside it; optional occluder cull of the light probes;
     ``local_n`` / ``rid_base`` / ``flat_output`` render a pixel range.
   * ``render_mis_cuda``       the entry point, hdr only; differentiable: its
-    backward is autograd through the eager oracle (``render.render_mis``).
-  * ``render_mis_decoupled``  the record-emitting trace with the occluder
-    cull — the forward of the fast differentiable path. Its backward kernel
-    is not ported yet: a scene that asks for gradients raises.
+    backward is autograd through the eager oracle (``render.render_mis``),
+    as the JAX package's ``render_mis_pallas`` is. The fast differentiable
+    path is ``cuda_mis_bwd.render_mis_decoupled``: this kernel with records
+    on, and the record-replay backward kernel.
 
 The kernel is CUDA C++ (``csrc/mis_kernels.cu``), built at first use
 (``_build.py``). Beside it stands ``render_mis_plain``, plain PyTorch on the
@@ -591,11 +590,6 @@ def mis_trace_kernel(n_local: int, rid_base: int, packed: PackedMisScene,
 # Entry points
 # ---------------------------------------------------------------------------
 
-def _reject_grad(scene: Scene, what: str) -> None:
-    if any(t.requires_grad for t in scene.tensors()):
-        raise NotImplementedError(what)
-
-
 def render_mis_cuda_impl(scene: Scene, config: RenderConfig,
                          emit_records: bool = False, occluders=None,
                          local_n: Optional[int] = None, rid_base: int = 0,
@@ -610,11 +604,12 @@ def render_mis_cuda_impl(scene: Scene, config: RenderConfig,
     hooks a sharded renderer needs. Not differentiable: a scene that asks
     for gradients raises."""
     device = resolve_device(device)
-    _reject_grad(
-        scene, "a scene tensor has requires_grad=True, but the bare MIS "
-        "trace is not differentiable: render with render_mis_cuda (its "
-        "backward is autograd through the eager oracle), or pass "
-        "scene.detach()")
+    if any(t.requires_grad for t in scene.tensors()):
+        raise NotImplementedError(
+            "a scene tensor has requires_grad=True, but the bare MIS trace is "
+            "not differentiable: render with render_mis_decoupled (the "
+            "backward kernel) or render_mis_cuda (autograd through the eager "
+            "oracle), or pass scene.detach()")
     if config.camera_rays < 1 or config.mis_samples < 3:
         raise ValueError("camera_rays must be at least 1 and mis_samples at "
                          "least 3")
@@ -690,25 +685,11 @@ def render_mis_cuda(scene: Scene, config: RenderConfig,
     """Variant-A MIS render through the kernel. Returns [H, W, 3] raw
     accumulated hdr (pre-tonemap). Differentiable: where a scene tensor
     requires gradients, the backward pass is autograd through the eager
-    oracle."""
+    oracle (slow; ``cuda_mis_bwd.render_mis_decoupled`` has the backward
+    kernel)."""
     device = resolve_device(device)
     leaves = list(scene.tensors())
     if any(t.requires_grad for t in leaves):
         return _OracleGrad.apply(scene, config, device, *leaves)
     return render_mis_cuda_impl(scene, config, device=device)
 
-
-def render_mis_decoupled(scene: Scene, config: RenderConfig, occluders=None,
-                         device="cuda") -> torch.Tensor:
-    """Variant-A render through the record-emitting trace with the occluder
-    cull, hdr [H, W, 3]. Forward only so far: the record-replay backward
-    kernel (``_mis_bwd_kernel`` of the JAX package, the K5 slice of the
-    port) is not ported yet, so a scene that asks for gradients raises
-    instead of silently taking the oracle's gradient — use
-    ``render_mis_cuda`` for that."""
-    _reject_grad(
-        scene, "render_mis_decoupled is forward-only so far: its backward "
-        "kernel (_mis_bwd_kernel, the K5 slice of the port) is not ported "
-        "yet; render_mis_cuda gives the oracle's gradients")
-    return render_mis_cuda_impl(scene, config, emit_records=True,
-                                occluders=occluders, device=device)[0]

@@ -350,6 +350,10 @@ def _plain_chunk(offsets, rid_base, packed, shadow_idx, draws, config,
     two_pi = smp._f32(2.0 * math.pi)
     zero = torch.zeros(n_local, dtype=f32, device=dev)
     big = torch.full((n_local,), _BIG, dtype=f32, device=dev)
+    # Divisors as tensors: PyTorch divides by a Python scalar through its
+    # reciprocal, which rounds twice where the kernel's division rounds once.
+    f_w = torch.tensor(float(W), dtype=f32, device=dev)
+    f_h = torch.tensor(float(H), dtype=f32, device=dev)
 
     def norm3(x, y, z, floor):
         inv = smp.rsqrt(torch.clamp_min(x * x + y * y + z * z, floor))
@@ -367,8 +371,8 @@ def _plain_chunk(offsets, rid_base, packed, shadow_idx, draws, config,
         else:
             jx, jy = _camera_jitter(ih, config)
 
-        s = ((px + jx) / float(W)) * 2.0 - 1.0
-        t = -(((py + jy) / float(H)) * 2.0 - 1.0)
+        s = ((px + jx) / f_w) * 2.0 - 1.0
+        t = -(((py + jy) / f_h) * 2.0 - 1.0)
         dx, dy, dz = norm3(*(s * uh[k] + t * vh[k] - wv[k] for k in range(3)),
                            1e-12)
         ox, oy, oz = (zero + pos[k] for k in range(3))

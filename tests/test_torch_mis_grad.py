@@ -25,7 +25,7 @@ import gpuraytracer_tpu.scene as jscene
 import gpuraytracer_tpu.types as jtypes
 from gpuraytracer_tpu.render import render_mis as jax_render_mis
 from gpuraytracer_tpu_torch import convert
-from gpuraytracer_tpu_torch.ops import cuda_mis
+from gpuraytracer_tpu_torch.ops import cuda_mis, cuda_mis_bwd
 from gpuraytracer_tpu_torch.render import render_mis
 from gpuraytracer_tpu_torch.scene import cornell_box, cornell_box_glossy
 from gpuraytracer_tpu_torch.types import RenderConfig
@@ -55,17 +55,23 @@ def with_grad(scene):
 
 
 def _both_grads(ctor_name):
-    """(port gradient tree, JAX gradient tree, port scene with .grad set)."""
+    """(port gradient tree, JAX gradient tree, port scene with .grad set,
+    the gradient tree of the backward kernel's path — ``render_mis_decoupled``
+    through the plain versions)."""
     jax_scene = getattr(jscene, ctor_name)(resolution=(16, 8))
     jcfg = jtypes.RenderConfig(**CFG)
     g_jax = jax.grad(lambda s: jnp.mean(jax_render_mis(s, jcfg).hdr),
                      allow_int=True)(jax_scene)
-    scene = with_grad(convert.scene_from_numpy(
-        jax.tree.map(np.asarray, jax_scene)))
+    base = convert.scene_from_numpy(jax.tree.map(np.asarray, jax_scene))
+    scene = with_grad(base)
     with torch.autograd.set_detect_anomaly(True):
         render_mis(scene, RenderConfig(**CFG), device="cpu").hdr.mean(
             ).backward()
-    return convert.grads_to_numpy(scene), g_jax, scene
+    fused = with_grad(base)
+    cuda_mis_bwd.render_mis_decoupled(fused, RenderConfig(**CFG),
+                                      device="cpu").mean().backward()
+    return (convert.grads_to_numpy(scene), g_jax, scene,
+            convert.grads_to_numpy(fused))
 
 
 @pytest.fixture(scope="module")
@@ -78,8 +84,8 @@ def sphere_grads():
     return _both_grads("cornell_box_with_spheres")
 
 
-def _pair(grads, group):
-    got_tree, ref_tree, _ = grads
+def _pair(grads, group, kernel_path=False):
+    got_tree, ref_tree = grads[3 if kernel_path else 0], grads[1]
     part, field = group.split(".")
     got = got_tree[part][field]
     ref = np.asarray(getattr(getattr(ref_tree, part), field))
@@ -96,9 +102,7 @@ def test_mis_oracle_grads_match_jax(box_grads, group):
                                rtol=2e-4)
 
 
-@pytest.mark.parametrize("group", SPHERE_GROUPS)
-def test_mis_oracle_sphere_scene_grads_match_jax(sphere_grads, group):
-    got, ref = _pair(sphere_grads, group)
+def _sphere_scene_close(group, got, ref):
     scale = np.abs(ref).max()
     d = np.abs(got - ref)
     tight = 1e-5 * max(scale, 1.0) + 2e-4 * np.abs(ref)
@@ -107,16 +111,38 @@ def test_mis_oracle_sphere_scene_grads_match_jax(sphere_grads, group):
     assert d.max() <= 1e-3 * max(scale, 1.0), (group, float(d.max()), scale)
 
 
+@pytest.mark.parametrize("group", SPHERE_GROUPS)
+def test_mis_oracle_sphere_scene_grads_match_jax(sphere_grads, group):
+    _sphere_scene_close(group, *_pair(sphere_grads, group))
+
+
+@pytest.mark.parametrize("group", BOX_GROUPS)
+def test_mis_kernel_path_grads_match_jax(box_grads, group):
+    """The backward kernel's path (``render_mis_decoupled``: the trace's
+    records, the hand-written reverse sweep, autograd through the packing)
+    against ``jax.grad`` of the JAX oracle, at the oracle's tolerance."""
+    got, ref = _pair(box_grads, group, kernel_path=True)
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got, ref, atol=1e-5 * max(scale, 1.0),
+                               rtol=2e-4)
+
+
+@pytest.mark.parametrize("group", SPHERE_GROUPS)
+def test_mis_kernel_path_sphere_scene_grads_match_jax(sphere_grads, group):
+    _sphere_scene_close(group, *_pair(sphere_grads, group, kernel_path=True))
+
+
 def test_every_mis_gradient_is_finite(box_grads, sphere_grads):
     """The fixtures ran under anomaly detection; no masked lane (the
     roughness-0 light material the double-where reciprocal guards) leaks a
     NaN or an infinity into a gradient."""
-    for tree, _, _ in (box_grads, sphere_grads):
+    for tree in (box_grads[0], sphere_grads[0], box_grads[3],
+                 sphere_grads[3]):
         leaves = [g for part in tree.values() for g in part.values()
                   if g is not None]
         assert len(leaves) >= 12
         assert all(np.isfinite(g).all() for g in leaves)
-    tree, _, _ = box_grads
+    tree = box_grads[0]
     # Variant A reads metallic and roughness; the path tracer's light
     # colour it does not.
     assert np.abs(tree["triangles"]["roughness"]).max() > 0.0
@@ -195,17 +221,18 @@ def test_kernel_entry_point_backward_in_pixel_ranges(monkeypatch):
 
 
 def test_unported_backward_raises_instead_of_falling_back():
-    """The fast differentiable path's backward kernel waits for its slice:
-    a scene that asks for gradients raises, naming it; the bare trace
-    refuses gradients too."""
+    """The bare trace has no backward of its own: a scene that asks for
+    gradients raises, naming the two differentiable entry points; the fast
+    differentiable path (the backward kernel's) takes it."""
     cfg = RenderConfig(**CFG)
     scene = with_grad(cornell_box(resolution=(16, 8)))
-    with pytest.raises(NotImplementedError, match="K5"):
-        cuda_mis.render_mis_decoupled(scene, cfg, device="cpu")
+    assert cuda_mis_bwd.render_mis_decoupled(scene, cfg,
+                                             device="cpu").requires_grad
     with pytest.raises(NotImplementedError, match="render_mis_cuda"):
         cuda_mis.render_mis_cuda_impl(scene, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="render_mis_cuda"):
         cuda_mis.render_mis_cuda_impl(scene, cfg, emit_records=True,
                                       device="cpu")
-    out = cuda_mis.render_mis_decoupled(scene.detach(), cfg, device="cpu")
+    out = cuda_mis_bwd.render_mis_decoupled(scene.detach(), cfg,
+                                            device="cpu")
     assert not out.requires_grad and out.shape == (8, 16, 3)

@@ -19,7 +19,7 @@ import gpuraytracer_tpu.ops.pallas_mis as jmis
 import gpuraytracer_tpu.scene as jscene
 import gpuraytracer_tpu.types as jtypes
 from gpuraytracer_tpu_torch.intersect import potential_occluders
-from gpuraytracer_tpu_torch.ops import cuda_mis
+from gpuraytracer_tpu_torch.ops import cuda_mis, cuda_mis_bwd
 from gpuraytracer_tpu_torch.ops.cuda_path import shadow_indices
 from gpuraytracer_tpu_torch.render import render_mis
 from gpuraytracer_tpu_torch.types import RenderConfig
@@ -131,8 +131,8 @@ def test_occluder_cull_preserves_the_render(traced):
                                rtol=1e-6)
     assert torch.equal(rec_c.camera, rec.camera)
     assert torch.equal(
-        cuda_mis.render_mis_decoupled(scene, cfg, occluders=occ,
-                                      device="cpu"), culled)
+        cuda_mis_bwd.render_mis_decoupled(scene, cfg, occluders=occ,
+                                          device="cpu"), culled)
 
 
 def test_pixel_ranges_concatenate_to_the_frame(traced):
@@ -232,7 +232,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         with pytest.raises(RuntimeError, match="cuda"):
             cuda_mis.render_mis_cuda(scene, cfg)
         with pytest.raises(RuntimeError, match="cuda"):
-            cuda_mis.render_mis_decoupled(scene, cfg)
+            cuda_mis_bwd.render_mis_decoupled(scene, cfg)
     assert cuda_mis.LAUNCHES == {"mis_kernel": 0}
 
 
