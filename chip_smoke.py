@@ -7,8 +7,8 @@ Builds the CUDA kernels from the sources in this checkout, holds each against
 its plain PyTorch version on the card, renders six frames through the
 command-line entry point (three with the path tracer, three with the MIS
 integrator) and trains through the library entry points (the main paths:
-the path tracer's and the MIS integrator's gradients), times the kernels,
-and prints
+the path tracer's and the MIS integrator's gradients, and the silhouette
+path's sphere-center recovery), times the kernels, and prints
 
   * a ``kernels`` JSON line (time, bound, plain-version time, launches on the
     main path, largest difference from the plain version, per kernel),
@@ -20,8 +20,8 @@ failed check raises, so a run that ends in the ``ok`` line passed them all.
 
 Phases
   build   nvcc builds ops/csrc/path_kernels.cu, shade_kernels.cu,
-          mis_kernels.cu and mis_bwd_kernels.cu side by side; registers and
-          spills printed.
+          mis_kernels.cu, mis_bwd_kernels.cu and soft_kernels.cu side by
+          side; registers and spills printed.
   small   128 x 96, 4 spp, 3 bounces, both scenes, both samplers: draws
           kernel bit-equal to its plain version; trace kernel in its three
           modes against the plain version (records equal except a printed
@@ -75,7 +75,26 @@ Phases
           the backward (autograd through the eager oracle) in three pixel
           ranges against the whole frame's graph; then one range near the
           default budget, for its time and the memory it holds.
-  full    the kernels at the shapes of A to I against their plain versions
+  soft    the silhouette record kernel against its plain version at 128 x
+          96 x 4, 256 x 256 x 4 and 800 x 600 x 16 spp (direct lighting,
+          sphere scene), with and without the occluder cull; the silhouette
+          backward against its plain version on those records and a seeded
+          cotangent, two launches bit-equal; the gradients
+          ``render_direct_soft_fused`` gives every scene tensor at 128 x 96,
+          against autograd through ``cuda_soft.soft_replay`` on the same
+          records and through the eager oracle ``render_direct_soft``; its
+          value against the trace kernel's at one bounce.
+  J       ``grad.inverse.inverse_render(soft=True, fast=True)`` at 256 x 256
+          x 4 spp, direct, kappa 0.1, 20 Adam steps from perturbed centers,
+          albedo and emission (benchmarks/bench_config4.py's soft-fast line):
+          one trace, one record and one backward launch per step, the loss
+          finite and falling; then warm, and under ``torch.profiler``.
+  recovery
+          tests/test_soft_fused.py's sphere-center recovery on the card: 32 x
+          32 x 2 spp, 600 SGD steps at 3.5e2 with momentum 0.9, held to the
+          JAX package's criteria (last loss below a tenth of the first,
+          center error halved); the trajectory is printed.
+  full    the kernels at the shapes of A to J against their plain versions
           (the MIS kernels' on the whole frame, records and all), and their
           times.
 
@@ -119,6 +138,17 @@ addition; against the oracle backward, which makes its own decisions, the
 JAX package's MIS gradient tolerance atol 1e-5 max(scale, 1) + rtol 2e-4 on
 the triangle scenes (on the sphere scene an ulp flips grazing decisions
 that carry large geometry gradients: that distance is printed, not held).
+Silhouette records: the share of records that differ from the plain
+version's is held to the same 0.5 % and printed field by field (kernel and
+plain version hold no transcendental and round alike). Silhouette backward:
+per group atol 1e-6 max(scale, 1) + rtol 1e-4 of its largest magnitude plus
+four times what a one-ulp nudge of the camera's w vector moves the plain
+version; its path against autograd through the replay of the same records
+at the same atol and rtol, and against the eager oracle at the same
+tolerance except for the spheres' center and radius, whose distance is
+printed: the oracle traces its own rays, normalized another way, and a
+grazing sphere decision that flips between them carries a large geometry
+gradient.
 """
 from __future__ import annotations
 
@@ -139,9 +169,11 @@ import torch
 
 from gpuraytracer_tpu_torch import cli, image
 from gpuraytracer_tpu_torch.grad import inverse
+from gpuraytracer_tpu_torch.grad.diff_render import render_direct_soft
 from gpuraytracer_tpu_torch.intersect import potential_occluders
 from gpuraytracer_tpu_torch.ops import (_build, cuda_mis, cuda_mis_bwd,
-                                        cuda_path, cuda_shade, decoupled)
+                                        cuda_path, cuda_shade, cuda_soft,
+                                        decoupled)
 from gpuraytracer_tpu_torch.render import pixel_rng_offsets, render_mis
 from gpuraytracer_tpu_torch.sampling import PRIMES
 from gpuraytracer_tpu_torch.scene import (cornell_box, cornell_box_glossy,
@@ -237,6 +269,35 @@ MIS_BWD_MID = dict(width=256, height=192, camera_rays=2, mis_samples=30)
 MIS_ORACLE_ATOL, MIS_ORACLE_RTOL = 1e-5, 2e-4
 SHADE_SOURCE = "gpuraytracer_tpu_torch/ops/csrc/shade_kernels.cu"
 SHADE_REPLACES = "gpuraytracer_tpu/ops/pallas_shade.py:72"
+# The silhouette path (direct lighting, one bounce, sphere scene, kappa 0.1):
+# the comparison sizes and the reference's frame at 16 spp; path J,
+# benchmarks/bench_config4.py's soft-fast line; the center recovery of
+# tests/test_soft_fused.py.
+SOFT_SOURCE = "gpuraytracer_tpu_torch/ops/csrc/soft_kernels.cu"
+SILH_REPLACES = "gpuraytracer_tpu/ops/pallas_soft.py:90"
+SOFT_BWD_REPLACES = "gpuraytracer_tpu/ops/pallas_soft.py:305"
+SOFT_KAPPA = 0.1
+SOFT_SIZES = (dict(width=128, height=96, spp=4),
+              dict(width=256, height=256, spp=4),
+              dict(width=800, height=600, spp=16))
+SOFT_J = dict(width=256, height=256, spp=4, pixel_chunk=65536)
+SOFT_RECOVERY = dict(width=32, height=32, spp=2, pixel_chunk=1024)
+RECOVERY_SHIFTS = [[0.15, 0.0, -0.1], [-0.1, 0.05, 0.1]]
+RECOVERY_STEPS, RECOVERY_LR = 600, 3.5e2
+# Float32 operations of the silhouette kernels, counted by hand from
+# soft_kernels.cu like the counts above (one per multiply, add, divide,
+# square root, exp, compare, min, max or |x|; selects and negations not
+# counted). silh_kernel per (sample, pixel) besides its primitive tests
+# (OPS_TRI_* / OPS_SPH_*): camera ray and draws, candidate gates, the two
+# probe points, two light samples, the code. soft_bwd_kernel per (sample,
+# pixel): camera ray forward and reversed; a light sample forward and
+# reversed; the sphere layer's quadratic, normal and point forward and
+# reversed; the coverage forward and reversed; the background's plane
+# distance, its point, and their reverse.
+OPS_SILH_LANE = 136
+OPS_K7_CAMERA, OPS_K7_SHADE_FWD, OPS_K7_SHADE_REV = 65, 43, 87
+OPS_K7_SPHERE_FWD, OPS_K7_SPHERE_REV, OPS_K7_COVER = 70, 123, 74
+OPS_K7_BG_HIT, OPS_K7_BG_SURF, OPS_K7_BG_REV = 15, 12, 47
 
 # The gradient groups that must be non-zero on the box scene.
 GRAD_GROUPS = ("light.color", "light.center", "light.normal",
@@ -375,14 +436,23 @@ def compare_draws(what, got, ref):
 
 def reset_launches() -> None:
     for counts in (cuda_path.LAUNCHES, cuda_shade.LAUNCHES,
-                   cuda_mis.LAUNCHES, cuda_mis_bwd.LAUNCHES):
+                   cuda_mis.LAUNCHES, cuda_mis_bwd.LAUNCHES,
+                   cuda_soft.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
 
 def read_launches() -> dict:
     return {**cuda_path.LAUNCHES, **cuda_shade.LAUNCHES,
-            **cuda_mis.LAUNCHES, **cuda_mis_bwd.LAUNCHES}
+            **cuda_mis.LAUNCHES, **cuda_mis_bwd.LAUNCHES,
+            **cuda_soft.LAUNCHES}
+
+
+def launches_of(**counts) -> dict:
+    """Every kernel's launch count: those given, 0 for the rest."""
+    expect = {key: 0 for key in read_launches()}
+    expect.update(counts)
+    return expect
 
 
 class ShadeInputs:
@@ -847,21 +917,16 @@ def k5_groups(dtab, dscal):
     return groups
 
 
-def compare_k5(what, got, ref, nudged):
-    """Each group within 1e-6 max(scale, 1) + 1e-4 scale of the plain
-    version (scale: the group's largest magnitude; the path-gradient
-    tolerance), plus CONDITION_FACTOR times the distance the plain version
-    moves under a one-ulp nudge of a sample-table row; both distances are
-    printed. The selector columns must be zero. Returns the largest absolute
+def compare_scaled(what, k, r, m):
+    """Each group of ``k`` within 1e-6 max(scale, 1) + 1e-4 scale of ``r``
+    (scale: the group's largest magnitude in ``r``), plus CONDITION_FACTOR
+    times the distance from ``r`` to ``m`` (the reference on inputs one ulp
+    off); both distances are printed. Returns the largest absolute
     difference."""
-    dtab = got[0]
-    check(not dtab[:, 9].any() and (dtab.shape[1] == cuda_mis_bwd.NDIF
-                                    or not dtab[:, 14].any()),
-          f"{what}: a selector column has a cotangent")
-    k, r, m = (k5_groups(*x) for x in (got, ref, nudged))
     worst, parts = 0.0, []
     for name in r:
-        check(bool(torch.isfinite(k[name]).all()), f"{what}: {name} not finite")
+        check(bool(torch.isfinite(k[name]).all()),
+              f"{what}: {name} not finite")
         scale = r[name].abs().max().item()
         err = (k[name] - r[name]).abs().max().item()
         moved = (m[name] - r[name]).abs().max().item()
@@ -873,9 +938,19 @@ def compare_k5(what, got, ref, nudged):
               f"magnitude {scale:.3e}, limit {limit:.3e})")
         worst = max(worst, err)
     log(f"  {what}: largest difference over largest magnitude (and how far "
-        "one ulp in a sample-table row moves the plain version): "
+        "a one-ulp nudge of an input moves the plain version): "
         + ", ".join(parts))
     return worst
+
+
+def compare_k5(what, got, ref, nudged):
+    """``compare_scaled`` by K5's groups, the nudge on a sample-table row.
+    The selector columns must be zero."""
+    dtab = got[0]
+    check(not dtab[:, 9].any() and (dtab.shape[1] == cuda_mis_bwd.NDIF
+                                    or not dtab[:, 14].any()),
+          f"{what}: a selector column has a cotangent")
+    return compare_scaled(what, *(k5_groups(*x) for x in (got, ref, nudged)))
 
 
 def k5_bound(inp: MisBwdInputs):
@@ -932,6 +1007,9 @@ def ptxas_resources(log_text: str):
             mangled = m.group(1)
             name = ("reduce_partials_kernel"
                     if "reduce_partials_kernel" in mangled else "draws_kernel")
+            for kernel in ("silh_kernel", "soft_bwd_kernel"):
+                if kernel in mangled:
+                    name = kernel
             m = re.search(r"mis_kernelILb(\d)E", mangled)
             if m:
                 name = f"mis_kernel<EMIT={m.group(1)}>"
@@ -974,7 +1052,7 @@ def phase_build():
     logs = "\n".join(lib.log for lib in libs)
     resources = {}
     for lib in libs:
-        # Two libraries hold a reduce_partials_kernel (reduce.cuh).
+        # Three libraries hold a reduce_partials_kernel (reduce.cuh).
         source = lib.path.name.split("-")[0][3:]
         for name, res in ptxas_resources(lib.log).items():
             resources[name if name not in resources
@@ -983,10 +1061,11 @@ def phase_build():
         log(f"  ptxas: {name}: {res['registers']} registers, "
             f"{res['stack_bytes']} B stack, {res['spill_store_bytes']} B "
             f"spill stores, {res['spill_load_bytes']} B spill loads")
-    check(len(resources) == 14, "ptxas did not report the draws kernel, the "
+    check(len(resources) == 17, "ptxas did not report the draws kernel, the "
           "three trace-kernel instantiations, the four backward-kernel "
-          "instantiations, the two reductions, the two MIS-kernel and the "
-          f"two MIS-backward instantiations: {resources}\n{logs}")
+          "instantiations, the three reductions, the two MIS-kernel and the "
+          "two MIS-backward instantiations, the silhouette record kernel and "
+          f"its backward: {resources}\n{logs}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1334,9 +1413,7 @@ def phase_mis_train():
             step_ms.append(1e3 * (time.perf_counter() - start))
             after = read_launches()
             per_step = {k: after[k] - before[k] for k in after}
-            check(per_step == {"draws_kernel": 0, "path_kernel": 0,
-                               "shade_bwd_kernel": 0, "mis_kernel": 1,
-                               "mis_bwd_kernel": 1},
+            check(per_step == launches_of(mis_kernel=1, mis_bwd_kernel=1),
                   f"path I step {step}: launches {per_step}")
         launches = read_launches()
         check(hdr.shape == (cfg.height, cfg.width, 3)
@@ -1411,6 +1488,412 @@ def mis_bwd_rows(path_i, resources):
             f"{counts}")
         del inp, got, again
         torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# The silhouette kernels: inputs, comparisons, bounds, phases
+# ---------------------------------------------------------------------------
+
+def soft_cfg(size) -> RenderConfig:
+    return RenderConfig(integrator="direct", bounces=1, **size)
+
+
+class SoftInputs:
+    """What the silhouette kernels and their plain versions take, on the
+    card, for the sphere scene: the packed tables, offsets and shadow list
+    (occluder cull or not), ``silh_kernel``'s own records of the frame, the
+    parameter views and a cotangent from a seeded generator, divided by spp
+    as the autograd glue hands it over."""
+
+    def __init__(self, cfg: RenderConfig, cull: bool):
+        dev = torch.device("cuda")
+        self.cfg = cfg
+        self.scene = cornell_box_with_spheres(resolution=cfg.resolution)
+        self.packed = cuda_path._pack_inputs(self.scene.to(dev), cfg)
+        self.offsets = pixel_rng_offsets(cfg, dev)
+        self.offsets_i32 = self.offsets.to(torch.int32).contiguous()
+        self.num_tris = self.scene.triangles.num_triangles
+        occ = potential_occluders(self.scene, cfg) if cull else None
+        self.shadow_idx = cuda_path.shadow_indices(occ, self.num_tris, dev)
+        self.codes = self.silh_kernel()
+        views = cuda_shade._pack_diff_inputs(self.scene.to(dev), cfg)
+        self.table, self.cam, self.light = (v.contiguous() for v in views)
+        gen = torch.Generator(device="cuda").manual_seed(2468)
+        self.g = torch.randn((3, cfg.num_pixels), generator=gen,
+                             device="cuda") / cfg.spp
+
+    def silh_kernel(self):
+        return cuda_soft.silh_records_kernel(self.offsets_i32, self.packed,
+                                             self.shadow_idx, self.cfg)
+
+    def silh_plain(self):
+        return cuda_soft.silh_records_plain(self.offsets, self.packed,
+                                            self.shadow_idx, self.cfg)
+
+    def bwd_kernel(self):
+        return cuda_soft.soft_bwd_kernel(
+            self.g, self.codes, self.offsets_i32, self.table, self.cam,
+            self.light, self.cfg, SOFT_KAPPA, self.num_tris)
+
+    def bwd_plain(self, nudge=False):
+        """The plain version; with ``nudge`` on a camera whose w vector is
+        one ulp up (every ray moves by about an ulp), to measure how well
+        conditioned the sums are."""
+        cam = self.cam
+        if nudge:
+            cam = cam.clone()
+            cam[9:12] = torch.nextafter(cam[9:12], cam[9:12] + 1.0)
+        return cuda_soft.soft_bwd_plain(
+            self.g, self.codes, self.offsets, self.table, cam, self.light,
+            self.cfg, SOFT_KAPPA, self.num_tris)
+
+
+def compare_codes(what, got, ref):
+    """Silhouette records of the kernel against the plain version's, field
+    by field. Every record is a decision the backward reads; the share that
+    differs is held to FLIP_SHARE_MAX and printed. Returns (share, largest
+    difference of the codes as integers)."""
+    check(got.shape == ref.shape and got.dtype == ref.dtype,
+          f"{what}: records {tuple(got.shape)} {got.dtype}")
+    differ = got != ref
+    share = differ.float().mean().item()
+    fields = {"background winner": cuda_soft.B_OCCB - 1,
+              "occ_bg": cuda_soft.B_OCCB, "occ_s": cuda_soft.B_OCCS,
+              "sphere_front": cuda_soft.B_FRONT,
+              "potential": cuda_soft.B_POT, "s*": -cuda_soft.B_SIDX}
+    counts = {name: int(((got & m) != (ref & m)).sum())
+              for name, m in fields.items()}
+    err = float((got.long() - ref.long()).abs().max()) if share else 0.0
+    log(f"  {what}: {int(differ.sum())} of {got.numel()} records differ "
+        f"({share:.3e}; by field {counts})"
+        + ("; bit-equal" if not share else ""))
+    check(share <= FLIP_SHARE_MAX, f"{what}: {share:.4%} of the records "
+          f"differ from the plain version (limit {FLIP_SHARE_MAX:.2%})")
+    return share, err
+
+
+def silh_bound(inp: SoftInputs):
+    """(bound_ms, bound_by) of one silhouette record pass: every (sample,
+    pixel) needs its record, so every lane's tests count — T closest-hit
+    and S sphere tests, two probes over the shadow list and the spheres,
+    the rest of the lane and its four radical inverses — against the
+    offsets read and the records written once."""
+    cfg, n = inp.cfg, inp.cfg.num_pixels
+    t, s, n_shadow = inp.num_tris, inp.packed.num_spheres, len(inp.shadow_idx)
+    digits = sum(halton_digits(PRIMES[d], (1 << 20) + cfg.spp)
+                 for d in range(4))
+    ops = cfg.spp * n * (t * OPS_TRI_CLOSEST + s * OPS_SPH_CLOSEST
+                         + 2 * (n_shadow * OPS_TRI_SHADOW
+                                + s * OPS_SPH_SHADOW)
+                         + OPS_SILH_LANE + OPS_HALTON_DIGIT * digits)
+    tables = 4 * (inp.packed.tri.numel() + inp.packed.sph.numel() + 18
+                  + n_shadow)
+    return roofline(4 * n + 4 * cfg.spp * n + tables, ops)
+
+
+def soft_bwd_bound(inp: SoftInputs):
+    """(bound_ms, bound_by, counts) of one silhouette backward from the
+    records it replays: per (sample, pixel) the camera ray and the jitter
+    and light draws; the sphere layer where the sphere is in front or the
+    coverage counts; its reverse where it is in front (with the light
+    sample's unless blocked); the coverage where ``potential``; the
+    background where its value counts (a hit not behind a front sphere, or
+    under a coverage lane) and its reverse on a visible, unblocked surface.
+    Bytes: cotangent, records, offsets and tables read, outputs written."""
+    cfg, n = inp.cfg, inp.cfg.num_pixels
+    prim, occ_b, occ_s, front, pot, _ = cuda_soft._decode(inp.codes)
+    bg_hit = prim >= 0
+    surf = bg_hit & ~(inp.table[10, prim.clamp_min(0)] > 0.5)
+    bg_needed = bg_hit & (pot | ~front)
+    counts = dict(
+        lanes=cfg.spp * n, sphere=int((front | pot).sum()),
+        front=int(front.sum()), front_lit=int((front & ~occ_s).sum()),
+        potential=int(pot.sum()), background=int(bg_needed.sum()),
+        background_surface=int((bg_needed & surf).sum()),
+        background_reversed=int((~front & surf & ~occ_b).sum()))
+    digits = sum(halton_digits(PRIMES[d], (1 << 20) + cfg.spp)
+                 for d in range(4))
+    ops = (counts["lanes"] * (OPS_K7_CAMERA + OPS_HALTON_DIGIT * digits)
+           + counts["sphere"] * (OPS_K7_SPHERE_FWD + OPS_K7_SHADE_FWD)
+           + counts["front"] * OPS_K7_SPHERE_REV
+           + counts["front_lit"] * OPS_K7_SHADE_REV
+           + counts["potential"] * OPS_K7_COVER
+           + counts["background"] * OPS_K7_BG_HIT
+           + counts["background_surface"] * (OPS_K7_BG_SURF
+                                             + OPS_K7_SHADE_FWD)
+           + counts["background_reversed"] * (OPS_K7_BG_REV
+                                              + OPS_K7_SHADE_REV))
+    P = inp.table.shape[1]
+    nbytes = (12 * n + 4 * inp.codes.numel() + 4 * n
+              + 4 * (inp.table.numel() + cuda_soft.NSCAL_SOFT)
+              + 4 * (P * cuda_shade.NTAB_SPH + cuda_soft.NSCAL_SOFT))
+    bound, by = roofline(nbytes, ops)
+    counts["operations"] = ops
+    return bound, by, counts
+
+
+def phase_soft():
+    """K6 against its plain version at three sizes, with and without the
+    occluder cull; K7 against its plain version on K6's records and a seeded
+    cotangent, two launches bit-equal; then ``render_direct_soft_fused``'s
+    gradients against autograd through ``soft_replay`` of the same records
+    (held) and through the eager oracle (printed; held except for sphere
+    geometry), and its value against the trace kernel's."""
+    log("== soft: the silhouette kernels against their plain versions")
+    worst = {}
+    for size in SOFT_SIZES:
+        cfg = soft_cfg(size)
+        shape = f"{cfg.width}x{cfg.height} x {cfg.spp}"
+        for cull in (True, False):
+            inp = SoftInputs(cfg, cull)
+            again = inp.silh_kernel()
+            torch.cuda.synchronize()
+            check(torch.equal(again, inp.codes),
+                  f"K6 {shape}: two launches differ")
+            compare_codes(f"K6 {shape}{', occluder cull' if cull else ''}",
+                          inp.codes, inp.silh_plain())
+        got, again = inp.bwd_kernel(), inp.bwd_kernel()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K7 {shape}: two launches on the same inputs differ")
+        worst[f"K7 {shape}"] = compare_scaled(
+            f"K7 {shape}", grad_groups(*got), grad_groups(*inp.bwd_plain()),
+            grad_groups(*inp.bwd_plain(nudge=True)))
+        del inp, got, again
+        torch.cuda.empty_cache()
+
+    cfg = soft_cfg(SOFT_SIZES[0])
+    log(f"== soft: gradients of render_direct_soft_fused(scene).mean(), "
+        f"{cfg.width} x {cfg.height} x {cfg.spp}, kappa {SOFT_KAPPA}")
+    base = cornell_box_with_spheres(resolution=cfg.resolution)
+    scene = with_grad(base)
+    reset_launches()
+    hdr = cuda_soft.render_direct_soft_fused(scene, cfg, SOFT_KAPPA)
+    got = scene_grads(scene, hdr)
+    launched = read_launches()
+    check(launched == launches_of(path_kernel=1, silh_kernel=1,
+                                  soft_bwd_kernel=1),
+          f"render_direct_soft_fused with gradients launched {launched}")
+    check(torch.equal(hdr, cuda_path.render_path_cuda(base, cfg)),
+          "the soft value is not the trace kernel's hdr at bounces=1")
+
+    ref_scene = with_grad(base)
+    codes = cuda_soft.silh_records(ref_scene, cfg)
+    views = cuda_shade._pack_diff_inputs(ref_scene, cfg)
+    lum = cuda_soft.soft_replay(*views, codes, pixel_rng_offsets(cfg, "cuda"),
+                                cfg, SOFT_KAPPA,
+                                base.triangles.num_triangles)
+    replay = scene_grads(ref_scene, (lum / cfg.spp).T.reshape(
+        cfg.height, cfg.width, 3))
+    o_scene = with_grad(base)
+    oracle = scene_grads(o_scene, render_direct_soft(o_scene, cfg,
+                                                     SOFT_KAPPA))
+    check(set(got) == set(replay) == set(oracle) and len(got) >= 11,
+          f"gradient groups {sorted(got)}, {sorted(replay)}, "
+          f"{sorted(oracle)}")
+    out = {}
+    for label, ref, held in (("soft_replay of the same records", replay,
+                              set(got)),
+                             ("the eager oracle", oracle,
+                              set(got) - {"spheres.center",
+                                          "spheres.radius"})):
+        parts = []
+        for name in sorted(ref):
+            scale = ref[name].abs().max().item()
+            err = (got[name] - ref[name]).abs().max().item()
+            check(bool(torch.isfinite(got[name]).all()), f"{name} not finite")
+            rel = err / max(scale, 1e-30)
+            parts.append(f"{name} {rel:.1e}"
+                         + ("" if name in held else " (not held)"))
+            out[f"{label}: {name}"] = rel
+            if name in held:
+                check(err <= GRAD_ATOL * max(scale, 1.0) + GRAD_RTOL * scale,
+                      f"K7 path: d {name} differs from autograd through "
+                      f"{label} by {err:.3e} (largest magnitude {scale:.3e})")
+        log(f"  K7 path vs autograd through {label}, largest difference "
+            "over largest magnitude: " + ", ".join(parts))
+    log("  (the eager oracle traces its own rays: its camera ray is "
+        "normalized by a reciprocal square root, the records' by a "
+        "division, so a grazing sphere decision can flip between them, and "
+        "the sphere's center and radius gradients carry that flip)")
+    return worst, out
+
+
+def phase_soft_train():
+    """Path J: ``inverse_render(soft=True, fast=True)`` on the sphere scene
+    at 256 x 256 x 4 spp, direct lighting, kappa 0.1, 20 Adam steps from
+    perturbed centers, albedo and emission (benchmarks/bench_config4.py's
+    soft-fast line): one trace, one record and one backward launch per
+    step; the loss is finite and falls. Then the fit again, warm, for the
+    step time and under the profiler for the card's busy share."""
+    cfg = soft_cfg(SOFT_J)
+    steps = 20
+    log(f"== J: inverse_render(soft=True, fast=True), sphere scene, "
+        f"{cfg.width}x{cfg.height} x {cfg.spp} spp, direct, kappa "
+        f"{SOFT_KAPPA}, {steps} Adam steps")
+    scene = cornell_box_with_spheres(resolution=cfg.resolution)
+    true = inverse.extract_params(scene)
+    target = inverse.render_hdr(scene, cfg)
+    init = inverse.SceneParams(
+        sphere_centers=true.sphere_centers + 0.05,
+        sphere_diffuse=true.sphere_diffuse * 0.8,
+        light_emission=true.light_emission * 1.2)
+
+    counts = []
+
+    class CountingAdam(torch.optim.Adam):
+        """Adam that notes the launch counts at each step."""
+
+        def step(self, closure=None):
+            counts.append(read_launches())
+            return super().step(closure)
+
+    def fit(n):
+        result = inverse.inverse_render(
+            scene, target, init, cfg, steps=n, soft=True, fast=True,
+            kappa=SOFT_KAPPA,
+            optimizer=lambda params: CountingAdam(params, lr=1e-2))
+        torch.cuda.synchronize()
+        return result
+
+    reset_launches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    result = fit(steps)
+    first_ms = 1e3 * (time.perf_counter() - start) / steps
+    launches = read_launches()
+    for step, (before, after) in enumerate(zip([launches_of()] + counts,
+                                               counts)):
+        per_step = {k: after[k] - before[k] for k in after}
+        check(per_step == launches_of(path_kernel=1, silh_kernel=1,
+                                      soft_bwd_kernel=1),
+              f"path J step {step}: launches {per_step}")
+    losses = result.losses.cpu()
+    check(losses.shape == (steps,) and bool(torch.isfinite(losses).all()),
+          f"path J: losses {losses.tolist()}")
+    check(losses[-1].item() < losses[0].item(),
+          f"path J: the loss did not fall: {losses.tolist()}")
+    check(launches == launches_of(path_kernel=steps, silh_kernel=steps,
+                                  soft_bwd_kernel=steps),
+          f"path J: launches {launches}, expected one trace, one record "
+          "pass and one backward per step")
+    start = time.perf_counter()
+    fit(steps)
+    warm_ms = 1e3 * (time.perf_counter() - start) / steps
+    wall_ms, busy_ms, top = device_busy(lambda: fit(steps))
+    share = f"{busy_ms / wall_ms:.1%}" if busy_ms else "not measured"
+    log(f"  path J: loss {losses[0].item():.4e} -> {losses[-1].item():.4e} "
+        f"in {steps} steps; {first_ms:.2f} ms per step in the first fit, "
+        f"{warm_ms:.2f} ms warm (host clock); under the profiler "
+        f"{wall_ms / steps:.2f} ms per step of which the card is busy "
+        f"{busy_ms / steps:.3f} ms ({share}); most device time: "
+        + ", ".join(f"{name} {ms / steps:.3f} ms" for name, ms in top)
+        + f"; launches {launches}")
+    return launches, dict(first_call_ms=first_ms, warm_ms=warm_ms,
+                          profiled_ms=wall_ms / steps,
+                          device_busy_ms=busy_ms / steps,
+                          loss_first=losses[0].item(),
+                          loss_last=losses[-1].item())
+
+
+def phase_soft_recovery():
+    """The sphere-center recovery of tests/test_soft_fused.py on the card:
+    ``inverse_render(soft=True, fast=True)`` at 32 x 32 x 2 spp, kappa 0.1,
+    SGD 3.5e2 with momentum 0.9, 600 steps, from centers shifted by
+    RECOVERY_SHIFTS. The JAX package's criteria: the last loss below a
+    tenth of the first, the largest center error halved. The trajectory is
+    printed; the script fails if the criteria are not met."""
+    cfg = soft_cfg(SOFT_RECOVERY)
+    log(f"== soft: center recovery, {cfg.width}x{cfg.height} x {cfg.spp}, "
+        f"{RECOVERY_STEPS} SGD steps at {RECOVERY_LR} with momentum 0.9")
+    scene = cornell_box_with_spheres(resolution=cfg.resolution)
+    true = inverse.extract_params(scene)
+    target = inverse.render_hdr(scene, cfg)
+    init = true._replace(sphere_centers=true.sphere_centers
+                         + torch.tensor(RECOVERY_SHIFTS))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    result = inverse.inverse_render(
+        scene, target, init, cfg, steps=RECOVERY_STEPS, soft=True, fast=True,
+        kappa=SOFT_KAPPA, optimizer=lambda params: torch.optim.SGD(
+            params, lr=RECOVERY_LR, momentum=0.9))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    losses = result.losses.cpu()
+    centers = result.params.sphere_centers.cpu()
+    err0 = (init.sphere_centers - true.sphere_centers).abs().max().item()
+    err1 = (centers - true.sphere_centers).abs().max().item()
+    trajectory = ", ".join(f"{k}: {losses[k].item():.3e}"
+                           for k in range(0, RECOVERY_STEPS, 50))
+    log(f"  recovery: loss {losses[0].item():.4e} -> {losses[-1].item():.4e}"
+        f" ({losses[-1].item() / losses[0].item():.3e} of the first), center "
+        f"error {err0:.4f} -> {err1:.4f}, in {seconds:.1f} s; losses by "
+        f"step: {trajectory}; final centers {centers.tolist()}")
+    check(bool(torch.isfinite(losses).all()), "recovery: a loss is not finite")
+    check(losses[-1].item() < 0.1 * losses[0].item() and err1 < 0.5 * err0,
+          f"recovery left the basin: loss {losses[0].item():.4e} -> "
+          f"{losses[-1].item():.4e}, center error {err0:.4f} -> {err1:.4f}")
+    return dict(loss_first=losses[0].item(), loss_last=losses[-1].item(),
+                center_error_first=err0, center_error_last=err1,
+                seconds=seconds)
+
+
+def soft_rows(launches_j, resources):
+    """K6 and K7 at path J's shape, as path J launches them (no occluder
+    cull in soft mode): against their plain versions on the whole frame,
+    their times, their bounds from the records of the same frame."""
+    cfg = soft_cfg(SOFT_J)
+    inp = SoftInputs(cfg, cull=False)
+    shape = (f"J: {cfg.width}x{cfg.height} x {cfg.spp} spp, direct, "
+             f"{inp.num_tris} triangles, {inp.packed.num_spheres} spheres")
+    start = time.perf_counter()
+    ref = inp.silh_plain()
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - start)
+    share, err = compare_codes("K6 at J", inp.codes, ref)
+    k_ms = time_ms(inp.silh_kernel)
+    bound, by = silh_bound(inp)
+    res = resources["silh_kernel"]
+    rows = [dict(
+        name="silh_kernel", route="cuda", source=SOFT_SOURCE,
+        replaces=SILH_REPLACES, shape=shape,
+        launches=launches_j["silh_kernel"], max_abs_err=err,
+        flip_share=share, ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2],
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        registers=res["registers"], stack_bytes=res["stack_bytes"],
+        spill_store_bytes=res["spill_store_bytes"],
+        spill_load_bytes=res["spill_load_bytes"])]
+
+    got, again = inp.bwd_kernel(), inp.bwd_kernel()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "K7 at J: two launches differ")
+    start = time.perf_counter()
+    ref = inp.bwd_plain()
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - start)
+    err = compare_scaled("K7 at J", grad_groups(*got), grad_groups(*ref),
+                         grad_groups(*inp.bwd_plain(nudge=True)))
+    k_ms = time_ms(inp.bwd_kernel)
+    bound, by, counts = soft_bwd_bound(inp)
+    res = resources["soft_bwd_kernel"]
+    rows.append(dict(
+        name="soft_bwd_kernel", route="cuda", source=SOFT_SOURCE,
+        replaces=SOFT_BWD_REPLACES, shape=shape,
+        launches=launches_j["soft_bwd_kernel"], max_abs_err=err,
+        ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2], plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, library_ms=None,
+        registers=res["registers"], stack_bytes=res["stack_bytes"],
+        spill_store_bytes=res["spill_store_bytes"],
+        spill_load_bytes=res["spill_load_bytes"], **counts))
+    for row in rows:
+        log(f"  {row['name']} @ {row['shape']}: kernel {row['ms']:.3f} ms "
+            f"(min {row['ms_min']:.3f}, max {row['ms_max']:.3f}), bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']}, plain "
+            f"{row['plain_ms']:.1f} ms, launches {row['launches']}, "
+            f"{row['registers']} registers, {row['stack_bytes']} B stack")
+    log(f"  K7 at J: {counts}")
     return rows
 
 
@@ -1550,9 +2033,7 @@ def phase_train():
         step_ms.append(1e3 * (time.perf_counter() - start))
         after = read_launches()
         per_step = {k: after[k] - before[k] for k in after}
-        check(per_step == {"draws_kernel": 0, "path_kernel": 1,
-                           "shade_bwd_kernel": 1, "mis_kernel": 0,
-                           "mis_bwd_kernel": 0},
+        check(per_step == launches_of(path_kernel=1, shade_bwd_kernel=1),
               f"path D step {step}: launches {per_step}, expected one trace "
               "and one backward")
     launches = read_launches()
@@ -1611,9 +2092,8 @@ def phase_inverse():
           f"path E: the loss did not fall: {losses.tolist()}")
     for name, value in zip(result.params._fields, result.params):
         check(bool(torch.isfinite(value).all()), f"path E: {name} not finite")
-    check(launches == {"draws_kernel": 1, "path_kernel": steps,
-                       "shade_bwd_kernel": steps, "mis_kernel": 0,
-                       "mis_bwd_kernel": 0},
+    check(launches == launches_of(draws_kernel=1, path_kernel=steps,
+                                  shade_bwd_kernel=steps),
           f"path E: launches {launches}")
     log(f"  path E: loss {losses[0].item():.4e} -> {losses[-1].item():.4e} "
         f"in {steps} steps, {1e3 * seconds / steps:.2f} ms per step (host "
@@ -1903,8 +2383,12 @@ def main() -> int:
         mis_bwd_small = phase_mis_bwd()
         path_i = phase_mis_train()
         mis_grad = phase_mis_grad()
+        soft_small = phase_soft()
+        launches["J"], path_j = phase_soft_train()
+        recovery = phase_soft_recovery()
         rows, small_ms, mis_plain = phase_full(launches, plain_small)
         rows += mis_bwd_rows(path_i, resources)
+        rows += soft_rows(launches["J"], resources)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.synchronize()
@@ -1920,6 +2404,9 @@ def main() -> int:
                                      if kk != "launches"}
                                  for k, v in path_i.items()},
                       "mis_bwd_small_max_abs_err": mis_bwd_small,
+                      "soft_bwd_max_abs_err": soft_small[0],
+                      "soft_path_relative_err": soft_small[1],
+                      "path_J": path_j, "soft_recovery": recovery,
                       "ptxas": resources}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

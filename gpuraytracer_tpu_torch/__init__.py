@@ -11,7 +11,7 @@ reference), for NVIDIA Hopper:
   * ``render``    eager PyTorch oracles (path / direct / mis)
   * ``ops``       hand-written CUDA kernels for the hot path, forward and
                   backward
-  * ``grad``      pixel losses and inverse rendering
+  * ``grad``      the edge-aware oracle, pixel losses, inverse rendering
   * ``image``     tonemap + PNG I/O
   * ``convert``   scenes to and from numpy trees
   * ``cli``       command-line renderer

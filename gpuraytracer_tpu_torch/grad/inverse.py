@@ -7,12 +7,15 @@ functions of the winning primitive's parameters (interior gradients),
 material and emission gradients flow through the attribute fetch and the
 shading math, and visibility masks are step functions treated as piecewise
 constant. That is the right estimator for albedo and emission and a biased
-but useful one for geometry; the edge-aware (silhouette) loss that geometry
-recovery needs is a later slice of the port.
+but useful one for geometry; sphere geometry needs the edge-aware loss
+``soft_pixel_loss``, whose gradients include the sphere-silhouette term.
 
 ``pixel_loss`` goes through the eager oracle (``render.py``);
 ``fast_pixel_loss`` through the kernel pair (``ops.render_path_decoupled``:
 trace kernel forward, hand-written backward kernel), with the same gradients.
+``soft_pixel_loss`` goes through the edge-aware oracle
+(``grad/diff_render.py``) or, with ``fast=True``, through the silhouette
+kernels (``ops.render_direct_soft_fused``).
 """
 from __future__ import annotations
 
@@ -24,10 +27,12 @@ import torch
 
 from ..intersect import potential_occluders
 from ..ops.cuda_path import pregen_draws
+from ..ops.cuda_soft import render_direct_soft_fused
 from ..ops.decoupled import _auto_records_only, render_path_decoupled
 from ..render import render
 from ..types import RenderConfig, Scene
 from ..utils.host import resolve_device
+from .diff_render import render_direct_soft
 
 
 class SceneParams(NamedTuple):
@@ -90,6 +95,25 @@ def fast_pixel_loss(params: SceneParams, scene: Scene, config: RenderConfig,
     return torch.mean((img - target.to(img.device)) ** 2)
 
 
+def soft_pixel_loss(params: SceneParams, scene: Scene, config: RenderConfig,
+                    target: torch.Tensor, kappa: float = 0.05,
+                    fast: bool = False, occluders=None,
+                    device="cuda") -> torch.Tensor:
+    """Pixel loss through the edge-aware renderer: the value of the hard
+    direct render, plus sphere-silhouette gradient terms, which sphere-center
+    recovery needs. ``fast=True`` takes the silhouette kernels (trace,
+    silhouette records, hand-written backward) with the same estimator;
+    ``fast=False`` the eager oracle. ``occluders`` culls the shadow probes of
+    the kernels (``fast=True`` only)."""
+    s = apply_params(scene, params)
+    if fast:
+        img = render_direct_soft_fused(s, config, kappa, occluders=occluders,
+                                       device=device)
+    else:
+        img = render_direct_soft(s, config, kappa, device=device)
+    return torch.mean((img - target.to(img.device)) ** 2)
+
+
 class InverseResult(NamedTuple):
     params: SceneParams
     losses: torch.Tensor  # [steps]
@@ -116,7 +140,9 @@ def inverse_render(
 
     ``optimizer``: a callable ``params -> torch.optim.Optimizer`` over the
     list of parameter tensors; default ``torch.optim.Adam`` at
-    ``learning_rate``.
+    ``learning_rate``, or with ``soft`` SGD with momentum 0.9 (it follows
+    the small silhouette gradients more reliably than Adam, whose
+    per-parameter normalization amplifies plateau noise).
 
     ``fast=True`` takes the kernel path (``fast_pixel_loss``) and hoists the
     two step-invariant inputs out of the loop: the Halton draw planes
@@ -126,17 +152,19 @@ def inverse_render(
     iterate the optimizer can reach; raise it when recovering larger
     shifts). ``hoist=False`` turns both off, to measure what they save.
 
-    ``soft=True`` (the edge-aware loss with sphere-silhouette gradients, for
-    geometry recovery; ``kappa`` is its edge width) is not ported yet."""
-    if soft:
-        raise NotImplementedError(
-            "soft=True needs the edge-aware renderer and the silhouette "
-            "kernel pair (silh_kernel / soft_bwd_kernel): a later slice of "
-            "the port")
+    ``soft=True`` takes the edge-aware loss (``soft_pixel_loss``, edge width
+    ``kappa``), needed where sphere geometry is among the unknowns; with
+    ``fast`` it runs on the silhouette kernels. It takes no occluder mask:
+    a geometry-recovery trajectory can overshoot any fixed ``sphere_slack``
+    (momentum and plateau noise), and a stale mask would then corrupt the
+    silhouette gradients for good; a sphere scene's shadow probes cost
+    little without one."""
     device = resolve_device(device)
     scene = scene.to(device)
     target = target.to(device)
-    if fast:
+    if soft:
+        loss_fn = partial(soft_pixel_loss, kappa=kappa, fast=fast)
+    elif fast:
         if hoist:
             occluders = potential_occluders(scene, config,
                                             sphere_slack=sphere_slack)
@@ -150,8 +178,12 @@ def inverse_render(
 
     params = [p.detach().to(device).clone().requires_grad_(True)
               for p in init_params]
-    opt = (optimizer(params) if optimizer is not None
-           else torch.optim.Adam(params, lr=learning_rate))
+    if optimizer is not None:
+        opt = optimizer(params)
+    elif soft:
+        opt = torch.optim.SGD(params, lr=learning_rate, momentum=0.9)
+    else:
+        opt = torch.optim.Adam(params, lr=learning_rate)
     losses = []
     for _ in range(steps):
         opt.zero_grad(set_to_none=True)

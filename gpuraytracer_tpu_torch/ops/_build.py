@@ -25,8 +25,10 @@ from typing import Dict, List, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 # Every kernel source of the package: the path tracer's draws and trace, its
-# backward, the MIS integrator and its backward.
-SOURCES = ("path_kernels", "shade_kernels", "mis_kernels", "mis_bwd_kernels")
+# backward, the MIS integrator and its backward, the silhouette records and
+# their backward.
+SOURCES = ("path_kernels", "shade_kernels", "mis_kernels", "mis_bwd_kernels",
+           "soft_kernels")
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
              / "gpuraytracer_tpu_torch")
 

@@ -1,8 +1,9 @@
 // Halton draws shared by the port's CUDA kernels (sm_90a).
 //
 // One definition for every kernel that makes or regenerates a draw
-// (draws_kernel, path_kernel, shade_bwd_kernel), so that a draw read from a
-// plane and the same draw recomputed in another kernel are the same bits.
+// (draws_kernel, path_kernel, shade_bwd_kernel, silh_kernel,
+// soft_bwd_kernel), so that a draw read from a plane and the same draw
+// recomputed in another kernel are the same bits.
 #pragma once
 
 #include <stdint.h>

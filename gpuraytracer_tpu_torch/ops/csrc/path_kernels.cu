@@ -58,19 +58,23 @@
 #include <stdint.h>
 
 #include "halton.cuh"
+#include "trace.cuh"
 
 namespace {
 
 using grt::camera_jitter;
+using grt::closest_triangle;
+using grt::GEO_ROWS;
 using grt::halton;
+using grt::occluded;
+using grt::SPH_ROWS;
+using grt::sphere_roots;
 
 constexpr int OCC_BIT = 1 << 20;
 constexpr float BIG = 1e30f;
 constexpr float RAY_TMIN = 1e-3f;
 constexpr float RAY_TMAX = 1e3f;
-constexpr int GEO_ROWS = 12;    // n xyz, c0, s1 xyz, c1, s2 xyz, c2
 constexpr int ATTR_ROWS = 13;   // normal, diffuse, emissive, is_emissive, sphere center
-constexpr int SPH_ROWS = 4;     // center xyz, radius
 constexpr int BLOCK_THREADS = 128;
 
 __global__ void __launch_bounds__(BLOCK_THREADS)
@@ -120,23 +124,6 @@ struct PathParams {
 
 __device__ __forceinline__ float clamp01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
-}
-
-// Quadratic ray/sphere roots, in the operation order of the plain version
-// (intersect._sphere_candidates).
-__device__ __forceinline__ bool sphere_roots(const float* s, float ox, float oy,
-                                             float oz, float dx, float dy, float dz,
-                                             float* t1, float* t2) {
-  const float ocx = ox - s[0], ocy = oy - s[1], ocz = oz - s[2];
-  const float a = dx * dx + dy * dy + dz * dz;
-  const float b = 2.0f * (ocx * dx + ocy * dy + ocz * dz);
-  const float c = (ocx * ocx + ocy * ocy + ocz * ocz) - s[3] * s[3];
-  const float disc = b * b - 4.0f * a * c;
-  const bool pos = disc > 0.0f;
-  const float sq = sqrtf(pos ? disc : 1.0f);
-  *t1 = (-b - sq) / (2.0f * a);
-  *t2 = (-b + sq) / (2.0f * a);
-  return pos;
 }
 
 template <bool EMIT, bool READ_DRAWS>
@@ -222,21 +209,8 @@ __global__ void __launch_bounds__(BLOCK_THREADS) path_kernel(const PathParams p)
       // ---- closest hit: triangles in index order with strict <, then spheres
       float t_best = BIG;
       int prim = -1;
-      for (int k = 0; k < T; ++k) {
-        const float4* g = reinterpret_cast<const float4*>(s_geo + GEO_ROWS * k);
-        const float4 pn = g[0], p1 = g[1], p2 = g[2];
-        const float den = dx * pn.x + dy * pn.y + dz * pn.z;
-        const float num = pn.w - (ox * pn.x + oy * pn.y + oz * pn.z);
-        const float tt = num / den;
-        const float u = (ox * p1.x + oy * p1.y + oz * p1.z)
-                        + tt * (dx * p1.x + dy * p1.y + dz * p1.z) - p1.w;
-        const float v = (ox * p2.x + oy * p2.y + oz * p2.z)
-                        + tt * (dx * p2.x + dy * p2.y + dz * p2.z) - p2.w;
-        const bool closer = (fabsf(den) >= 1e-12f) && (tt > RAY_TMIN)
-                            && (tt < RAY_TMAX) && (u >= 0.0f) && (v >= 0.0f)
-                            && (u + v <= 1.0f) && (tt < t_best);
-        if (closer) { t_best = tt; prim = k; }
-      }
+      closest_triangle(s_geo, T, ox, oy, oz, dx, dy, dz, RAY_TMIN, RAY_TMAX, &t_best,
+                       &prim);
       for (int k = 0; k < S; ++k) {
         float t1, t2;
         const bool pos = sphere_roots(s_sph + SPH_ROWS * k, ox, oy, oz, dx, dy, dz,
@@ -306,29 +280,8 @@ __global__ void __launch_bounds__(BLOCK_THREADS) path_kernel(const PathParams p)
       if (surf) { col_r *= dfr; col_g *= dfg; col_b *= dfb; }
 
       // ---- shadow probe: any hit in (0, ldist - 1e-3) over the occluder list
-      const float t_max = ldist - 1e-3f;
-      bool occ = false;
-      for (int k = 0; k < p.n_shadow; ++k) {
-        const float4* g = reinterpret_cast<const float4*>(s_shadow + GEO_ROWS * k);
-        const float4 pn = g[0], p1 = g[1], p2 = g[2];
-        const float den = ldx * pn.x + ldy * pn.y + ldz * pn.z;
-        const float num = pn.w - (hx * pn.x + hy * pn.y + hz * pn.z);
-        const float tt = num / den;
-        const float u = (hx * p1.x + hy * p1.y + hz * p1.z)
-                        + tt * (ldx * p1.x + ldy * p1.y + ldz * p1.z) - p1.w;
-        const float v = (hx * p2.x + hy * p2.y + hz * p2.z)
-                        + tt * (ldx * p2.x + ldy * p2.y + ldz * p2.z) - p2.w;
-        occ = occ || ((fabsf(den) >= 1e-12f) && (tt > 0.0f) && (tt < t_max)
-                      && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f));
-      }
-      for (int k = 0; k < S; ++k) {
-        float t1, t2;
-        const bool pos = sphere_roots(s_sph + SPH_ROWS * k, hx, hy, hz, ldx, ldy, ldz,
-                                      &t1, &t2);
-        const bool t1_ok = (t1 > 0.0f) && (t1 < t_max);
-        const bool t2_ok = (t2 > 0.0f) && (t2 < t_max);
-        occ = occ || (pos && (t1_ok || t2_ok));
-      }
+      const bool occ = occluded(s_shadow, p.n_shadow, s_sph, S, hx, hy, hz, ldx, ldy,
+                                ldz, ldist - 1e-3f);
       if (EMIT) {
         p.records[((size_t)n * p.bounces + bounce) * n_local + i] =
             (prim + 1) + (occ ? OCC_BIT : 0);

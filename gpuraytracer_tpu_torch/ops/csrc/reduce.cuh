@@ -1,6 +1,6 @@
 // Fixed-order reductions shared by the port's backward kernels (sm_90a):
-// shade_bwd_kernel (shade_kernels.cu) and mis_bwd_kernel
-// (mis_bwd_kernels.cu).
+// shade_bwd_kernel (shade_kernels.cu), mis_bwd_kernel (mis_bwd_kernels.cu)
+// and soft_bwd_kernel (soft_kernels.cu).
 //
 // A backward kernel scatters per-lane cotangent rows into a per-primitive
 // table and sums per-lane scalars.  It does so without float atomics, so that

@@ -273,16 +273,57 @@ def test_optimizer_argument_and_zero_steps(scene):
 
 
 # ---------------------------------------------------------------------------
-# What must raise
+# The edge-aware loss
 # ---------------------------------------------------------------------------
 
-def test_soft_loss_names_the_later_slice(scene):
-    cfg = _direct_cfg()
-    params = extract_params(scene)
-    with pytest.raises(NotImplementedError, match="silhouette"):
-        inverse_render(scene, torch.zeros((24, 24, 3)), params, cfg, steps=1,
-                       soft=True, device="cpu")
+SOFT_SHIFTS = [[0.15, 0.0, -0.1], [-0.1, 0.05, 0.1]]
+SOFT_LR = 3.5e2  # the JAX package's center-recovery rate (test_soft_fused.py)
 
+
+@pytest.fixture(scope="module")
+def jax_soft_run():
+    """The JAX package's ``inverse_render(soft=True)`` (its default: the
+    edge-aware oracle, SGD with momentum 0.9) for 3 steps from shifted
+    sphere centers: (scene, target, init, losses, final parameters)."""
+    jax_scene = jscene.cornell_box_with_spheres(resolution=(24, 24))
+    jcfg = jtypes.RenderConfig(width=24, height=24, integrator="direct",
+                               spp=2, bounces=1, pixel_chunk=576)
+    true = jinv.extract_params(jax_scene)
+    init = true._replace(
+        sphere_centers=true.sphere_centers + jnp.array(SOFT_SHIFTS))
+    target = jinv.render_hdr(jax_scene, jcfg)
+    res = jinv.inverse_render(jax_scene, target, init, jcfg, steps=3,
+                              learning_rate=SOFT_LR, soft=True, kappa=0.1)
+    return (convert.scene_from_numpy(jax.tree.map(np.asarray, jax_scene)),
+            torch.from_numpy(np.array(target)),
+            SceneParams(*(torch.from_numpy(np.array(p)) for p in init)),
+            np.asarray(res.losses), [np.asarray(p) for p in res.params])
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_soft_first_steps_match_jax(jax_soft_run, fast):
+    """``inverse_render(soft=True)`` with its default optimizer (SGD with
+    momentum 0.9, as optax's ``sgd(momentum=0.9)``: both start from the
+    gradient) takes the JAX package's first three steps: equal losses at
+    every step (rtol 1e-4, a pixel loss of two images that agree to 2e-5)
+    and equal parameters after the third: within 1e-4 of the distance the
+    steps moved them (the gradients agree to rtol 1e-4) plus 1e-6."""
+    scene, target, init, ref_losses, ref_params = jax_soft_run
+    res = inverse_render(scene, target, init, _direct_cfg(), steps=3,
+                         learning_rate=SOFT_LR, soft=True, fast=fast,
+                         kappa=0.1, device="cpu")
+    np.testing.assert_allclose(res.losses.numpy(), ref_losses, rtol=1e-4)
+    for name, got, ref, start in zip(SceneParams._fields, res.params,
+                                     ref_params, init):
+        moved = np.abs(ref - start.numpy()).max()
+        assert moved > 1e-3, name  # the three steps did move them
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=1e-4 * moved + 1e-6, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# What must raise
+# ---------------------------------------------------------------------------
 
 def test_default_device_raises_without_a_card(scene):
     if torch.cuda.is_available():

@@ -251,7 +251,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "gpuraytracer_tpu_torch/ops/csrc/halton.cuh",
             "gpuraytracer_tpu_torch/ops/cuda_mis_bwd.py",
             "gpuraytracer_tpu_torch/ops/csrc/mis_bwd_kernels.cu",
-            "gpuraytracer_tpu_torch/ops/csrc/reduce.cuh"} <= names
+            "gpuraytracer_tpu_torch/ops/csrc/reduce.cuh",
+            "gpuraytracer_tpu_torch/grad/diff_render.py",
+            "gpuraytracer_tpu_torch/ops/cuda_soft.py",
+            "gpuraytracer_tpu_torch/ops/csrc/soft_kernels.cu",
+            "gpuraytracer_tpu_torch/ops/csrc/trace.cuh"} <= names
     for path in files:
         found = pattern.findall(path.read_text())
         assert not found, f"{path}: {found}"
@@ -271,6 +275,7 @@ def test_importing_the_port_loads_no_jax():
         "       or m == 'gpuraytracer_tpu' or m.startswith('gpuraytracer_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'gpuraytracer_tpu_torch.ops.cuda_mis_bwd' in sys.modules\n"
+        "assert 'gpuraytracer_tpu_torch.ops.cuda_soft' in sys.modules\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
