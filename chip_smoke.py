@@ -7,8 +7,10 @@ Builds the CUDA kernels from the sources in this checkout, holds each against
 its plain PyTorch version on the card, renders six frames through the
 command-line entry point (three with the path tracer, three with the MIS
 integrator) and trains through the library entry points (the main paths:
-the path tracer's and the MIS integrator's gradients, and the silhouette
-path's sphere-center recovery), times the kernels, and prints
+the path tracer's and the MIS integrator's gradients, the silhouette path's
+sphere-center recovery, and the path tracer's gradients on tessellated scenes
+of 1,002 and 12,802 triangles through the grouped tier), times the kernels,
+and prints
 
   * a ``kernels`` JSON line (time, bound, plain-version time, launches on the
     main path, largest difference from the plain version, per kernel),
@@ -94,9 +96,31 @@ Phases
           32 x 2 spp, 600 SGD steps at 3.5e2 with momentum 0.9, held to the
           JAX package's criteria (last loss below a tenth of the first,
           center error halved); the trajectory is printed.
-  full    the kernels at the shapes of A to J against their plain versions
-          (the MIS kernels' on the whole frame, records and all), and their
-          times.
+  grouped the grouped tier (more than 64 triangles) at 128 x 96 x 4 spp x 3
+          bounces on the tessellated box (252 and 1,002 triangles) and on
+          its 252-triangle walls with two analytic spheres, cull on and off:
+          the grouped trace kernel in its three modes against its plain
+          version (the same sweep in PyTorch), both against the brute-force
+          plain version (decisions equal on live lanes); the grouped
+          backward against its plain version, draws read and regenerated,
+          two launches bit-equal, and the differentiable entry's gradients;
+          then both forced onto the box and sphere scenes: records and
+          images bit-equal to the static trace kernel's, the grouped
+          backward within the static one's limits of it.
+  K, L    the tessellated box at 512 x 512 x 16 spp x 3 bounces
+          (benchmarks/bench_grouped.py's variant-B workload): K 1,002
+          triangles, L 12,802 (wall_subdiv 16, sphere_subdiv 4,
+          BASELINE.md:139). ``render_path_cuda_impl`` in hdr mode and with
+          records + draws + occluder cull, then gradients of
+          ``render_path_decoupled_fused(scene, draws=..., occluders=...)
+          .mean()`` for every float tensor (K four steps, L two), one grouped
+          trace and one grouped backward launch each, counted; two more
+          under ``torch.profiler``; the shadow table's size after the cull
+          and the peak device memory.
+  full    the kernels at the shapes of A to L against their plain versions
+          (the MIS kernels' on the whole frame, records and all; the grouped
+          trace's on the whole frame at K, on every 128th pixel at L), and
+          their times.
 
 Tolerances. Draws: bit-equal (the radical inverse spells out each rounding).
 Records: a share of at most 0.5 % of the decisions may differ — the kernel and
@@ -138,7 +162,13 @@ addition; against the oracle backward, which makes its own decisions, the
 JAX package's MIS gradient tolerance atol 1e-5 max(scale, 1) + rtol 2e-4 on
 the triangle scenes (on the sphere scene an ulp flips grazing decisions
 that carry large geometry gradients: that distance is printed, not held).
-Silhouette records: the share of records that differ from the plain
+Grouped trace: as the trace kernel, and against the brute-force plain
+version the decisions on live lanes equal (the sweep's boxes are padded, so
+it skips no box that holds the winner); its image within atol 5e-8 / rtol
+1e-6 of the brute force's. Grouped backward: the backward kernel's limits;
+forced onto the static tier's scenes, within them of the static kernel
+(the plain version's one-ulp movement added). Silhouette records: the share
+of records that differ from the plain
 version's is held to the same 0.5 % and printed field by field (kernel and
 plain version hold no transcendental and round alike). Silhouette backward:
 per group atol 1e-6 max(scale, 1) + rtol 1e-4 of its largest magnitude plus
@@ -177,6 +207,7 @@ from gpuraytracer_tpu_torch.ops import (_build, cuda_mis, cuda_mis_bwd,
 from gpuraytracer_tpu_torch.render import pixel_rng_offsets, render_mis
 from gpuraytracer_tpu_torch.sampling import PRIMES
 from gpuraytracer_tpu_torch.scene import (cornell_box, cornell_box_glossy,
+                                          cornell_box_tessellated,
                                           cornell_box_with_spheres)
 from gpuraytracer_tpu_torch.types import RenderConfig
 from gpuraytracer_tpu_torch.utils.metrics import mrays_per_s, nominal_rays
@@ -299,6 +330,47 @@ OPS_K7_CAMERA, OPS_K7_SHADE_FWD, OPS_K7_SHADE_REV = 65, 43, 87
 OPS_K7_SPHERE_FWD, OPS_K7_SPHERE_REV, OPS_K7_COVER = 70, 123, 74
 OPS_K7_BG_HIT, OPS_K7_BG_SURF, OPS_K7_BG_REV = 15, 12, 47
 
+# The grouped tier (more than 64 triangles): the tessellated Cornell box of
+# benchmarks/bench_grouped.py (walls cut into cells, icosphere meshes), at the
+# test size (252 triangles), its default (1,002) and BASELINE.md:139's 12,802;
+# and the 252-triangle walls with the two analytic spheres of
+# cornell_box_with_spheres added (tests/test_mis_grouped.py:69-77).
+PATH_SOURCE = "gpuraytracer_tpu_torch/ops/csrc/path_kernels.cu"
+K2G_REPLACES = "gpuraytracer_tpu/ops/pallas_path.py:532"
+K3G_REPLACES = "gpuraytracer_tpu/ops/pallas_shade.py:174"
+TESS_SMALL = dict(wall_subdiv=3, sphere_subdiv=1)
+TESS_K = dict(wall_subdiv=6, sphere_subdiv=2)
+TESS_L = dict(wall_subdiv=16, sphere_subdiv=4)
+
+
+def tess_with_spheres(resolution):
+    tess = cornell_box_tessellated(resolution=resolution, **TESS_SMALL)
+    return dataclasses.replace(
+        tess, spheres=cornell_box_with_spheres(resolution=resolution).spheres)
+
+
+GROUPED_SCENES = {
+    "tess-252": lambda resolution: cornell_box_tessellated(
+        resolution=resolution, **TESS_SMALL),
+    "tess-1002": lambda resolution: cornell_box_tessellated(
+        resolution=resolution, **TESS_K),
+    "tess-252+spheres": tess_with_spheres,
+}
+ALL_SCENES = dict(SCENES, **GROUPED_SCENES)
+# Float32 operations of the grouped sweep, counted from trace.cuh like the
+# counts above: one padded-box slab test (six subtracts, six multiplies,
+# eleven min / max, the min with the far limit and the compare: 25); in the
+# closest-hit loop each box also makes its far limit from the t_best of that
+# moment (a multiply, an add and a min: 28). Per ray, the three safe
+# reciprocals (an |x|, a compare and a divide each: 9), and for a shadow ray
+# its one far limit (a multiply and an add: 2).
+OPS_BOX_CLOSEST, OPS_BOX_SHADOW = 28, 25
+OPS_SWEEP_RAY, OPS_SHADOW_RAY = 9, 2
+# At path L the plain sweep runs on every L_PIXEL_STRIDE-th pixel: its counts
+# of box and triangle tests there, scaled to the frame, give K2g's bound at L
+# (at K it runs on the whole frame).
+L_PIXEL_STRIDE = 128
+
 # The gradient groups that must be non-zero on the box scene.
 GRAD_GROUPS = ("light.color", "light.center", "light.normal",
                "triangles.verts", "triangles.diffuse", "triangles.emissive",
@@ -335,6 +407,9 @@ def time_ms(fn, repeats: int = 5, warmup: int = 1):
     return min(times), statistics.median(times), max(times)
 
 
+LAST_PROFILE = {}  # device milliseconds by kernel name, last profiler window
+
+
 def device_busy(fn):
     """Run ``fn`` under ``torch.profiler``: (wall ms, ms during which a
     kernel or copy ran on the card, the three names with most device time).
@@ -355,7 +430,15 @@ def device_busy(fn):
             by_name[event.name] = (by_name.get(event.name, 0.0)
                                    + event.time_range.elapsed_us() / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    LAST_PROFILE.clear()
+    LAST_PROFILE.update(by_name)
     return wall_ms, sum(by_name.values()), [(n[:48], ms) for n, ms in top]
+
+
+def profiled_ms(kernel: str) -> float:
+    """Device milliseconds of the kernels whose name holds ``kernel`` in the
+    last ``device_busy`` window."""
+    return sum(ms for name, ms in LAST_PROFILE.items() if kernel in name)
 
 
 # ---------------------------------------------------------------------------
@@ -363,19 +446,25 @@ def device_busy(fn):
 # ---------------------------------------------------------------------------
 
 class TraceInputs:
-    """What the trace wrapper and its plain version take, on the card."""
+    """What the trace wrapper and its plain version take, on the card.
+    ``grouped``: pack for the grouped tier (K2g and its plain sweep); the
+    occluder cull then lives in the shadow table."""
 
     def __init__(self, scene_name: str, cfg: RenderConfig, cull: bool,
-                 device="cuda"):
+                 device="cuda", grouped=False, scene=None):
         dev = torch.device(device)
         self.cfg = cfg
-        self.scene = SCENES[scene_name](resolution=cfg.resolution)
-        self.packed = cuda_path._pack_inputs(self.scene.to(dev), cfg)
+        self.scene = (ALL_SCENES[scene_name](resolution=cfg.resolution)
+                      if scene is None else scene)
+        self.num_tris = self.scene.triangles.num_triangles
+        self.occluders = potential_occluders(self.scene, cfg) if cull else None
+        self.grouped = grouped
+        self.packed = cuda_path._pack_inputs(self.scene.to(dev), cfg, grouped,
+                                             self.occluders)
         self.offsets = pixel_rng_offsets(cfg, dev)
         self.offsets_i32 = self.offsets.to(torch.int32).contiguous()
-        self.num_tris = self.scene.triangles.num_triangles
-        occ = potential_occluders(self.scene, cfg) if cull else None
-        self.shadow_idx = cuda_path.shadow_indices(occ, self.num_tris, dev)
+        self.shadow_idx = cuda_path.shadow_indices(self.occluders,
+                                                   self.num_tris, dev)
 
     def kernel(self, draws=None, emit=False):
         return cuda_path.path_trace_kernel(
@@ -387,6 +476,13 @@ class TraceInputs:
                if whole_frame else self.cfg)
         return cuda_path.render_path_plain(
             self.offsets, 0, self.packed, self.shadow_idx, draws, cfg, emit)
+
+    def brute(self, draws=None, emit=False):
+        """The brute-force plain version (every triangle tested) on the
+        same scene, draws and cull."""
+        packed = self.packed._replace(grouped=None)
+        return cuda_path.render_path_plain(
+            self.offsets, 0, packed, self.shadow_idx, draws, self.cfg, emit)
 
 
 def compare_trace(what, hdr_k, rec_k, hdr_p, rec_p, packed):
@@ -461,9 +557,12 @@ class ShadeInputs:
     draws, the parameter views, and a cotangent from a seeded generator,
     divided by spp as the autograd glue hands it over."""
 
-    def __init__(self, scene_name: str, cfg: RenderConfig):
+    def __init__(self, scene_name: str, cfg: RenderConfig, grouped=False,
+                 scene=None):
         self.cfg = cfg
-        self.trace = TraceInputs(scene_name, cfg, cull=True)
+        self.grouped = grouped
+        self.trace = TraceInputs(scene_name, cfg, cull=True, grouped=grouped,
+                                 scene=scene)
         self.draws = cuda_path.pregen_draws_kernel(self.trace.offsets_i32,
                                                    cfg)
         _, self.records = self.trace.kernel(self.draws, emit=True)
@@ -478,8 +577,10 @@ class ShadeInputs:
                 self.trace.offsets_i32 if regenerate else None, self.table,
                 self.cam, self.light, self.cfg)
 
-    def kernel(self, regenerate=False):
-        return cuda_shade.shade_bwd_kernel(*self._args(regenerate))
+    def kernel(self, regenerate=False, grouped=None):
+        return cuda_shade.shade_bwd_kernel(
+            *self._args(regenerate),
+            grouped=self.grouped if grouped is None else grouped)
 
     def plain(self, nudge=False):
         """The plain version; with ``nudge`` on draws of which one plane is
@@ -651,10 +752,10 @@ def live_lanes(records, packed):
 
 def check_same_decisions(what, rec_a, rec_b, packed):
     """Two record streams of one frame, traced with and without the
-    occluder cull, hold the same winners everywhere and the same shadow
-    bits on every shaded lane. (On a dead lane the probe starts on the
-    surface it last left, where a culled triangle may graze it: that bit
-    feeds nothing.)"""
+    occluder cull or by the two tiers, hold the same winners everywhere and
+    the same shadow bits on every shaded lane. (On a dead lane the probe
+    starts on the surface it last left, where a culled triangle may graze
+    it: that bit feeds nothing.)"""
     mask = cuda_path.OCC_BIT - 1
     check(torch.equal(rec_a & mask, rec_b & mask),
           f"{what}: winners differ")
@@ -1016,14 +1117,15 @@ def ptxas_resources(log_text: str):
             m = re.search(r"mis_bwd_kernelILb(\d)E", mangled)
             if m:
                 name = f"mis_bwd_kernel<SPH={m.group(1)}>"
-            m = re.search(r"path_kernelILb(\d)ELb(\d)E", mangled)
+            m = re.search(r"path_kernelILb(\d)ELb(\d)ELb(\d)E", mangled)
             if m:
                 name = (f"path_kernel<EMIT={m.group(1)}, "
-                        f"READ_DRAWS={m.group(2)}>")
-            m = re.search(r"shade_bwd_kernelILb(\d)ELb(\d)E", mangled)
+                        f"READ_DRAWS={m.group(2)}, GROUPED={m.group(3)}>")
+            m = re.search(r"shade_bwd(_grouped)?_kernelILb(\d)ELb(\d)E",
+                          mangled)
             if m:
-                name = (f"shade_bwd_kernel<SPH={m.group(1)}, "
-                        f"RNG={m.group(2)}>")
+                name = (f"shade_bwd{m.group(1) or ''}_kernel<SPH="
+                        f"{m.group(2)}, RNG={m.group(3)}>")
             resources[name] = {}
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -1061,11 +1163,12 @@ def phase_build():
         log(f"  ptxas: {name}: {res['registers']} registers, "
             f"{res['stack_bytes']} B stack, {res['spill_store_bytes']} B "
             f"spill stores, {res['spill_load_bytes']} B spill loads")
-    check(len(resources) == 17, "ptxas did not report the draws kernel, the "
-          "three trace-kernel instantiations, the four backward-kernel "
-          "instantiations, the three reductions, the two MIS-kernel and the "
-          "two MIS-backward instantiations, the silhouette record kernel and "
-          f"its backward: {resources}\n{logs}")
+    check(len(resources) == 24, "ptxas did not report the draws kernel, the "
+          "six trace-kernel instantiations (static and grouped), the eight "
+          "backward-kernel instantiations (static and grouped), the three "
+          "reductions, the two MIS-kernel and the two MIS-backward "
+          "instantiations, the silhouette record kernel and its backward: "
+          f"{resources}\n{logs}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1782,7 +1885,9 @@ def phase_soft_train():
     fit(steps)
     warm_ms = 1e3 * (time.perf_counter() - start) / steps
     wall_ms, busy_ms, top = device_busy(lambda: fit(steps))
+    k2_ms = profiled_ms("path_kernel") / steps
     share = f"{busy_ms / wall_ms:.1%}" if busy_ms else "not measured"
+    log(f"  path J: K2 under the profiler {k2_ms:.4f} ms per step")
     log(f"  path J: loss {losses[0].item():.4e} -> {losses[-1].item():.4e} "
         f"in {steps} steps; {first_ms:.2f} ms per step in the first fit, "
         f"{warm_ms:.2f} ms warm (host clock); under the profiler "
@@ -1793,6 +1898,7 @@ def phase_soft_train():
     return launches, dict(first_call_ms=first_ms, warm_ms=warm_ms,
                           profiled_ms=wall_ms / steps,
                           device_busy_ms=busy_ms / steps,
+                          k2_profiled_ms=k2_ms,
                           loss_first=losses[0].item(),
                           loss_last=losses[-1].item())
 
@@ -2362,6 +2468,376 @@ def phase_full(launches, plain_small):
     return rows, row_small, mis_plain
 
 
+# ---------------------------------------------------------------------------
+# The grouped tier: K2g and K3g
+# ---------------------------------------------------------------------------
+
+def grouped_trace_bound(inp: TraceInputs, rec, stats, scale, emit,
+                        reads_draws):
+    """(bound_ms, bound_by, counts) of one grouped trace: the box and
+    triangle tests that the plain sweep counted (``stats`` of
+    ``render_path_plain``) on a part of the frame, times ``scale`` (every
+    lane with records on, where dead lanes run on; live lanes in hdr mode),
+    and the spheres, shading and camera rays of this frame's records,
+    against the bytes in and out."""
+    cfg, n = inp.cfg, inp.cfg.num_pixels
+    key = (lambda k: k + "_all") if emit else (lambda k: k)
+    counts = {f"{loop}_{k}": scale * stats[loop][key(k)]
+              for loop in ("closest", "shadow")
+              for k in ("rays", "boxes", "triangles")}
+    alive, shaded = live_lanes(rec, inp.packed)
+    closest = rec.numel() if emit else int(alive.sum())
+    shade = rec.numel() if emit else int(shaded.sum())
+    s = inp.packed.num_spheres
+    ops = (counts["closest_boxes"] * OPS_BOX_CLOSEST
+           + counts["shadow_boxes"] * OPS_BOX_SHADOW
+           + (counts["closest_rays"] + counts["shadow_rays"]) * OPS_SWEEP_RAY
+           + counts["shadow_rays"] * OPS_SHADOW_RAY
+           + counts["closest_triangles"] * OPS_TRI_CLOSEST
+           + counts["shadow_triangles"] * OPS_TRI_SHADOW
+           + closest * s * OPS_SPH_CLOSEST
+           + shade * (s * OPS_SPH_SHADOW + OPS_SHADE)
+           + cfg.spp * n * OPS_CAMERA)
+    if not reads_draws:
+        ops += halton_ops(cfg, n)
+    grp = inp.packed.grouped
+    tables = sum(t.numel() for t in grp[:6]) + inp.packed.atab.numel() \
+        + inp.packed.sph.numel() + 18
+    nbytes = 4 * n + 12 * n + 4 * tables
+    if emit:
+        nbytes += 4 * cfg.spp * cfg.bounces * n
+    if reads_draws:
+        nbytes += 4 * (4 * cfg.bounces + 2) * cfg.spp * n
+    bound, by = roofline(nbytes, int(ops))
+    counts.update(closest_iterations=closest, shaded_iterations=shade,
+                  operations=int(ops))
+    return bound, by, counts
+
+
+def phase_grouped():
+    """K2g and K3g against their plain versions at the small size, on the
+    tessellated scenes and the walls-plus-spheres scene, cull on and off;
+    then both forced onto the 36-triangle box and the sphere scene, against
+    K2 and K3."""
+    cfg = RenderConfig(**SMALL)
+    log(f"== grouped: K2g and K3g against their plain versions, {cfg.width} x "
+        f"{cfg.height} x {cfg.spp} spp x {cfg.bounces} bounces")
+    errs = {}
+    for scene_name in GROUPED_SCENES:
+        for cull in (True, False):
+            tag = f"{scene_name}/{'cull' if cull else 'no cull'}"
+            inp = TraceInputs(scene_name, cfg, cull, grouped=True)
+            draws = cuda_path.pregen_draws_kernel(inp.offsets_i32, cfg)
+            hdr_h, _ = inp.kernel()
+            hdr_e, rec_e = inp.kernel(draws, emit=True)
+            hdr_r, rec_r = inp.kernel(emit=True)
+            torch.cuda.synchronize()
+            check(torch.equal(hdr_h, hdr_e) and torch.equal(hdr_h, hdr_r),
+                  f"K2g {tag}: the three modes do not give the same image")
+            hdr_p, rec_p = inp.plain(draws, emit=True)
+            compare_trace(f"K2g {tag} emit+draws", hdr_e, rec_e, hdr_p,
+                          rec_p, inp.packed)
+            hdr_q, rec_q = inp.plain(emit=True)
+            errs[tag] = compare_trace(f"K2g {tag} records_only", hdr_r, rec_r,
+                                      hdr_q, rec_q, inp.packed)[1]
+            hdr_b, rec_b = inp.brute(draws, emit=True)
+            check_same_decisions(f"plain sweep {tag} vs brute force", rec_p,
+                                 rec_b, inp.packed)
+            check(bool(((hdr_p - hdr_b).abs()
+                        <= 5e-8 + 1e-6 * hdr_b.abs()).all()),
+                  f"plain sweep {tag}: image differs from the brute force")
+            check_same_decisions(f"K2g {tag} vs brute force", rec_e, rec_b,
+                                 inp.packed)
+            log(f"  K2g {tag}: plain sweep and kernel make the brute force's "
+                "decisions")
+            if not cull:
+                continue
+            sh = ShadeInputs(scene_name, cfg, grouped=True)
+            k_read, k_again = sh.kernel(), sh.kernel()
+            k_regen = sh.kernel(regenerate=True)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(k_read, k_again)),
+                  f"K3g {tag}: two launches on the same inputs differ")
+            ref, nudged = sh.plain(), sh.plain(nudge=True)
+            compare_grads(f"K3g {tag} draws read", k_read, ref, nudged=nudged)
+            compare_grads(f"K3g {tag} draws regenerated", k_regen, ref,
+                          nudged=nudged)
+            compare_grads(f"K3g {tag} regenerated vs read", k_regen, k_read,
+                          MODES_ATOL, MODES_RTOL, MODES_RTOL)
+            check_glue(f"grouped {tag}", sh)
+
+    # Forced onto the static tier's scenes: K2g's records are K2's.
+    for scene_name in SCENES:
+        st = TraceInputs(scene_name, cfg, cull=True)
+        gr = TraceInputs(scene_name, cfg, cull=True, grouped=True)
+        draws = cuda_path.pregen_draws_kernel(st.offsets_i32, cfg)
+        for d, emit in ((None, False), (draws, True), (None, True)):
+            h_s, r_s = st.kernel(d, emit)
+            h_g, r_g = gr.kernel(d, emit)
+            torch.cuda.synchronize()
+            same = torch.equal(h_s, h_g) and (not emit
+                                              or torch.equal(r_s, r_g))
+            check(same, f"K2g forced onto {scene_name} (emit {emit}, draws "
+                  f"{d is not None}): not bit-equal to K2")
+        log(f"  K2g forced onto {scene_name}: images and records bit-equal to "
+            "K2's in the three modes")
+        sh = ShadeInputs(scene_name, cfg)
+        k3, k3g, k3g_again = sh.kernel(), sh.kernel(grouped=True), \
+            sh.kernel(grouped=True)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(k3g, k3g_again)),
+              f"K3g forced onto {scene_name}: two launches differ")
+        ref, nudged = sh.plain(), sh.plain(nudge=True)
+        shifted = tuple(a + (b - c) for a, b, c in zip(k3, nudged, ref))
+        compare_grads(f"K3g forced onto {scene_name} vs K3", k3g, k3,
+                      nudged=shifted)
+    return errs
+
+
+def phase_grouped_path(label, scene_kw, steps):
+    """Paths K and L: the tessellated box at 512 x 512 x 16 spp x 3
+    bounces. Forward through ``render_path_cuda_impl`` in hdr mode and with
+    records + draws + cull (bench_grouped.py's forward line); then gradients
+    of ``render_path_decoupled_fused(scene, draws=..., occluders=...).mean()``
+    for every float tensor, ``steps`` chained steps with one K2g and one K3g
+    launch each, counted; two more under the profiler."""
+    cfg = RenderConfig(**BENCH)
+    scene = cornell_box_tessellated(resolution=cfg.resolution, **scene_kw)
+    n_tris = scene.triangles.num_triangles
+    log(f"== {label}: cornell_box_tessellated({scene_kw}), {n_tris} "
+        f"triangles, {cfg.width}x{cfg.height} x {cfg.spp} spp x "
+        f"{cfg.bounces} bounces")
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    occluders = potential_occluders(scene, cfg)
+    occ_s = time.perf_counter() - start
+    draws = cuda_path.pregen_draws(cfg)
+    log(f"  {label}: occluder cull keeps {sum(occluders)} of {n_tris} "
+        f"triangles in the shadow table ({occ_s:.2f} s on the host)")
+    reset_launches()
+    hdr = cuda_path.render_path_cuda_impl(scene, cfg)
+    hdr_r, aux = cuda_path.render_path_cuda_impl(
+        scene, cfg, emit_records=True, draws=draws, occluders=occluders)
+    torch.cuda.synchronize()
+    fwd_launches = read_launches()
+    check(fwd_launches == launches_of(path_kernel_grouped=2),
+          f"path {label} forward: launches {fwd_launches}")
+    check(hdr.shape == (cfg.height, cfg.width, 3)
+          and bool(torch.isfinite(hdr).all()), f"path {label}: image")
+    check(torch.equal(hdr, hdr_r), f"path {label}: hdr mode and records + "
+          "draws + cull give different images")
+    mean = hdr.mean(dim=(0, 1)).tolist()
+    check(all(v > 0.0 for v in mean), f"path {label}: a black image {mean}")
+
+    leaves = with_grad(scene)
+
+    def one_step(loss):
+        color = leaves.light.color * (1.0 + loss.detach() * 1e-7)
+        light = dataclasses.replace(leaves.light, color=color)
+        out = cuda_shade.render_path_decoupled_fused(
+            dataclasses.replace(leaves, light=light), cfg, draws=draws,
+            occluders=occluders)
+        return out, scene_grads(leaves, out)
+
+    loss = torch.zeros((), device="cuda")
+    step_ms, grads = [], {}
+    for step in range(steps):
+        before = read_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out, grads = one_step(loss)
+        loss = out.mean()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - start))
+        after = read_launches()
+        per_step = {k: after[k] - before[k] for k in after}
+        check(per_step == launches_of(path_kernel_grouped=1,
+                                      shade_bwd_grouped_kernel=1),
+              f"path {label} step {step}: launches {per_step}, expected one "
+              "K2g and one K3g")
+    launches = read_launches()
+    for name, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"path {label}: d {name} not "
+              "finite")
+    for name in GRAD_GROUPS:
+        check(name in grads and grads[name].abs().max().item() > 0.0,
+              f"path {label}: gradient of {name} is missing or all zero")
+    # The forward entry's time (launches made here are not the main path's).
+    fwd_ms = time_ms(lambda: cuda_path.render_path_cuda_impl(scene, cfg),
+                     repeats=3)
+    emit_ms = time_ms(lambda: cuda_path.render_path_cuda_impl(
+        scene, cfg, emit_records=True, draws=draws, occluders=occluders),
+        repeats=3)
+    log(f"  {label} forward (CUDA events around the entry, host work "
+        f"included): hdr {fwd_ms[1]:.2f} ms, records + draws + cull "
+        f"{emit_ms[1]:.2f} ms; mean radiance {[round(v, 4) for v in mean]}")
+
+    def two_more():
+        chained = loss
+        for _ in range(2):
+            chained = one_step(chained)[0].mean()
+
+    wall_ms, busy_ms, top = device_busy(two_more)
+    share = f"{busy_ms / wall_ms:.1%}" if busy_ms else "not measured"
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  path {label}: loss {loss.item():.6f}; step times "
+        + ", ".join(f"{t:.2f}" for t in step_ms) + " ms (host clock, first "
+        f"step includes warm-up); under the profiler {wall_ms / 2:.2f} ms per "
+        f"step of which the card is busy {busy_ms / 2:.3f} ms ({share}); most "
+        "device time: " + ", ".join(f"{name} {ms / 2:.3f} ms"
+                                    for name, ms in top)
+        + f"; launches {launches}; peak device memory {peak:.2f} GiB")
+    return launches, dict(
+        triangles=n_tris, shadow_triangles=sum(occluders),
+        occluders_s=occ_s, forward_hdr_ms=fwd_ms[1],
+        forward_records_ms=emit_ms[1], steps_ms=step_ms,
+        profiled_ms=wall_ms / 2, device_busy_ms=busy_ms / 2,
+        peak_gib=peak)
+
+
+def grouped_rows(launches, resources):
+    """K2g and K3g at the shapes of paths K and L, as those paths launch them
+    (records, draws read, occluder cull): against their plain versions, their
+    times, their bounds."""
+    rows = []
+    cfg = RenderConfig(**BENCH)
+    n = cfg.num_pixels
+    for label, kw in (("K", TESS_K), ("L", TESS_L)):
+        scene = cornell_box_tessellated(resolution=cfg.resolution, **kw)
+        inp = TraceInputs(None, cfg, cull=True, grouped=True, scene=scene)
+        shape = (f"{label}: 512x512 x 16 spp x 3 bounces, {inp.num_tris} "
+                 f"triangles, {inp.packed.grouped.num_shadow} in the shadow "
+                 "table")
+        draws = cuda_path.pregen_draws_kernel(inp.offsets_i32, cfg)
+        hdr_k, rec_k = inp.kernel(draws, emit=True)
+        _, rec_r = inp.kernel(emit=True)
+        torch.cuda.synchronize()
+        check(torch.equal(rec_k, rec_r), f"K2g at {label}: draws read and "
+              "draws regenerated give different records")
+        del rec_r
+        # The plain sweep on the whole frame at K; at L, where its Python
+        # loop over 101 supers and 808 groups takes about a second per
+        # sample-bounce step whatever the lane count, on every
+        # L_PIXEL_STRIDE-th pixel of the frame, in one call. Its counts of
+        # box and triangle tests, scaled to the frame, give the bound.
+        pix = torch.arange(0, n, 1 if label == "K" else L_PIXEL_STRIDE,
+                           device="cuda")
+        sampled = pix.numel()
+        stats = {}
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        hdr_p, rec_p = cuda_path.render_path_plain(
+            inp.offsets[pix], 0 if label == "K" else pix, inp.packed,
+            inp.shadow_idx, [d[..., pix] for d in draws],
+            cfg.replace(pixel_chunk=sampled), True, stats)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - start)
+        flips, err = compare_trace(
+            f"K2g at {label} ({sampled} pixels)", hdr_k[:, pix],
+            rec_k[..., pix], hdr_p, rec_p, inp.packed)
+        del hdr_p, rec_p
+        k_ms = time_ms(lambda: inp.kernel(draws, emit=True))
+        h_ms = time_ms(lambda: inp.kernel(), repeats=3)
+        bound, by, counts = grouped_trace_bound(inp, rec_k, stats,
+                                                n / sampled, True, True)
+        h_bound, h_by, h_counts = grouped_trace_bound(
+            inp, rec_k, stats, n / sampled, False, False)
+        res = resources["path_kernel<EMIT=1, READ_DRAWS=1, GROUPED=1>"]
+        rows.append(dict(
+            name="path_kernel[grouped, emit_records, draws read, occluder "
+                 "cull]", route="cuda", source=PATH_SOURCE,
+            replaces=K2G_REPLACES, shape=shape,
+            launches=launches[label]["path_kernel_grouped"],
+            max_abs_err=err, flip_share=flips, ms=k_ms[1], ms_min=k_ms[0],
+            ms_max=k_ms[2], plain_ms=plain_ms, plain_pixels=sampled,
+            bound_ms=bound, bound_by=by, library_ms=None,
+            hdr_ms=h_ms[1], hdr_bound_ms=h_bound, hdr_bound_by=h_by,
+            hdr_operations=h_counts["operations"],
+            mrays_per_s=mrays_per_s(cfg, k_ms[1] / 1e3),
+            registers=res["registers"], stack_bytes=res["stack_bytes"],
+            spill_store_bytes=res["spill_store_bytes"],
+            spill_load_bytes=res["spill_load_bytes"], **counts))
+        log(f"  K2g at {label}: plain sweep on {sampled} pixels "
+            f"{plain_ms:.0f} ms; {counts}; hdr mode {h_ms[1]:.3f} ms, bound "
+            f"{h_bound:.3f} ms by {h_by} ({h_counts})")
+        del hdr_k, rec_k, draws, inp
+        torch.cuda.empty_cache()
+
+        sh = ShadeInputs(None, cfg, grouped=True, scene=scene)
+        got, again = sh.kernel(), sh.kernel()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K3g at {label}: two launches differ")
+        start = time.perf_counter()
+        ref = sh.plain()
+        torch.cuda.synchronize()
+        p_ms = 1e3 * (time.perf_counter() - start)
+        err = compare_grads(f"K3g at {label}", got, ref,
+                            nudged=sh.plain(nudge=True))
+        k_ms = time_ms(lambda: sh.kernel())
+        r_ms = time_ms(lambda: sh.kernel(regenerate=True), repeats=3)
+        (bound, by), iters = shade_bound(sh, False)
+        (r_bound, r_by), _ = shade_bound(sh, True)
+        res = resources["shade_bwd_grouped_kernel<SPH=0, RNG=0>"]
+        rows.append(dict(
+            name="shade_bwd_grouped_kernel[draws read]", route="cuda",
+            source=SHADE_SOURCE, replaces=K3G_REPLACES, shape=shape,
+            launches=launches[label]["shade_bwd_grouped_kernel"],
+            max_abs_err=err, ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2],
+            plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=None,
+            regenerated_ms=r_ms[1], regenerated_bound_ms=r_bound,
+            regenerated_bound_by=r_by, live_iterations=iters,
+            registers=res["registers"], stack_bytes=res["stack_bytes"],
+            spill_store_bytes=res["spill_store_bytes"],
+            spill_load_bytes=res["spill_load_bytes"]))
+        del sh, ref, got, again
+        torch.cuda.empty_cache()
+    for row in rows:
+        log(f"  {row['name']} @ {row['shape']}: kernel {row['ms']:.3f} ms "
+            f"(min {row['ms_min']:.3f}, max {row['ms_max']:.3f}), bound "
+            f"{row['bound_ms']:.3f} ms by {row['bound_by']}, plain "
+            f"{row['plain_ms']:.1f} ms, launches {row['launches']}, "
+            f"{row['registers']} registers, {row['stack_bytes']} B stack")
+    return rows
+
+
+def k2_at_j_row(launches_j, path_j, resources):
+    """K2 at path J's shape (hdr, direct, one bounce, sphere scene, no
+    cull), as path J launches it: against its plain version, its time by
+    CUDA events and under path J's profiler, its bound."""
+    cfg = soft_cfg(SOFT_J)
+    inp = TraceInputs("cornell-spheres", cfg, cull=False)
+    hdr_r, rec_r = inp.kernel(emit=True)
+    hdr_h, _ = inp.kernel()
+    torch.cuda.synchronize()
+    check(torch.equal(hdr_h, hdr_r), "K2 at J: hdr and records_only differ")
+    start = time.perf_counter()
+    hdr_p, rec_p = inp.plain(emit=True, whole_frame=True)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - start)
+    flips, err = compare_trace("K2 at J", hdr_r, rec_r, hdr_p, rec_p,
+                               inp.packed)
+    alive, shaded = live_lanes(rec_r, inp.packed)
+    bound, by = trace_bound(inp, int(alive.sum()), int(shaded.sum()),
+                            emit=False, reads_draws=False)
+    k_ms = time_ms(lambda: inp.kernel())
+    res = resources["path_kernel<EMIT=0, READ_DRAWS=0, GROUPED=0>"]
+    row = dict(
+        name="path_kernel[hdr, direct, cornell-spheres]", route="cuda",
+        source=PATH_SOURCE, replaces="gpuraytracer_tpu/ops/pallas_path.py:316",
+        shape=f"J: {cfg.width}x{cfg.height} x {cfg.spp} spp, direct, "
+              f"{inp.num_tris} triangles, {inp.packed.num_spheres} spheres",
+        launches=launches_j["path_kernel"], max_abs_err=err,
+        flip_share=flips, ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2],
+        profiled_ms=path_j["k2_profiled_ms"], plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, library_ms=None,
+        registers=res["registers"], stack_bytes=res["stack_bytes"])
+    log(f"  {row['name']} @ {row['shape']}: kernel {row['ms']:.4f} ms by "
+        f"events, {row['profiled_ms']:.4f} ms under the profiler, bound "
+        f"{bound:.4f} ms by {by}, plain {plain_ms:.1f} ms")
+    return [row]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() "
@@ -2386,9 +2862,14 @@ def main() -> int:
         soft_small = phase_soft()
         launches["J"], path_j = phase_soft_train()
         recovery = phase_soft_recovery()
+        grouped_small = phase_grouped()
+        launches["K"], path_k = phase_grouped_path("K", TESS_K, steps=4)
+        launches["L"], path_l = phase_grouped_path("L", TESS_L, steps=2)
         rows, small_ms, mis_plain = phase_full(launches, plain_small)
         rows += mis_bwd_rows(path_i, resources)
         rows += soft_rows(launches["J"], resources)
+        rows += k2_at_j_row(launches["J"], path_j, resources)
+        rows += grouped_rows(launches, resources)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.synchronize()
@@ -2407,6 +2888,8 @@ def main() -> int:
                       "soft_bwd_max_abs_err": soft_small[0],
                       "soft_path_relative_err": soft_small[1],
                       "path_J": path_j, "soft_recovery": recovery,
+                      "grouped_small_max_abs_err": grouped_small,
+                      "path_K": path_k, "path_L": path_l,
                       "ptxas": resources}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

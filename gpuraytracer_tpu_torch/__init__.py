@@ -24,7 +24,8 @@ them.
 
 from .types import (BoxLights, Camera, CompiledScene, RenderConfig, Scene,
                     SphereLights, Spheres, SquareLight, TriangleScene)
-from .scene import cornell_box, cornell_box_glossy, cornell_box_with_spheres
+from .scene import (cornell_box, cornell_box_glossy, cornell_box_tessellated,
+                    cornell_box_with_spheres)
 from .brdf import brdf_contribution
 from .intersect import any_hit, closest_hit, compile_scene
 from .render import RenderOutput, render, render_mis, tonemap_mis

@@ -225,6 +225,11 @@ def any_hit(
     return occluded
 
 
+# Elements of potential_occluders' distance matrix per slice (256 MB of
+# float64).
+OCCLUDER_SLICE = 1 << 25
+
+
 def potential_occluders(scene, config=None, tol_scale: float = 1e-6,
                         sphere_slack: float = 0.0):
     """Static shadow-probe culling mask: ``mask[t]`` is False when triangle
@@ -283,7 +288,6 @@ def potential_occluders(scene, config=None, tol_scale: float = 1e-6,
     pts.append(host64(scene.camera.position)[None])
     pts = np.concatenate(pts, axis=0)  # [P, 3]
 
-    d = pts @ n.T - c0[None, :]  # [P, T] signed distances
     scale = max(1.0, np.abs(pts).max())
     tol = tol_scale * scale
     if tol >= 1e-4:
@@ -292,8 +296,16 @@ def potential_occluders(scene, config=None, tol_scale: float = 1e-6,
             " would exceed the kernels' 1e-3 shadow epsilons; disabling"
             " static occluder culling for this scene", stacklevel=2)
         return tuple(True for _ in range(T))
-    below = np.all(d <= tol, axis=0)
-    above = np.all(d >= -tol, axis=0)
+    # Signed distances [P, T] in slices of triangles: the whole matrix is
+    # (3T + 9) x T float64, 3.9 GB at 12,802 triangles. Each column is its
+    # own product, so the slices give the whole matrix's values.
+    below = np.empty(T, dtype=bool)
+    above = np.empty(T, dtype=bool)
+    step = max(1, OCCLUDER_SLICE // pts.shape[0])
+    for lo in range(0, T, step):
+        d = pts @ n[lo:lo + step].T - c0[None, lo:lo + step]
+        below[lo:lo + step] = np.all(d <= tol, axis=0)
+        above[lo:lo + step] = np.all(d >= -tol, axis=0)
     sp = scene.spheres
     if sp.num_spheres:
         c = host64(sp.center)   # [S, 3]

@@ -29,7 +29,9 @@
 //
 // ---------------------------------------------------------------------------
 // path_kernel   replaces  gpuraytracer_tpu/ops/pallas_path.py:_path_kernel
-//               (static tier: at most 64 triangles, plus analytic spheres)
+//               static tier (GROUPED = false: at most 64 triangles, plus
+//               analytic spheres) and grouped tier (GROUPED = true: any
+//               number of triangles up to the record encoding's limit)
 // ---------------------------------------------------------------------------
 // Per pixel: spp samples x `bounces` bounces of camera ray -> closest hit over
 // all triangles (plane + dual basis) and spheres -> emissive replace / NEE with
@@ -52,6 +54,22 @@
 // index; the shadow loop runs over a compacted copy of the occluder list.  In
 // hdr mode a dead path leaves the bounce loop; with EMIT it runs on masked,
 // because records are defined for every (sample, bounce, pixel).
+//
+// The grouped tier (the TPU kernel's grouped=True branch, pallas_path.py:
+// 532-590 closest hit, 643-700 shadow probe) keeps all of the above except
+// the scene tables: the geometry (48 B per triangle: 48 KB at 1,002
+// triangles, 614 KB at 12,802) stays in global memory and is read through
+// the read-only path, where L2 holds it; each thread runs the reference's
+// two-level sweep (trace.cuh closest_grouped / occluded_grouped): per super
+// of 128 triangles, then per group of 16, a slab test of the padded box
+// against the ray's far limit, which tightens with the closest hit so far,
+// and the group's triangle tests only where the box is reached.  The work a
+// ray does follows the boxes it reaches, not the triangle count.  A thread
+// skips a box on its own (the TPU skipped it only when no lane of a tile
+// reached it): the decisions are the same, warps diverge.  Bound: OPERATIONS,
+// counted from the box and triangle tests this frame's live lanes execute.
+// The attributes ([T + S][13]) are read from global memory by the winner's
+// index; the spheres stay in shared memory.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -63,10 +81,12 @@
 namespace {
 
 using grt::camera_jitter;
+using grt::closest_grouped;
 using grt::closest_triangle;
 using grt::GEO_ROWS;
 using grt::halton;
 using grt::occluded;
+using grt::occluded_grouped;
 using grt::SPH_ROWS;
 using grt::sphere_roots;
 
@@ -107,8 +127,14 @@ struct PathParams {
   const float* light;         // [6] center xyz, color rgb
   const float* tri;           // [19, T] packed triangle rows (first 12: geometry)
   const float* sph;           // [11, max(S,1)] packed sphere rows (first 4: geometry)
-  const float* atab;          // [13, T + S] attribute rows
+  const float* atab;          // [13, T + S] attribute rows; grouped: [T + S][13]
   const int32_t* shadow_idx;  // [n_shadow] triangles kept in the shadow loop
+  const float4* geo;          // grouped: [P_gpad][12] triangle geometry
+  const float4* aabb;         // grouped: [n_super * 8][8] group boxes
+  const float4* sup;          // grouped: [n_super][8] super boxes
+  const float4* sgeo;         // grouped: the shadow loop's three tables
+  const float4* saabb;
+  const float4* ssup;
   const float* nee0;          // draw planes (READ_DRAWS only)
   const float* nee1;
   const float* cos0;
@@ -119,6 +145,7 @@ struct PathParams {
   int32_t* records;           // [spp, bounces, n_local] (EMIT only)
   int n_local, rid_base, width, height, spp, bounces;
   int num_tris, num_spheres, n_shadow, strat_k;
+  int n_super, n_shadow_super;  // grouped: supers of the two sweeps
   float inv_k, half_extent;
 };
 
@@ -126,32 +153,38 @@ __device__ __forceinline__ float clamp01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
 }
 
-template <bool EMIT, bool READ_DRAWS>
+template <bool EMIT, bool READ_DRAWS, bool GROUPED>
 __global__ void __launch_bounds__(BLOCK_THREADS) path_kernel(const PathParams p) {
   extern __shared__ float4 smem4[];
-  float* s_geo = reinterpret_cast<float*>(smem4);          // [T][12]
-  float* s_shadow = s_geo + GEO_ROWS * p.num_tris;         // [n_shadow][12]
-  float* s_sph = s_shadow + GEO_ROWS * p.n_shadow;         // [S][4]
-  float* s_attr = s_sph + SPH_ROWS * p.num_spheres;        // [T + S][13]
-
   const int T = p.num_tris;
   const int S = p.num_spheres;
   const int P = T + S;
-  for (int k = threadIdx.x; k < GEO_ROWS * T; k += blockDim.x) {
-    const int t = k / GEO_ROWS, r = k - t * GEO_ROWS;
-    s_geo[k] = p.tri[r * T + t];
-  }
-  for (int k = threadIdx.x; k < GEO_ROWS * p.n_shadow; k += blockDim.x) {
-    const int j = k / GEO_ROWS, r = k - j * GEO_ROWS;
-    s_shadow[k] = p.tri[r * T + p.shadow_idx[j]];
+  // Static tier: [T][12] geometry, [n_shadow][12] occluders, [S][4] spheres,
+  // [T + S][13] attributes.  Grouped tier: the spheres alone.
+  float* s_geo = reinterpret_cast<float*>(smem4);
+  float* s_shadow = s_geo + (GROUPED ? 0 : GEO_ROWS * T);
+  float* s_sph = s_shadow + (GROUPED ? 0 : GEO_ROWS * p.n_shadow);
+  float* s_attr = s_sph + SPH_ROWS * S;
+
+  if (!GROUPED) {
+    for (int k = threadIdx.x; k < GEO_ROWS * T; k += blockDim.x) {
+      const int t = k / GEO_ROWS, r = k - t * GEO_ROWS;
+      s_geo[k] = p.tri[r * T + t];
+    }
+    for (int k = threadIdx.x; k < GEO_ROWS * p.n_shadow; k += blockDim.x) {
+      const int j = k / GEO_ROWS, r = k - j * GEO_ROWS;
+      s_shadow[k] = p.tri[r * T + p.shadow_idx[j]];
+    }
   }
   for (int k = threadIdx.x; k < SPH_ROWS * S; k += blockDim.x) {
     const int s = k / SPH_ROWS, r = k - s * SPH_ROWS;
     s_sph[k] = p.sph[r * S + s];
   }
-  for (int k = threadIdx.x; k < ATTR_ROWS * P; k += blockDim.x) {
-    const int q = k / ATTR_ROWS, r = k - q * ATTR_ROWS;
-    s_attr[k] = p.atab[r * P + q];
+  if (!GROUPED) {
+    for (int k = threadIdx.x; k < ATTR_ROWS * P; k += blockDim.x) {
+      const int q = k / ATTR_ROWS, r = k - q * ATTR_ROWS;
+      s_attr[k] = p.atab[r * P + q];
+    }
   }
   __syncthreads();
 
@@ -209,8 +242,13 @@ __global__ void __launch_bounds__(BLOCK_THREADS) path_kernel(const PathParams p)
       // ---- closest hit: triangles in index order with strict <, then spheres
       float t_best = BIG;
       int prim = -1;
-      closest_triangle(s_geo, T, ox, oy, oz, dx, dy, dz, RAY_TMIN, RAY_TMAX, &t_best,
-                       &prim);
+      if (GROUPED) {
+        closest_grouped(p.geo, p.aabb, p.sup, p.n_super, T, ox, oy, oz, dx, dy, dz,
+                        RAY_TMIN, RAY_TMAX, &t_best, &prim);
+      } else {
+        closest_triangle(s_geo, T, ox, oy, oz, dx, dy, dz, RAY_TMIN, RAY_TMAX,
+                         &t_best, &prim);
+      }
       for (int k = 0; k < S; ++k) {
         float t1, t2;
         const bool pos = sphere_roots(s_sph + SPH_ROWS * k, ox, oy, oz, dx, dy, dz,
@@ -224,7 +262,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS) path_kernel(const PathParams p)
 
       // ---- attributes of the winner by index (a miss reads primitive 0;
       // every use below is gated by hit-derived masks)
-      const float* at = s_attr + ATTR_ROWS * (prim < 0 ? 0 : prim);
+      const float* at = (GROUPED ? p.atab : s_attr) + ATTR_ROWS * (prim < 0 ? 0 : prim);
       float nhx = at[0], nhy = at[1], nhz = at[2];
       const float dfr = at[3], dfg = at[4], dfb = at[5];
       const bool is_em = at[9] > 0.5f;
@@ -280,8 +318,17 @@ __global__ void __launch_bounds__(BLOCK_THREADS) path_kernel(const PathParams p)
       if (surf) { col_r *= dfr; col_g *= dfg; col_b *= dfb; }
 
       // ---- shadow probe: any hit in (0, ldist - 1e-3) over the occluder list
-      const bool occ = occluded(s_shadow, p.n_shadow, s_sph, S, hx, hy, hz, ldx, ldy,
-                                ldz, ldist - 1e-3f);
+      bool occ;
+      if (GROUPED) {
+        // The culled triangles by the sweep, then the spheres (no triangle).
+        occ = occluded_grouped(p.sgeo, p.saabb, p.ssup, p.n_shadow_super, p.n_shadow,
+                               hx, hy, hz, ldx, ldy, ldz, ldist - 1e-3f)
+              || occluded(s_shadow, 0, s_sph, S, hx, hy, hz, ldx, ldy, ldz,
+                          ldist - 1e-3f);
+      } else {
+        occ = occluded(s_shadow, p.n_shadow, s_sph, S, hx, hy, hz, ldx, ldy, ldz,
+                       ldist - 1e-3f);
+      }
       if (EMIT) {
         p.records[((size_t)n * p.bounces + bounce) * n_local + i] =
             (prim + 1) + (occ ? OCC_BIT : 0);
@@ -345,19 +392,31 @@ int grt_pregen_draws(const int32_t* offsets, int n, int spp, int bounces,
 }
 
 // Launches path_kernel on `stream`; returns cudaGetLastError() as an int.
+// grouped != 0 takes the grouped tier: geo, aabb, sup, sgeo, saabb, ssup
+// and the two super counts are read, tri and shadow_idx are not, and atab is
+// [T + S][13].
 int grt_path_trace(const int32_t* offsets, const float* cam, const float* light,
                    const float* tri, const float* sph, const float* atab,
                    const int32_t* shadow_idx, const float* nee0,
                    const float* nee1, const float* cos0, const float* cos1,
                    const float* jx, const float* jy, float* hdr,
-                   int32_t* records, int n_local, int rid_base, int width,
+                   int32_t* records, const float* geo, const float* aabb,
+                   const float* sup, const float* sgeo, const float* saabb,
+                   const float* ssup, int n_local, int rid_base, int width,
                    int height, int spp, int bounces, int num_tris,
-                   int num_spheres, int n_shadow, int strat_k, float inv_k,
-                   float half_extent, int emit_records, int read_draws,
-                   void* stream) {
+                   int num_spheres, int n_shadow, int strat_k, int n_super,
+                   int n_shadow_super, float inv_k, float half_extent,
+                   int emit_records, int read_draws, int grouped, void* stream) {
   PathParams p;
   p.offsets = offsets; p.cam = cam; p.light = light; p.tri = tri; p.sph = sph;
   p.atab = atab; p.shadow_idx = shadow_idx;
+  p.geo = reinterpret_cast<const float4*>(geo);
+  p.aabb = reinterpret_cast<const float4*>(aabb);
+  p.sup = reinterpret_cast<const float4*>(sup);
+  p.sgeo = reinterpret_cast<const float4*>(sgeo);
+  p.saabb = reinterpret_cast<const float4*>(saabb);
+  p.ssup = reinterpret_cast<const float4*>(ssup);
+  p.n_super = n_super; p.n_shadow_super = n_shadow_super;
   p.nee0 = nee0; p.nee1 = nee1; p.cos0 = cos0; p.cos1 = cos1; p.jx = jx; p.jy = jy;
   p.hdr = hdr; p.records = records;
   p.n_local = n_local; p.rid_base = rid_base; p.width = width; p.height = height;
@@ -366,18 +425,28 @@ int grt_path_trace(const int32_t* offsets, const float* cam, const float* light,
   p.inv_k = inv_k; p.half_extent = half_extent;
 
   if (n_local <= 0 || (read_draws && !emit_records)) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)GEO_ROWS * (num_tris + n_shadow)
-                                       + (size_t)SPH_ROWS * num_spheres
-                                       + (size_t)ATTR_ROWS * (num_tris + num_spheres));
+  const size_t smem =
+      grouped ? sizeof(float) * (size_t)SPH_ROWS * num_spheres
+              : sizeof(float) * ((size_t)GEO_ROWS * (num_tris + n_shadow)
+                                 + (size_t)SPH_ROWS * num_spheres
+                                 + (size_t)ATTR_ROWS * (num_tris + num_spheres));
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int grid = (n_local + BLOCK_THREADS - 1) / BLOCK_THREADS;
   cudaStream_t st = (cudaStream_t)stream;
-  if (emit_records && read_draws) {
-    path_kernel<true, true><<<grid, BLOCK_THREADS, smem, st>>>(p);
+  if (grouped) {
+    if (emit_records && read_draws) {
+      path_kernel<true, true, true><<<grid, BLOCK_THREADS, smem, st>>>(p);
+    } else if (emit_records) {
+      path_kernel<true, false, true><<<grid, BLOCK_THREADS, smem, st>>>(p);
+    } else {
+      path_kernel<false, false, true><<<grid, BLOCK_THREADS, smem, st>>>(p);
+    }
+  } else if (emit_records && read_draws) {
+    path_kernel<true, true, false><<<grid, BLOCK_THREADS, smem, st>>>(p);
   } else if (emit_records) {
-    path_kernel<true, false><<<grid, BLOCK_THREADS, smem, st>>>(p);
+    path_kernel<true, false, false><<<grid, BLOCK_THREADS, smem, st>>>(p);
   } else {
-    path_kernel<false, false><<<grid, BLOCK_THREADS, smem, st>>>(p);
+    path_kernel<false, false, false><<<grid, BLOCK_THREADS, smem, st>>>(p);
   }
   return (int)cudaGetLastError();
 }

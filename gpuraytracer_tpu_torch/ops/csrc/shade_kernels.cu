@@ -10,6 +10,9 @@
 // shade_bwd_kernel  replaces  gpuraytracer_tpu/ops/pallas_shade.py:_shade_bwd_kernel
 //                   (static tier: at most 64 triangles, plus analytic spheres;
 //                   draws read from planes, or regenerated from the offsets)
+// shade_bwd_grouped_kernel  replaces  the same kernel's grouped tier
+//                   (grouped=True: any number of primitives up to the record
+//                   encoding's limit; pallas_shade.py:174-205, 649-714)
 // ---------------------------------------------------------------------------
 // Inputs: the cotangent g [3, N] of the image (already scaled by 1/spp), the
 // int32 records [spp, bounces, N] of the trace, the six draw planes or the
@@ -42,6 +45,27 @@
 //     samples; the table rows go through reduce.cuh (shuffles by primitive
 //     into a per-warp table, per-block partials, a float64 second kernel).
 //     Two launches on equal inputs give equal bits.
+//
+// The grouped tier runs the same per-pixel body (shade_pixel) with two
+// changes, because its tables do not fit a block's shared memory (the static
+// layout needs 4 (11P + 21 + 4 (10P + 21)) B: 204,828 B at P = 1,002):
+//   * the attribute fetch is an indexed load from the [P][rows] table in
+//     global memory (read-only path, L2-resident: 44 KB at 1,002 triangles,
+//     563 KB at 12,802), made only for a bounce whose record is a hit; a
+//     miss fetches nothing;
+//   * the scatter keeps its fixed order without memory that grows with
+//     pixels x P: a persistent grid of G blocks (resident blocks of the card,
+//     capped at 1 GiB of tables), each warp owning one dense [P][ntab] + 21
+//     table in global memory that it zeroes, walks the 32-pixel tiles w, w +
+//     4G, w + 8G, ... in that order and adds to through warp_scatter_rows
+//     (lanes that share a primitive summed by shuffles, one leader's add per
+//     primitive, __syncwarp between rounds); reduce_partials_kernel then sums
+//     the 4G tables in float64 in table order.  No float atomics: two
+//     launches on equal inputs give equal bits.  The tables cost 4G (P ntab +
+//     21) floats written twice and read once, about 0.2 ms of memory traffic
+//     per MB-per-warp at G = 528; a sort by primitive with a segmented sum
+//     would move less but needs a sort inside the kernel's order (a later
+//     perf_opt).  Bound as for the static tier.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -395,32 +419,22 @@ __device__ __forceinline__ void bounce_reverse(
   rows[R_C0] = d_num;
 }
 
-template <bool SPH, bool RNG>
-__global__ void __launch_bounds__(BLOCK_THREADS) shade_bwd_kernel(const ShadeParams p) {
+// One pixel's samples: the forward sweep from the records, the reverse sweep,
+// the table rows scattered into this warp's table `wtab` [P][NTAB] and the
+// camera's and light's cotangents added to ds.  `tab` is the [P][NROWS]
+// parameter table (shared memory in the static tier, global in the grouped
+// one), `cam` the 12 camera scalars, `lv` the light's 9.  Every lane of the
+// warp calls it (the scatter shuffles); a lane past the range runs on with no
+// live path.  GLOBAL_TABLE: wtab lies in global memory, and a __syncwarp
+// after each scatter round orders one leader's add before the next one's.
+template <bool SPH, bool RNG, bool GLOBAL_TABLE>
+__device__ __forceinline__ void shade_pixel(const ShadeParams& p,
+                                            const float* __restrict__ tab,
+                                            const float* cam, const float* lv,
+                                            float* wtab, int i, int lane, float* ds) {
   constexpr int NROWS = SPH ? 16 : 11;
   constexpr int NTAB = SPH ? 14 : 10;
-  extern __shared__ float smem[];
   const int P = p.num_prims;
-  float* s_tab = smem;                          // [P][NROWS]
-  float* s_vec = s_tab + NROWS * P;             // camera 12, light 9
-  float* s_wtab = s_vec + NSCAL;                // [WARPS][P][NTAB]
-  float* s_wscal = s_wtab + WARPS * P * NTAB;   // [WARPS][NSCAL]
-
-  for (int k = threadIdx.x; k < NROWS * P; k += blockDim.x) {
-    const int q = k / NROWS, row = k - q * NROWS;
-    s_tab[k] = p.table[row * P + q];
-  }
-  for (int k = threadIdx.x; k < NSCAL; k += blockDim.x) {
-    s_vec[k] = k < 12 ? p.cam[k] : p.light[k - 12];
-  }
-  for (int k = threadIdx.x; k < WARPS * P * NTAB; k += blockDim.x) s_wtab[k] = 0.0f;
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float* my_wtab = s_wtab + warp * P * NTAB;
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int n_local = p.n_local;
   const int B = p.bounces;
   const int W = p.width, H = p.height;
@@ -432,14 +446,9 @@ __global__ void __launch_bounds__(BLOCK_THREADS) shade_bwd_kernel(const ShadePar
   const float px = (float)(rid % W);
   const float py = (float)(rid / W);
   const float fW = (float)W, fH = (float)H;
-  const float* cam = s_vec;
-  const float* lv = s_vec + 12;
   const float he = p.half_extent;
   const uint32_t off = RNG ? (uint32_t)p.offsets[ii] : 0u;
   const float g[3] = {p.g[ii], p.g[(size_t)n_local + ii], p.g[2 * (size_t)n_local + ii]};
-
-  float ds[NSCAL];
-  for (int k = 0; k < NSCAL; ++k) ds[k] = 0.0f;
 
   for (int n = 0; n < p.spp; ++n) {
     // ---- forward sweep: keep each bounce's entry state
@@ -486,7 +495,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS) shade_bwd_kernel(const ShadePar
         n_active = b + 1;
         if (b == B - 1) break;
         Bounce r;
-        bounce_forward<SPH>(r, s_tab, NROWS, P, code, true, ox, oy, oz, dx, dy, dz,
+        bounce_forward<SPH>(r, tab, NROWS, P, code, true, ox, oy, oz, dx, dy, dz,
                             u[0], u[1], u[2], u[3], lv, he);
         if (!r.surf) break;                       // an emissive hit ends the path
         col[0] *= r.dfr; col[1] *= r.dfg; col[2] *= r.dfb;
@@ -509,7 +518,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS) shade_bwd_kernel(const ShadePar
       int pc = -1;
       if (act) {
         Bounce r;
-        bounce_forward<SPH>(r, s_tab, NROWS, P, st_code[b], true, st_o[b][0],
+        bounce_forward<SPH>(r, tab, NROWS, P, st_code[b], true, st_o[b][0],
                             st_o[b][1], st_o[b][2], st_d[b][0], st_d[b][1],
                             st_d[b][2], st_u[b][0], st_u[b][1], st_u[b][2],
                             st_u[b][3], lv, he);
@@ -520,7 +529,8 @@ __global__ void __launch_bounds__(BLOCK_THREADS) shade_bwd_kernel(const ShadePar
       }
       // Sum the rows over the lanes that recorded the same primitive, one
       // primitive at a time, and add each sum to this warp's table.
-      warp_scatter_rows<NTAB>(rem, act, pc, rows, my_wtab, lane);
+      warp_scatter_rows<NTAB>(rem, act, pc, rows, wtab, lane);
+      if (GLOBAL_TABLE) __syncwarp();
     }
 
     // ---- camera: the ray at entry of bounce 0
@@ -537,6 +547,35 @@ __global__ void __launch_bounds__(BLOCK_THREADS) shade_bwd_kernel(const ShadePar
       }
     }
   }
+}
+
+template <bool SPH, bool RNG>
+__global__ void __launch_bounds__(BLOCK_THREADS) shade_bwd_kernel(const ShadeParams p) {
+  constexpr int NROWS = SPH ? 16 : 11;
+  constexpr int NTAB = SPH ? 14 : 10;
+  extern __shared__ float smem[];
+  const int P = p.num_prims;
+  float* s_tab = smem;                          // [P][NROWS]
+  float* s_vec = s_tab + NROWS * P;             // camera 12, light 9
+  float* s_wtab = s_vec + NSCAL;                // [WARPS][P][NTAB]
+  float* s_wscal = s_wtab + WARPS * P * NTAB;   // [WARPS][NSCAL]
+
+  for (int k = threadIdx.x; k < NROWS * P; k += blockDim.x) {
+    const int q = k / NROWS, row = k - q * NROWS;
+    s_tab[k] = p.table[row * P + q];
+  }
+  for (int k = threadIdx.x; k < NSCAL; k += blockDim.x) {
+    s_vec[k] = k < 12 ? p.cam[k] : p.light[k - 12];
+  }
+  for (int k = threadIdx.x; k < WARPS * P * NTAB; k += blockDim.x) s_wtab[k] = 0.0f;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float ds[NSCAL];
+  for (int k = 0; k < NSCAL; ++k) ds[k] = 0.0f;
+  shade_pixel<SPH, RNG, false>(p, s_tab, s_vec, s_vec + 12, s_wtab + warp * P * NTAB,
+                               blockIdx.x * blockDim.x + threadIdx.x, lane, ds);
 
   // ---- block partial: scalars over the warp, then warps in index order
   for (int k = 0; k < NSCAL; ++k) {
@@ -556,6 +595,47 @@ __global__ void __launch_bounds__(BLOCK_THREADS) shade_bwd_kernel(const ShadePar
   }
 }
 
+// The grouped tier: a persistent grid; warp w of the grid owns the table
+// partials[w] = [P][NTAB] then 21 scalars, and walks the 32-pixel tiles w,
+// w + (warps in the grid), ...  p.table is the TRANSPOSED [P][NROWS] table.
+template <bool SPH, bool RNG>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+shade_bwd_grouped_kernel(const ShadeParams p) {
+  constexpr int NTAB = SPH ? 14 : 10;
+  const int lane = threadIdx.x & 31;
+  const int warp = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int n_warps = gridDim.x * WARPS;
+  const size_t row = (size_t)p.num_prims * NTAB + NSCAL;
+  float* wtab = p.partials + (size_t)warp * row;
+  for (size_t k = lane; k < row; k += 32) wtab[k] = 0.0f;
+  __syncwarp();
+
+  float ds[NSCAL];
+  for (int k = 0; k < NSCAL; ++k) ds[k] = 0.0f;
+  const int tiles = (p.n_local + 31) / 32;
+  for (int tile = warp; tile < tiles; tile += n_warps) {
+    shade_pixel<SPH, RNG, true>(p, p.table, p.cam, p.light, wtab, tile * 32 + lane,
+                                lane, ds);
+  }
+  for (int k = 0; k < NSCAL; ++k) {
+    const float v = warp_sum(ds[k]);
+    if (lane == 0) wtab[row - NSCAL + k] = v;
+  }
+}
+
+template <bool SPH, bool RNG>
+int grouped_resident_blocks() {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess
+      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, shade_bwd_grouped_kernel<SPH, RNG>, BLOCK_THREADS, 0)
+             != cudaSuccess) {
+    return 0;
+  }
+  return sms * per_sm;
+}
+
 }  // namespace
 
 extern "C" {
@@ -566,9 +646,32 @@ int grt_shade_bwd_blocks(int n_local) {
   return (n_local + BLOCK_THREADS - 1) / BLOCK_THREADS;
 }
 
-// Launches shade_bwd_kernel and reduce_partials_kernel on `stream`; returns
-// cudaGetLastError() as an int.  out is [num_prims * ntab + 21] float32:
-// dtab [P, ntab] row-major, then the 21 scalars.
+// Blocks of the grouped tier's persistent grid on the current device: the
+// blocks the card holds at once, at most one per 128 pixels, and at most as
+// many as keep the per-warp tables (WARPS x (num_prims * ntab + 21) floats
+// each) within 1 GiB.  The wrapper sizes the partials [blocks * 4, ...] with
+// it; 0 means the occupancy query failed.
+int grt_shade_bwd_grouped_blocks(int n_local, int num_prims, int has_spheres,
+                                 int recompute_rng) {
+  const int resident =
+      has_spheres ? (recompute_rng ? grouped_resident_blocks<true, true>()
+                                   : grouped_resident_blocks<true, false>())
+                  : (recompute_rng ? grouped_resident_blocks<false, true>()
+                                   : grouped_resident_blocks<false, false>());
+  if (resident <= 0) return 0;
+  const size_t row = (size_t)num_prims * (has_spheres ? 14 : 10) + NSCAL;
+  const size_t cap = ((size_t)1 << 30) / (sizeof(float) * WARPS * row);
+  int blocks = min(resident, grt_shade_bwd_blocks(n_local));
+  if ((size_t)blocks > cap) blocks = (int)cap;
+  return blocks > 0 ? blocks : 1;
+}
+
+// Launches shade_bwd_kernel (grouped == 0: table [nrows, P], partials
+// [grt_shade_bwd_blocks, ...]) or shade_bwd_grouped_kernel (grouped == 1:
+// table [P, nrows], partials [4 * blocks, ...] with blocks from
+// grt_shade_bwd_grouped_blocks), then reduce_partials_kernel, on `stream`;
+// returns cudaGetLastError() as an int.  out is [num_prims * ntab + 21]
+// float32: dtab [P, ntab] row-major, then the 21 scalars.
 int grt_shade_bwd(const float* g, const int32_t* records, const float* nee0,
                   const float* nee1, const float* cos0, const float* cos1,
                   const float* jx, const float* jy, const int32_t* offsets,
@@ -576,7 +679,7 @@ int grt_shade_bwd(const float* g, const int32_t* records, const float* nee0,
                   float* partials, float* out, int n_local, int rid_base,
                   int width, int height, int spp, int bounces, int num_prims,
                   int has_spheres, int strat_k, float inv_k, float half_extent,
-                  int recompute_rng, void* stream) {
+                  int recompute_rng, int grouped, int blocks, void* stream) {
   ShadeParams p;
   p.g = g; p.records = records;
   p.nee0 = nee0; p.nee1 = nee1; p.cos0 = cos0; p.cos1 = cos1; p.jx = jx; p.jy = jy;
@@ -592,12 +695,29 @@ int grt_shade_bwd(const float* g, const int32_t* records, const float* nee0,
   }
   const int nrows = has_spheres ? 16 : 11;
   const int ntab = has_spheres ? 14 : 10;
+  const int count = num_prims * ntab + NSCAL;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (grouped) {
+    if (blocks <= 0) return (int)cudaErrorInvalidValue;
+    if (has_spheres && recompute_rng) {
+      shade_bwd_grouped_kernel<true, true><<<blocks, BLOCK_THREADS, 0, st>>>(p);
+    } else if (has_spheres) {
+      shade_bwd_grouped_kernel<true, false><<<blocks, BLOCK_THREADS, 0, st>>>(p);
+    } else if (recompute_rng) {
+      shade_bwd_grouped_kernel<false, true><<<blocks, BLOCK_THREADS, 0, st>>>(p);
+    } else {
+      shade_bwd_grouped_kernel<false, false><<<blocks, BLOCK_THREADS, 0, st>>>(p);
+    }
+    int code = (int)cudaGetLastError();
+    if (code != 0) return code;
+    grt::launch_reduce_partials(partials, blocks * WARPS, count, out, st);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = sizeof(float) * ((size_t)nrows * num_prims + NSCAL
                                        + (size_t)WARPS * num_prims * ntab
                                        + (size_t)WARPS * NSCAL);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int grid = grt_shade_bwd_blocks(n_local);
-  cudaStream_t st = (cudaStream_t)stream;
   if (has_spheres && recompute_rng) {
     shade_bwd_kernel<true, true><<<grid, BLOCK_THREADS, smem, st>>>(p);
   } else if (has_spheres) {
@@ -609,7 +729,6 @@ int grt_shade_bwd(const float* g, const int32_t* records, const float* nee0,
   }
   int code = (int)cudaGetLastError();
   if (code != 0) return code;
-  const int count = num_prims * ntab + NSCAL;
   grt::launch_reduce_partials(partials, grid, count, out, st);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // Ray-primitive tests shared by the port's trace kernels (sm_90a):
-// path_kernel (path_kernels.cu) and silh_kernel (soft_kernels.cu).
+// path_kernel (path_kernels.cu) and silh_kernel (soft_kernels.cu); the
+// grouped sweep (closest_grouped, occluded_grouped) is path_kernel's alone.
 //
 // One definition, in the operation order of the plain versions
 // (intersect.triangle_candidates / sphere_candidates), so that the kernels
@@ -30,6 +31,32 @@ __device__ __forceinline__ bool sphere_roots(const float* s, float ox, float oy,
   return pos;
 }
 
+// One ray/triangle test, the only copy every loop below uses, in two steps:
+// triangle_plane gives the plane denominator, the distance tt along d and the
+// barycentrics u, v (rows pn = n xyz, c0; p1 = s1 xyz, c1; p2 = s2 xyz, c2);
+// triangle_inside says whether that hit lies in (t_min, t_max) inside the
+// triangle. Two steps, so that each loop does the arithmetic before its
+// short-circuit test: one helper returning the bool made ptxas give the
+// static hdr instantiation 64 registers and 84 B of spills instead of 72.
+__device__ __forceinline__ void triangle_plane(float4 pn, float4 p1, float4 p2, float ox,
+                                               float oy, float oz, float dx, float dy,
+                                               float dz, float* den, float* tt,
+                                               float* u, float* v) {
+  *den = dx * pn.x + dy * pn.y + dz * pn.z;
+  const float num = pn.w - (ox * pn.x + oy * pn.y + oz * pn.z);
+  *tt = num / *den;
+  *u = (ox * p1.x + oy * p1.y + oz * p1.z) + *tt * (dx * p1.x + dy * p1.y + dz * p1.z)
+       - p1.w;
+  *v = (ox * p2.x + oy * p2.y + oz * p2.z) + *tt * (dx * p2.x + dy * p2.y + dz * p2.z)
+       - p2.w;
+}
+
+__device__ __forceinline__ bool triangle_inside(float den, float tt, float u, float v,
+                                                float t_min, float t_max) {
+  return (fabsf(den) >= 1e-12f) && (tt > t_min) && (tt < t_max) && (u >= 0.0f)
+         && (v >= 0.0f) && (u + v <= 1.0f);
+}
+
 // Closest triangle hit in (t_min, t_max) over the T staged triangles, in
 // index order with strict < (ties keep the lower index): lowers *t_best and
 // sets *prim where a triangle is closer than *t_best.
@@ -39,17 +66,9 @@ __device__ __forceinline__ void closest_triangle(const float* s_geo, int T, floa
                                                  float* t_best, int* prim) {
   for (int k = 0; k < T; ++k) {
     const float4* g = reinterpret_cast<const float4*>(s_geo + GEO_ROWS * k);
-    const float4 pn = g[0], p1 = g[1], p2 = g[2];
-    const float den = dx * pn.x + dy * pn.y + dz * pn.z;
-    const float num = pn.w - (ox * pn.x + oy * pn.y + oz * pn.z);
-    const float tt = num / den;
-    const float u = (ox * p1.x + oy * p1.y + oz * p1.z)
-                    + tt * (dx * p1.x + dy * p1.y + dz * p1.z) - p1.w;
-    const float v = (ox * p2.x + oy * p2.y + oz * p2.z)
-                    + tt * (dx * p2.x + dy * p2.y + dz * p2.z) - p2.w;
-    const bool closer = (fabsf(den) >= 1e-12f) && (tt > t_min) && (tt < t_max)
-                        && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f)
-                        && (tt < *t_best);
+    float den, tt, u, v;
+    triangle_plane(g[0], g[1], g[2], ox, oy, oz, dx, dy, dz, &den, &tt, &u, &v);
+    const bool closer = triangle_inside(den, tt, u, v, t_min, t_max) && (tt < *t_best);
     if (closer) { *t_best = tt; *prim = k; }
   }
 }
@@ -61,16 +80,9 @@ __device__ __forceinline__ bool occluded(const float* s_tri, int n, const float*
   bool occ = false;
   for (int k = 0; k < n; ++k) {
     const float4* g = reinterpret_cast<const float4*>(s_tri + GEO_ROWS * k);
-    const float4 pn = g[0], p1 = g[1], p2 = g[2];
-    const float den = ldx * pn.x + ldy * pn.y + ldz * pn.z;
-    const float num = pn.w - (hx * pn.x + hy * pn.y + hz * pn.z);
-    const float tt = num / den;
-    const float u = (hx * p1.x + hy * p1.y + hz * p1.z)
-                    + tt * (ldx * p1.x + ldy * p1.y + ldz * p1.z) - p1.w;
-    const float v = (hx * p2.x + hy * p2.y + hz * p2.z)
-                    + tt * (ldx * p2.x + ldy * p2.y + ldz * p2.z) - p2.w;
-    occ = occ || ((fabsf(den) >= 1e-12f) && (tt > 0.0f) && (tt < t_max)
-                  && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f));
+    float den, tt, u, v;
+    triangle_plane(g[0], g[1], g[2], hx, hy, hz, ldx, ldy, ldz, &den, &tt, &u, &v);
+    occ = occ || triangle_inside(den, tt, u, v, 0.0f, t_max);
   }
   for (int k = 0; k < S; ++k) {
     float t1, t2;
@@ -80,6 +92,105 @@ __device__ __forceinline__ bool occluded(const float* s_tri, int n, const float*
                           || ((t2 > 0.0f) && (t2 < t_max))));
   }
   return occ;
+}
+
+// ---------------------------------------------------------------------------
+// The grouped tier: any number of triangles, read from global memory
+// ---------------------------------------------------------------------------
+// Geometry is triangle-major [P_gpad][GEO_ROWS] (zero past the last
+// triangle); the box tables are [n][8]: lo xyz, 0, hi xyz, 0 (two 16-byte
+// loads).  Groups of GROUP consecutive triangles, supers of SUPER groups; the
+// sweep visits them in index order and tests a group's triangles only where
+// the ray's segment reaches the super's and the group's padded box, so the
+// winner is the one the loop over every triangle finds (strict < on t: ties
+// keep the lower index).  The box margins and the far-limit slack are made on
+// the host (ops/cuda_path.group_aabbs) as in the JAX package.
+
+constexpr int GROUP = 16;
+constexpr int SUPER = 8;
+constexpr float FAR_SCALE = (float)(1.0 + 1e-3);  // 1 + T_FAR_SLACK
+constexpr float FAR_SLACK = (float)1e-3;          // T_FAR_SLACK
+
+// 1 / d with |d| < 1e-30 taken as 1e30 (pallas_path._safe_inv).
+__device__ __forceinline__ float safe_inv(float d) {
+  return fabsf(d) < 1e-30f ? 1e30f : 1.0f / d;
+}
+
+// Whether the ray's segment [0, t_far] meets the box (pallas_path.
+// _slab_interval and its test, in that order).
+__device__ __forceinline__ bool slab_reach(const float4* __restrict__ box, float ox,
+                                           float oy, float oz, float ivx, float ivy,
+                                           float ivz, float t_far) {
+  const float4 lo = __ldg(box), hi = __ldg(box + 1);
+  const float t0x = (lo.x - ox) * ivx;
+  const float t1x = (hi.x - ox) * ivx;
+  const float t0y = (lo.y - oy) * ivy;
+  const float t1y = (hi.y - oy) * ivy;
+  const float t0z = (lo.z - oz) * ivz;
+  const float t1z = (hi.z - oz) * ivz;
+  const float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                           fmaxf(fminf(t0z, t1z), 0.0f));
+  const float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+  return tmin <= fminf(tmax, t_far);
+}
+
+// Closest triangle hit in (t_min, t_max) over T triangles by the grouped
+// sweep; the far limit of every box test is min(t_best (1 + slack) + slack,
+// t_max) with the t_best of that moment.  Lowers *t_best and sets *prim.
+__device__ __forceinline__ void closest_grouped(
+    const float4* __restrict__ geo, const float4* __restrict__ aabb,
+    const float4* __restrict__ sup, int n_super, int T, float ox, float oy,
+    float oz, float dx, float dy, float dz, float t_min, float t_max, float* t_best,
+    int* prim) {
+  const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
+  for (int sg = 0; sg < n_super; ++sg) {
+    if (!slab_reach(sup + 2 * sg, ox, oy, oz, ivx, ivy, ivz,
+                    fminf(*t_best * FAR_SCALE + FAR_SLACK, t_max))) {
+      continue;
+    }
+    for (int g = sg * SUPER; g < (sg + 1) * SUPER; ++g) {
+      if (!slab_reach(aabb + 2 * g, ox, oy, oz, ivx, ivy, ivz,
+                      fminf(*t_best * FAR_SCALE + FAR_SLACK, t_max))) {
+        continue;
+      }
+      const int top = min((g + 1) * GROUP, T);
+#pragma unroll 1
+      for (int k = g * GROUP; k < top; ++k) {
+        float den, tt, u, v;
+        triangle_plane(__ldg(geo + 3 * k), __ldg(geo + 3 * k + 1), __ldg(geo + 3 * k + 2),
+                       ox, oy, oz, dx, dy, dz, &den, &tt, &u, &v);
+        const bool closer = triangle_inside(den, tt, u, v, t_min, t_max)
+                            && (tt < *t_best);
+        if (closer) { *t_best = tt; *prim = k; }
+      }
+    }
+  }
+}
+
+// Shadow probe over n triangles by the grouped sweep: any hit in (0, t_max);
+// the boxes are tested against t_max (1 + slack) + slack, and the sweep ends
+// at the first occluder.
+__device__ __forceinline__ bool occluded_grouped(
+    const float4* __restrict__ geo, const float4* __restrict__ aabb,
+    const float4* __restrict__ sup, int n_super, int n, float hx, float hy, float hz,
+    float ldx, float ldy, float ldz, float t_max) {
+  const float ivx = safe_inv(ldx), ivy = safe_inv(ldy), ivz = safe_inv(ldz);
+  const float t_seg = t_max * FAR_SCALE + FAR_SLACK;
+  for (int sg = 0; sg < n_super; ++sg) {
+    if (!slab_reach(sup + 2 * sg, hx, hy, hz, ivx, ivy, ivz, t_seg)) continue;
+    for (int g = sg * SUPER; g < (sg + 1) * SUPER; ++g) {
+      if (!slab_reach(aabb + 2 * g, hx, hy, hz, ivx, ivy, ivz, t_seg)) continue;
+      const int top = min((g + 1) * GROUP, n);
+#pragma unroll 1
+      for (int k = g * GROUP; k < top; ++k) {
+        float den, tt, u, v;
+        triangle_plane(__ldg(geo + 3 * k), __ldg(geo + 3 * k + 1), __ldg(geo + 3 * k + 2),
+                       hx, hy, hz, ldx, ldy, ldz, &den, &tt, &u, &v);
+        if (triangle_inside(den, tt, u, v, 0.0f, t_max)) return true;
+      }
+    }
+  }
+  return false;
 }
 
 }  // namespace grt

@@ -1,8 +1,14 @@
 """The variant-B path tracer's two kernels on the card, and their plain
 PyTorch versions.
 
-Counterpart of ``gpuraytracer_tpu/ops/pallas_path.py`` (static tier: at most
-64 triangles, plus analytic spheres):
+Counterpart of ``gpuraytracer_tpu/ops/pallas_path.py``, both tiers: the
+static tier (at most 64 triangles, plus analytic spheres) tests every
+triangle; the grouped tier (any triangle count up to the record encoding's
+limit) sweeps a two-level hierarchy of bounding boxes in triangle order:
+
+  * ``group_aabbs``, ``pad_geo``, ``pack_shadow_tables``  the grouped tier's
+    tables (groups of 16 triangles, supers of 8 groups, the occluder-culled
+    shadow table), as the JAX package packs them
 
   * ``pregen_draws``           the Halton draw planes (kernel ``draws_kernel``)
   * ``render_path_cuda_impl``  the full spp x bounces trace (``path_kernel``)
@@ -41,8 +47,18 @@ from ..utils.host import resolve_device
 from . import _build
 
 OCC_BIT = 1 << 20  # record code = (prim + 1) + OCC_BIT * shadow_occluded
-STATIC_TIER_MAX = 64  # triangles the static-tier kernel takes
+STATIC_TIER_MAX = 64  # above this many triangles the grouped tier runs
 _BIG = 1e30
+# The grouped tier: triangles per group, groups per super; the absolute pad
+# of every group box (plus 1e-5 of the scene's largest coordinate) and the
+# slack on a ray's far limit. The margins are about a thousand times the
+# rounding difference between the slab test and the triangle test, so a box
+# is never skipped where one of its triangles would have won: decisions
+# equal those of the loop over every triangle.
+GROUP = 16
+SUPER = 8
+GROUP_AABB_PAD = 1e-3
+T_FAR_SLACK = 1e-3
 _SMEM_LIMIT = 48 * 1024  # bytes of shared memory the trace kernel may stage
 
 # Rows of the packed tables (the JAX package's layout).
@@ -52,7 +68,8 @@ NATTR = 13   # atab: normal xyz, diffuse rgb, emissive rgb, is_em, sphere center
 
 # Kernel launches since the process started (or since a caller reset them):
 # each wrapper adds one where it launches its kernel and nowhere else.
-LAUNCHES = {"draws_kernel": 0, "path_kernel": 0}
+# The grouped tier (K2g) counts apart from the static tier.
+LAUNCHES = {"draws_kernel": 0, "path_kernel": 0, "path_kernel_grouped": 0}
 
 
 class TraceAux(NamedTuple):
@@ -69,6 +86,22 @@ class TraceAux(NamedTuple):
     jitter_y: Optional[torch.Tensor]
 
 
+class GroupedTables(NamedTuple):
+    """The grouped tier's geometry: the closest-hit loop's table and boxes,
+    and the shadow loop's (the occluder-culled triangles packed dense, or
+    the same tables when nothing is culled). Geometry columns are zero past
+    the last triangle; their plane test fails the |den| guard."""
+
+    geo: torch.Tensor          # [12, P_gpad] n xyz, c0, s1 xyz, c1, s2 xyz, c2
+    aabb: torch.Tensor         # [6, ng_pad] group boxes: lo xyz, hi xyz
+    sup: torch.Tensor          # [6, n_super] super boxes
+    shadow_geo: torch.Tensor   # [12, S_gpad]
+    shadow_aabb: torch.Tensor  # [6, ...]
+    shadow_sup: torch.Tensor   # [6, ...]
+    num_tris: int              # triangles in geo
+    num_shadow: int            # triangles in shadow_geo
+
+
 class PackedScene(NamedTuple):
     """The trace kernel's scene inputs, all float32 on one device."""
 
@@ -78,6 +111,7 @@ class PackedScene(NamedTuple):
     sph: torch.Tensor    # [SROWS, max(S, 1)]
     atab: torch.Tensor   # [NATTR, T + S]
     num_spheres: int
+    grouped: Optional[GroupedTables] = None  # the grouped tier's tables
 
 
 def camera_vector(cam, config: RenderConfig) -> torch.Tensor:
@@ -94,12 +128,91 @@ def camera_vector(cam, config: RenderConfig) -> torch.Tensor:
                       v * half_height, w])
 
 
-def _pack_inputs(scene: Scene, config: RenderConfig) -> PackedScene:
+def group_aabbs(verts: torch.Tensor):
+    """[T, 3, 3] float32 vertices -> the two-level box tables: per group of
+    GROUP triangles [6, ng_pad] and per super of SUPER groups [6, n_super]
+    (rows lo xyz, hi xyz). A trailing partial group is padded with copies of
+    its last triangle, which never widens its box; the group table is padded
+    to a whole super with point boxes at 1e20 that every ray's slab test
+    rejects. Margin GROUP_AABB_PAD + 1e-5 of the largest |coordinate|. The
+    JAX package's ``pallas_path.group_aabbs``, operation for operation."""
+    f32 = torch.float32
+    verts = verts.to(f32)
+    dev = verts.device
+    n = verts.shape[0]
+    ng = max(1, (n + GROUP - 1) // GROUP)
+    pad = ng * GROUP - n
+    v = (torch.cat([verts, verts[-1:].expand(pad, 3, 3)]) if pad else verts)
+    v = v.reshape(ng, GROUP * 3, 3)
+    margin = GROUP_AABB_PAD + 1e-5 * verts.abs().max()
+    lo = v.amin(dim=1) - margin           # [ng, 3]
+    hi = v.amax(dim=1) + margin
+    n_super = (ng + SUPER - 1) // SUPER
+    gpad = n_super * SUPER - ng
+    lo_p = torch.cat([lo, torch.full((gpad, 3), 1e20, dtype=f32,
+                                     device=dev)])
+    hi_p = torch.cat([hi, torch.full((gpad, 3), -1e20, dtype=f32,
+                                     device=dev)])
+    slo = lo_p.reshape(n_super, SUPER, 3).amin(dim=1)
+    shi = hi_p.reshape(n_super, SUPER, 3).amax(dim=1)
+    # Sentinel groups: point boxes at +1e20 (lo == hi).
+    hi_p = torch.where(hi_p <= -1e20, torch.full_like(hi_p, 1e20), hi_p)
+    gtab = torch.cat([lo_p.T, hi_p.T], dim=0).contiguous()
+    stab = torch.cat([slo.T, shi.T], dim=0).contiguous()
+    return gtab, stab  # [6, ng_pad], [6, n_super]
+
+
+def pad_geo(x: torch.Tensor) -> torch.Tensor:
+    """Zero-pad geometry columns to a whole number of supers (SUPER * GROUP
+    triangles), so that every group the box tables name has its columns."""
+    mult = SUPER * GROUP
+    p = ((x.shape[1] + mult - 1) // mult) * mult
+    return torch.nn.functional.pad(x, (0, p - x.shape[1]))
+
+
+def pack_shadow_tables(tri, verts, occluders, tri_geo, aabb_main, sup_main):
+    """The shadow loop's dense occluder-culled geometry and its two box
+    tables (the main tables when no cull is given): the JAX package's
+    ``pallas_path.pack_shadow_tables``."""
+    if occluders is None:
+        return tri_geo, aabb_main, sup_main
+    f32 = torch.float32
+    dev = tri.device
+    keep = [i for i, k in enumerate(occluders) if k]
+    if keep:
+        kidx = torch.tensor(keep, dtype=torch.int64, device=dev)
+        shadow_geo = pad_geo(tri[:12, kidx])
+        aabb_shadow, sup_shadow = group_aabbs(verts[kidx])
+    else:
+        shadow_geo = torch.zeros((12, SUPER * GROUP), dtype=f32, device=dev)
+        aabb_shadow = torch.full((6, SUPER), 1e20, dtype=f32, device=dev)
+        sup_shadow = torch.full((6, 1), 1e20, dtype=f32, device=dev)
+    return shadow_geo, aabb_shadow, sup_shadow
+
+
+def _pack_grouped(scene: Scene, tri: torch.Tensor,
+                  occluders) -> GroupedTables:
+    verts = scene.triangles.verts.to(torch.float32)
+    geo = pad_geo(tri[:12])
+    aabb, sup = group_aabbs(verts)
+    shadow_geo, shadow_aabb, shadow_sup = pack_shadow_tables(
+        tri, verts, occluders, geo, aabb, sup)
+    n_shadow = (tri.shape[1] if occluders is None
+                else sum(1 for k in occluders if k))
+    return GroupedTables(geo=geo.contiguous(), aabb=aabb, sup=sup,
+                         shadow_geo=shadow_geo.contiguous(),
+                         shadow_aabb=shadow_aabb, shadow_sup=shadow_sup,
+                         num_tris=tri.shape[1], num_shadow=n_shadow)
+
+
+def _pack_inputs(scene: Scene, config: RenderConfig, grouped: bool = False,
+                 occluders=None) -> PackedScene:
     """Marshal a scene for the trace kernel: triangle constants to a
     [NROWS, T] table, the camera to a prescaled basis, the light to six
     scalars, the spheres to a [SROWS, S] table, and the shading attributes
     of every primitive (triangles first, then spheres) to a [NATTR, T + S]
-    table read by the winner's index."""
+    table read by the winner's index. ``grouped`` adds the grouped tier's
+    tables, the shadow table culled by ``occluders``."""
     c = compile_scene(scene.triangles)
     f32 = torch.float32
     tri = torch.stack([
@@ -147,7 +260,9 @@ def _pack_inputs(scene: Scene, config: RenderConfig) -> PackedScene:
         atab = tri_cols
     return PackedScene(tri=tri.contiguous(), cam=cam_vec.contiguous(),
                        light=light_vec.contiguous(), sph=sph.contiguous(),
-                       atab=atab.contiguous(), num_spheres=sp.num_spheres)
+                       atab=atab.contiguous(), num_spheres=sp.num_spheres,
+                       grouped=(_pack_grouped(scene, tri, occluders)
+                                if grouped else None))
 
 
 def _stratified_k(config: RenderConfig) -> int:
@@ -198,7 +313,7 @@ def _library() -> ctypes.CDLL:
             [_PTR, _INT, _INT, _INT, _INT, _FLT] + [_PTR] * 6 + [_PTR])
         lib.grt_pregen_draws.restype = _INT
         lib.grt_path_trace.argtypes = (
-            [_PTR] * 15 + [_INT] * 10 + [_FLT, _FLT, _INT, _INT, _PTR])
+            [_PTR] * 21 + [_INT] * 12 + [_FLT, _FLT, _INT, _INT, _INT, _PTR])
         lib.grt_path_trace.restype = _INT
     return lib
 
@@ -296,22 +411,162 @@ def pregen_draws(config: RenderConfig, local_offsets=None, device="cuda"):
 # K2: the trace
 # ---------------------------------------------------------------------------
 
+def _safe_inv(d: torch.Tensor) -> torch.Tensor:
+    """1 / d with |d| < 1e-30 taken as 1e30: the slab test's reciprocal
+    (``pallas_path._safe_inv``). It keeps (lo - o) * inv free of NaN, and for
+    a near-zero direction the test stays conservative."""
+    return torch.where(d.abs() < 1e-30, torch.full_like(d, 1e30), 1.0 / d)
+
+
+def _slab_reach(box, o, inv, t_far):
+    """Whether the segment [0, t_far] of each ray [m] meets the box (lo xyz,
+    hi xyz): ``pallas_path._slab_interval`` and its test, in that order."""
+    t0 = [(box[k] - o[:, k]) * inv[:, k] for k in range(3)]
+    t1 = [(box[3 + k] - o[:, k]) * inv[:, k] for k in range(3)]
+    tmin = torch.maximum(
+        torch.maximum(torch.minimum(t0[0], t1[0]),
+                      torch.minimum(t0[1], t1[1])),
+        torch.clamp_min(torch.minimum(t0[2], t1[2]), 0.0))
+    tmax = torch.minimum(
+        torch.minimum(torch.maximum(t0[0], t1[0]),
+                      torch.maximum(t0[1], t1[1])),
+        torch.maximum(t0[2], t1[2]))
+    return tmin <= torch.minimum(tmax, t_far)
+
+
+def _geo_rows(cols):
+    """The plane and dual-basis constants of geometry columns [12+, k]."""
+    return (cols[0:3].T, cols[3], cols[4:7].T, cols[7], cols[8:11].T,
+            cols[11])
+
+
+def _count(stats, key, live, lanes, per_lane=1):
+    """Add to ``stats[key]`` the live lanes among ``lanes``, and to
+    ``stats[key + "_all"]`` all of them, each times ``per_lane`` (a number,
+    or a tensor with one entry per lane): the sweep's work counters; None
+    counts nothing."""
+    if stats is not None:
+        w = torch.as_tensor(per_lane, device=lanes.device).expand(lanes.shape)
+        stats[key] = stats.get(key, 0) + int((w * live[lanes]).sum())
+        stats[key + "_all"] = stats.get(key + "_all", 0) + int(w.sum())
+
+
+def closest_grouped(g: GroupedTables, o, d, live=None, stats=None):
+    """Closest triangle hit of each ray (o, d [n, 3]) by the grouped tier's
+    sweep, the plain version of K2g's: per super, then per group of the
+    super, the slab test against t_far = min(t_best (1 + T_FAR_SLACK) +
+    T_FAR_SLACK, RAY_TMAX) with the current t_best; the group's triangles are
+    tested only on the rays that reach it, in index order, strict < on t.
+    Returns (t_best [n], prim [n] int64, -1 where no triangle is hit).
+    ``stats``: counts of box and triangle tests on the ``live`` rays."""
+    n = o.shape[0]
+    dev = o.device
+    t_best = torch.full((n,), _BIG, dtype=torch.float32, device=dev)
+    prim = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    if live is None:
+        live = torch.ones(n, dtype=torch.bool, device=dev)
+    inv = _safe_inv(d)
+    every = torch.arange(n, device=dev)
+    _count(stats, "rays", live, every)
+
+    def t_far(lanes):
+        return torch.clamp_max(t_best[lanes] * (1.0 + T_FAR_SLACK)
+                               + T_FAR_SLACK, RAY_TMAX)
+
+    for sg in range(g.sup.shape[1]):
+        _count(stats, "boxes", live, every)
+        lanes = every[_slab_reach(g.sup[:, sg], o, inv, t_far(every))]
+        for gi in range(sg * SUPER, (sg + 1) * SUPER):
+            if not lanes.numel():
+                break
+            _count(stats, "boxes", live, lanes)
+            reach = lanes[_slab_reach(g.aabb[:, gi], o[lanes], inv[lanes],
+                                      t_far(lanes))]
+            base, top = gi * GROUP, min((gi + 1) * GROUP, g.num_tris)
+            if not reach.numel() or top <= base:
+                continue
+            _count(stats, "triangles", live, reach, top - base)
+            t, valid = triangle_candidates(
+                *_geo_rows(g.geo[:, base:top]), o[reach], d[reach], RAY_TMIN,
+                RAY_TMAX)
+            t_grp, k_grp = torch.where(valid, t, torch.full_like(t, _BIG)
+                                       ).min(dim=-1)  # first minimum
+            closer = t_grp < t_best[reach]
+            won = reach[closer]
+            t_best[won] = t_grp[closer]
+            prim[won] = base + k_grp[closer]
+    return t_best, prim
+
+
+def occluded_grouped(g: GroupedTables, h, ld, t_max, live=None, stats=None):
+    """Whether each shadow ray (h, ld [n, 3]) hits a triangle of the shadow
+    table in (0, t_max): the grouped sweep with the segment's far limit
+    t_max (1 + T_FAR_SLACK) + T_FAR_SLACK, a ray leaving the sweep at its
+    first occluder. The plain version of K2g's shadow probe."""
+    n = h.shape[0]
+    dev = h.device
+    occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    if live is None:
+        live = torch.ones(n, dtype=torch.bool, device=dev)
+    inv = _safe_inv(ld)
+    t_seg = t_max * (1.0 + T_FAR_SLACK) + T_FAR_SLACK
+    every = torch.arange(n, device=dev)
+    _count(stats, "rays", live, every)
+    for sg in range(g.shadow_sup.shape[1]):
+        open_ = every[~occ]
+        _count(stats, "boxes", live, open_)
+        lanes = open_[_slab_reach(g.shadow_sup[:, sg], h[open_], inv[open_],
+                                  t_seg[open_])]
+        for gi in range(sg * SUPER, (sg + 1) * SUPER):
+            lanes = lanes[~occ[lanes]]
+            if not lanes.numel():
+                break
+            _count(stats, "boxes", live, lanes)
+            reach = lanes[_slab_reach(g.shadow_aabb[:, gi], h[lanes],
+                                      inv[lanes], t_seg[lanes])]
+            base, top = gi * GROUP, min((gi + 1) * GROUP, g.num_shadow)
+            if not reach.numel() or top <= base:
+                continue
+            _, blocked = triangle_candidates(
+                *_geo_rows(g.shadow_geo[:, base:top]), h[reach], ld[reach],
+                0.0, t_max[reach])
+            hit = blocked.any(dim=-1)
+            occ[reach] = hit
+            # A lane leaves the group at its first occluder.
+            _count(stats, "triangles", live, reach,
+                   torch.where(hit, blocked.float().argmax(dim=-1) + 1,
+                               top - base))
+    return occ
+
+
 def render_path_plain(offsets: torch.Tensor, rid_base: int,
                       packed: PackedScene, shadow_idx: torch.Tensor,
-                      draws, config: RenderConfig, emit_records: bool):
+                      draws, config: RenderConfig, emit_records: bool,
+                      stats: Optional[dict] = None):
     """Plain PyTorch version of ``path_kernel`` on the same inputs: offsets
     [n] (integer), the packed scene, the indices of the triangles kept in
     the shadow loop, optionally the six draw planes. Returns (hdr [3, n]
     float32, records [spp, bounces, n] int32 or None). The arithmetic and
     its order are the kernel's: planar f32 math over [n] tensors and the
-    [n, T] candidate tests of ``intersect.py``; dead lanes run on masked and
-    records are written for every (sample, bounce, pixel)."""
+    [n, T] candidate tests of ``intersect.py``, or, where ``packed`` holds
+    the grouped tables, the grouped sweep (``closest_grouped``,
+    ``occluded_grouped``; ``shadow_idx`` is then unused: the cull is in the
+    shadow table); dead lanes run on masked and records are written for
+    every (sample, bounce, pixel). ``rid_base``: the first pixel's id, or
+    the ids of all n pixels (an int64 tensor: a sample of pixels from
+    anywhere in the frame). ``stats``: a dict that the grouped sweep adds its
+    rays, box tests and triangle tests to, under "closest" and "shadow" (live
+    lanes; with the suffix "_all", all lanes)."""
+    def rid(s):
+        return (rid_base + s if isinstance(rid_base, int)
+                else rid_base[s:s + config.pixel_chunk])
+
     outs = [
-        _plain_chunk(offsets[s:s + config.pixel_chunk], rid_base + s, packed,
+        _plain_chunk(offsets[s:s + config.pixel_chunk], rid(s), packed,
                      shadow_idx,
                      None if draws is None else
                      [d[..., s:s + config.pixel_chunk] for d in draws],
-                     config, emit_records)
+                     config, emit_records, stats)
         for s in range(0, offsets.shape[0], config.pixel_chunk)
     ]
     hdr = torch.cat([o[0] for o in outs], dim=-1)
@@ -320,7 +575,7 @@ def render_path_plain(offsets: torch.Tensor, rid_base: int,
 
 
 def _plain_chunk(offsets, rid_base, packed, shadow_idx, draws, config,
-                 emit_records):
+                 emit_records, stats):
     f32 = torch.float32
     dev = offsets.device
     W, H = config.width, config.height
@@ -330,16 +585,18 @@ def _plain_chunk(offsets, rid_base, packed, shadow_idx, draws, config,
     S = packed.num_spheres
     P = T + S
 
-    def geo(rows):
-        return (rows[0:3].T, rows[3], rows[4:7].T, rows[7], rows[8:11].T,
-                rows[11])
-
-    geo_all = geo(tri)
-    geo_shadow = geo(tri[:, shadow_idx.long()])
+    grp = packed.grouped
+    if grp is None:
+        geo_all = _geo_rows(tri)
+        geo_shadow = _geo_rows(tri[:, shadow_idx.long()])
+    elif stats is not None:
+        stats.setdefault("closest", {})
+        stats.setdefault("shadow", {})
     sph_center = packed.sph[0:3].T[:S]
     sph_radius = packed.sph[3][:S]
 
-    rid = rid_base + torch.arange(n_local, dtype=torch.int64, device=dev)
+    rid = (rid_base + torch.arange(n_local, dtype=torch.int64, device=dev)
+           if isinstance(rid_base, int) else rid_base.to(dev, torch.int64))
     px = (rid % W).to(f32)
     py = (rid // W).to(f32)
     in_image = rid < W * H
@@ -382,15 +639,28 @@ def _plain_chunk(offsets, rid_base, packed, shadow_idx, draws, config,
 
         for bounce in range(config.bounces):
             o, d = vec(ox, oy, oz), vec(dx, dy, dz)
-            t_all, valid = triangle_candidates(*geo_all, o, d, RAY_TMIN,
-                                               RAY_TMAX)
-            if S:
-                t_s, valid_s = sphere_candidates(sph_center, sph_radius, o, d,
-                                                 RAY_TMIN, RAY_TMAX)
-                t_all = torch.cat([t_all, t_s], dim=-1)
-                valid = torch.cat([valid, valid_s], dim=-1)
-            t_masked = torch.where(valid, t_all, torch.full_like(t_all, _BIG))
-            t_best, winner = torch.min(t_masked, dim=-1)  # first minimum
+            if grp is None:
+                t_all, valid = triangle_candidates(*geo_all, o, d, RAY_TMIN,
+                                                   RAY_TMAX)
+                if S:
+                    t_s, valid_s = sphere_candidates(
+                        sph_center, sph_radius, o, d, RAY_TMIN, RAY_TMAX)
+                    t_all = torch.cat([t_all, t_s], dim=-1)
+                    valid = torch.cat([valid, valid_s], dim=-1)
+                t_masked = torch.where(valid, t_all,
+                                       torch.full_like(t_all, _BIG))
+                t_best, winner = torch.min(t_masked, dim=-1)  # first minimum
+            else:
+                t_best, winner = closest_grouped(
+                    grp, o, d, alive,
+                    None if stats is None else stats["closest"])
+                if S:  # spheres after the triangles, strict <
+                    t_s, valid_s = sphere_candidates(
+                        sph_center, sph_radius, o, d, RAY_TMIN, RAY_TMAX)
+                    for k in range(S):
+                        closer = valid_s[:, k] & (t_s[:, k] < t_best)
+                        t_best = torch.where(closer, t_s[:, k], t_best)
+                        winner = torch.where(closer, T + k, winner)
             hit = t_best < _BIG * 0.5
             prim = torch.where(hit, winner, torch.full_like(winner, -1))
 
@@ -443,8 +713,14 @@ def _plain_chunk(offsets, rid_base, packed, shadow_idx, draws, config,
 
             h, ld = vec(hx, hy, hz), vec(ldx, ldy, ldz)
             t_max = ldist - 1e-3
-            _, blocked = triangle_candidates(*geo_shadow, h, ld, 0.0, t_max)
-            occ = blocked.any(dim=-1)
+            if grp is None:
+                _, blocked = triangle_candidates(*geo_shadow, h, ld, 0.0,
+                                                 t_max)
+                occ = blocked.any(dim=-1)
+            else:
+                occ = occluded_grouped(
+                    grp, h, ld, t_max, surf,
+                    None if stats is None else stats["shadow"])
             if S:
                 _, blocked_s = sphere_candidates(sph_center, sph_radius, h, ld,
                                                  0.0, t_max)
@@ -485,11 +761,20 @@ def _plain_chunk(offsets, rid_base, packed, shadow_idx, draws, config,
     return hdr, rec
 
 
+def _boxes8(boxes: torch.Tensor) -> torch.Tensor:
+    """A [6, n] box table as the kernel reads it: [n, 8], rows lo xyz, 0,
+    hi xyz, 0 (two 16-byte loads per box)."""
+    z = torch.zeros_like(boxes[:1])
+    return torch.cat([boxes[0:3], z, boxes[3:6], z]).T.contiguous()
+
+
 def path_trace_kernel(offsets: torch.Tensor, rid_base: int,
                       packed: PackedScene, shadow_idx: torch.Tensor,
                       draws, config: RenderConfig, emit_records: bool):
     """Launch ``path_kernel`` on the card. Same arguments and results as
-    ``render_path_plain``, with ``offsets`` and ``shadow_idx`` int32."""
+    ``render_path_plain``, with ``offsets`` and ``shadow_idx`` int32. Where
+    ``packed`` holds the grouped tables the grouped tier runs (K2g) and
+    ``shadow_idx`` is not read."""
     if offsets.device.type != "cuda":
         raise ValueError("path_trace_kernel needs CUDA tensors")
     dev = offsets.device
@@ -497,16 +782,17 @@ def path_trace_kernel(offsets: torch.Tensor, rid_base: int,
     n = offsets.shape[0]
     T = packed.tri.shape[1]
     S = packed.num_spheres
-    n_shadow = shadow_idx.shape[0]
-    if T > STATIC_TIER_MAX:
-        raise NotImplementedError(
-            f"{T} triangles: the static-tier kernel takes at most "
-            f"{STATIC_TIER_MAX} (grouped tier: later slice)")
-    smem = 4 * (12 * (T + n_shadow) + 4 * S + NATTR * (T + S))
+    grp = packed.grouped
+    n_shadow = shadow_idx.shape[0] if grp is None else grp.num_shadow
+    if grp is None:
+        smem = 4 * (12 * (T + n_shadow) + 4 * S + NATTR * (T + S))
+    else:
+        smem = 4 * 4 * S
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"scene tables need {smem} B of shared memory; the kernel stages "
-            f"at most {_SMEM_LIMIT} B (fewer spheres, or a later tier)")
+            f"at most {_SMEM_LIMIT} B (fewer primitives, or the grouped "
+            "tier: grouped=True)")
     if draws is not None and not emit_records:
         raise ValueError("draw planes are read only when records are emitted")
 
@@ -517,9 +803,29 @@ def path_trace_kernel(offsets: torch.Tensor, rid_base: int,
         _require(packed.light, "light", f32, (6,), dev),
         _require(packed.tri, "tri", f32, (NROWS, T), dev),
         _require(packed.sph, "sph", f32, (SROWS, max(S, 1)), dev),
-        _require(packed.atab, "atab", f32, (NATTR, T + S), dev),
-        _require(shadow_idx, "shadow_idx", i32, (n_shadow,), dev),
     ]
+    if grp is None:
+        ptrs += [
+            _require(packed.atab, "atab", f32, (NATTR, T + S), dev),
+            _require(shadow_idx, "shadow_idx", i32, (n_shadow,), dev)]
+        tables = [None] * 6
+        supers = (0, 0)
+    else:
+        _require(packed.atab, "atab", f32, (NATTR, T + S), dev)
+        atab_t = packed.atab.T.contiguous()  # [T + S][13], held to the launch
+        ptrs += [atab_t.data_ptr(), None]
+        for name, geo, boxes, sup in (
+                ("geo", grp.geo, grp.aabb, grp.sup),
+                ("shadow_geo", grp.shadow_geo, grp.shadow_aabb,
+                 grp.shadow_sup)):
+            n_sup = sup.shape[1]
+            _require(geo, name, f32, (12, n_sup * SUPER * GROUP), dev)
+            _require(boxes, f"{name} boxes", f32, (6, n_sup * SUPER), dev)
+            _require(sup, f"{name} supers", f32, (6, n_sup), dev)
+        tables = [grp.geo.T.contiguous(), _boxes8(grp.aabb),
+                  _boxes8(grp.sup), grp.shadow_geo.T.contiguous(),
+                  _boxes8(grp.shadow_aabb), _boxes8(grp.shadow_sup)]
+        supers = (grp.sup.shape[1], grp.shadow_sup.shape[1])
     if draws is not None:
         if len(draws) != 6:
             raise ValueError(f"draws: expected 6 planes, got {len(draws)}")
@@ -534,13 +840,15 @@ def path_trace_kernel(offsets: torch.Tensor, rid_base: int,
     with torch.cuda.device(dev):
         code = lib.grt_path_trace(
             *ptrs, hdr.data_ptr(), rec.data_ptr() if emit_records else None,
+            *[None if t is None else t.data_ptr() for t in tables],
             n, rid_base, config.width, config.height, config.spp,
-            config.bounces, T, S, n_shadow, k, 1.0 / k if k else 0.0,
-            config.area_light_half_extent, int(emit_records),
-            int(draws is not None),
+            config.bounces, T, S, n_shadow, k, *supers,
+            1.0 / k if k else 0.0, config.area_light_half_extent,
+            int(emit_records), int(draws is not None), int(grp is not None),
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on_launch_error(code, "path_kernel")
-    LAUNCHES["path_kernel"] += 1
+    name = "path_kernel" if grp is None else "path_kernel_grouped"
+    _raise_on_launch_error(code, name)
+    LAUNCHES[name] += 1
     return hdr, rec
 
 
@@ -576,9 +884,14 @@ def render_path_cuda_impl(scene: Scene, config: RenderConfig,
                           records_only: bool = False,
                           local_offsets=None, rid_base: int = 0,
                           flat_output: bool = False, draws=None,
-                          occluders=None, device="cuda"):
+                          occluders=None, grouped: Optional[bool] = None,
+                          device="cuda"):
     """Variant-B trace of ``scene`` on ``device`` through ``path_kernel``
     (through the plain version when ``device`` is the CPU).
+
+    ``grouped``: the tier; None takes the grouped tier above
+    STATIC_TIER_MAX triangles, as the JAX entry does. Both tiers make the
+    same decisions.
 
     Modes: hdr only (default) returns hdr [H, W, 3]; ``emit_records``
     returns (hdr, TraceAux) with the draws read from planes — ``draws`` if
@@ -593,10 +906,8 @@ def render_path_cuda_impl(scene: Scene, config: RenderConfig,
     _check_bounces(config)
     _stratified_k(config)
     num_tris = scene.triangles.num_triangles
-    if num_tris > STATIC_TIER_MAX:
-        raise NotImplementedError(
-            f"{num_tris} triangles: the static-tier kernel takes at most "
-            f"{STATIC_TIER_MAX} (grouped tier: later slice)")
+    if grouped is None:
+        grouped = num_tris > STATIC_TIER_MAX
     if num_tris + scene.spheres.num_spheres + 1 >= OCC_BIT:
         raise ValueError("record encoding limit exceeded")
     if records_only and not emit_records:
@@ -610,7 +921,8 @@ def render_path_cuda_impl(scene: Scene, config: RenderConfig,
             f"(records_only={records_only}, emit_records={emit_records}); "
             "drop the argument or disable records_only")
 
-    packed = _pack_inputs(scene.to(device), config)
+    shadow_idx = shadow_indices(occluders, num_tris, device)
+    packed = _pack_inputs(scene.to(device), config, grouped, occluders)
     if local_offsets is None:
         local_offsets = pixel_rng_offsets(config, device)
     offsets = torch.as_tensor(local_offsets).to(device)
@@ -634,7 +946,6 @@ def render_path_cuda_impl(scene: Scene, config: RenderConfig,
                     "pregen_draws(config, local_offsets)")
             draws = tuple(d.to(device) for d in draws)
 
-    shadow_idx = shadow_indices(occluders, num_tris, device)
     if device.type == "cuda":
         hdr, rec = path_trace_kernel(
             offsets.to(torch.int32).contiguous(), int(rid_base), packed,

@@ -1,8 +1,11 @@
 """The backward of the variant-B path tracer: the shade backward kernel on
 the card, its plain PyTorch version, and the autograd glue.
 
-Counterpart of ``gpuraytracer_tpu/ops/pallas_shade.py`` (static tier: at
-most 64 triangles, plus analytic spheres):
+Counterpart of ``gpuraytracer_tpu/ops/pallas_shade.py``, both tiers: the
+static tier (at most 64 triangles, plus analytic spheres) stages the tables
+in shared memory; the grouped tier (any primitive count up to the record
+encoding's limit) reads them from global memory and scatters into per-warp
+tables of a persistent grid:
 
   * ``_pack_diff_inputs``            differentiable parameter views of a scene
   * ``replay_packed``                radiance recomputed from trace records, a
@@ -44,8 +47,8 @@ from ..utils.host import resolve_device
 from . import _build
 from .cuda_path import (OCC_BIT, _check_bounces,
                         _draw_shapes, _raise_on_launch_error, _require,
-                        _stratified_k, camera_vector, pregen_draws_plain,
-                        render_path_cuda_impl)
+                        STATIC_TIER_MAX, _stratified_k, camera_vector,
+                        pregen_draws_plain, render_path_cuda_impl)
 
 # Differentiable table rows: n xyz, c0, diffuse rgb, emissive rgb; for sphere
 # scenes also center xyz and radius. The packed table carries in addition the
@@ -61,7 +64,8 @@ _KERNEL_WARPS = 4        # warps per block of shade_bwd_kernel
 
 # Kernel launches since the process started (or since a caller reset them):
 # the wrapper adds one where it launches the kernel and nowhere else.
-LAUNCHES = {"shade_bwd_kernel": 0}
+# The grouped tier (K3g) counts apart from the static tier.
+LAUNCHES = {"shade_bwd_kernel": 0, "shade_bwd_grouped_kernel": 0}
 
 
 def _auto_records_only(config: RenderConfig, n_pixels=None) -> bool:
@@ -343,18 +347,22 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library("shade_kernels").lib
     if lib.grt_shade_bwd.argtypes is None:
         lib.grt_shade_bwd.argtypes = (
-            [_PTR] * 14 + [_INT] * 9 + [_FLT, _FLT, _INT, _PTR])
+            [_PTR] * 14 + [_INT] * 9 + [_FLT, _FLT, _INT, _INT, _INT, _PTR])
         lib.grt_shade_bwd.restype = _INT
         lib.grt_shade_bwd_blocks.argtypes = [_INT]
         lib.grt_shade_bwd_blocks.restype = _INT
+        lib.grt_shade_bwd_grouped_blocks.argtypes = [_INT] * 4
+        lib.grt_shade_bwd_grouped_blocks.restype = _INT
     return lib
 
 
 def shade_bwd_kernel(g: torch.Tensor, records: torch.Tensor, draws,
                      offsets: Optional[torch.Tensor], table: torch.Tensor,
                      cam_vec: torch.Tensor, light_vec: torch.Tensor,
-                     config: RenderConfig, rid_base: int = 0):
-    """Launch ``shade_bwd_kernel`` on the card. Same arguments and results
+                     config: RenderConfig, rid_base: int = 0,
+                     grouped: bool = False):
+    """Launch ``shade_bwd_kernel`` on the card (``grouped``: its grouped
+    tier, K3g, ``shade_bwd_grouped_kernel``). Same arguments and results
     as ``shade_bwd_plain``, with ``offsets`` int32: it is read (and the draws
     are regenerated in the kernel) when ``draws`` is None."""
     if g.device.type != "cuda":
@@ -366,11 +374,10 @@ def shade_bwd_kernel(g: torch.Tensor, records: torch.Tensor, draws,
     nrows = NROWS_TAB_SPH if has_spheres else NROWS_TAB
     _check_bounces(config)
     smem = 4 * (nrows * P + NSCAL + _KERNEL_WARPS * (P * ntab + NSCAL))
-    if smem > _SMEM_LIMIT:
+    if not grouped and smem > _SMEM_LIMIT:
         raise ValueError(
             f"the parameter table needs {smem} B of shared memory; the "
-            f"backward kernel stages at most {_SMEM_LIMIT} B (fewer "
-            "primitives, or the grouped tier of a later slice)")
+            f"static tier stages at most {_SMEM_LIMIT} B: pass grouped=True")
     if draws is not None:
         if len(draws) != 6:
             raise ValueError(f"draws: expected 6 planes, got {len(draws)}")
@@ -386,20 +393,31 @@ def shade_bwd_kernel(g: torch.Tensor, records: torch.Tensor, draws,
 
     lib = _library()
     count = P * ntab + NSCAL
-    partials = torch.empty((lib.grt_shade_bwd_blocks(n), count),
-                           dtype=torch.float32, device=dev)
-    out = torch.empty(count, dtype=torch.float32, device=dev)
-    k = _stratified_k(config)
     with torch.cuda.device(dev):
+        if grouped:
+            blocks = lib.grt_shade_bwd_grouped_blocks(
+                n, P, int(has_spheres), int(draws is None))
+            if blocks <= 0:
+                raise RuntimeError("shade_bwd_grouped_kernel: the occupancy "
+                                   "query failed")
+            rows = blocks * _KERNEL_WARPS  # one table per warp
+            table = table.T.contiguous()  # [P, nrows]
+        else:
+            blocks = rows = lib.grt_shade_bwd_blocks(n)
+        partials = torch.empty((rows, count), dtype=torch.float32, device=dev)
+        out = torch.empty(count, dtype=torch.float32, device=dev)
+        k = _stratified_k(config)
         code = lib.grt_shade_bwd(
             g.data_ptr(), records.data_ptr(), *ptrs, table.data_ptr(),
             cam_vec.data_ptr(), light_vec.data_ptr(), partials.data_ptr(),
             out.data_ptr(), n, int(rid_base), config.width, config.height,
             config.spp, config.bounces, P, int(has_spheres), k,
             1.0 / k if k else 0.0, config.area_light_half_extent,
-            int(draws is None), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on_launch_error(code, "shade_bwd_kernel")
-    LAUNCHES["shade_bwd_kernel"] += 1
+            int(draws is None), int(grouped), blocks,
+            torch.cuda.current_stream(dev).cuda_stream)
+    name = "shade_bwd_grouped_kernel" if grouped else "shade_bwd_kernel"
+    _raise_on_launch_error(code, name)
+    LAUNCHES[name] += 1
     return out[:P * ntab].view(P, ntab), out[P * ntab:]
 
 
@@ -409,14 +427,14 @@ def shade_bwd_kernel(g: torch.Tensor, records: torch.Tensor, draws,
 
 class _AttachGrad(torch.autograd.Function):
     """Forward: the trace kernel's image, unchanged. Backward: one launch of
-    the backward kernel (the plain version for CPU tensors), giving the
-    cotangents of (table, cam_vec, light_vec); records, draws and offsets
-    are constants."""
+    the backward kernel (its grouped tier where the trace took it; the plain
+    version for CPU tensors), giving the cotangents of (table, cam_vec,
+    light_vec); records, draws and offsets are constants."""
 
     @staticmethod
-    def forward(ctx, config, rid_base, hdr, table, cam_vec, light_vec,
-                records, offsets, *draws):
-        ctx.config, ctx.rid_base = config, rid_base
+    def forward(ctx, config, rid_base, grouped, hdr, table, cam_vec,
+                light_vec, records, offsets, *draws):
+        ctx.config, ctx.rid_base, ctx.grouped = config, rid_base, grouped
         ctx.has_draws = bool(draws)
         ctx.save_for_backward(table, cam_vec, light_vec, records, offsets,
                               *draws)
@@ -433,7 +451,7 @@ class _AttachGrad(torch.autograd.Function):
                 table.detach().contiguous(), cam_vec.detach().contiguous(),
                 light_vec.detach().contiguous(), config, ctx.rid_base)
         if gs.device.type == "cuda":
-            dtab, dscal = shade_bwd_kernel(*args)
+            dtab, dscal = shade_bwd_kernel(*args, grouped=ctx.grouped)
         else:
             dtab, dscal = shade_bwd_plain(*args)
         zrow = torch.zeros((1, table.shape[1]), dtype=dtab.dtype,
@@ -446,8 +464,8 @@ class _AttachGrad(torch.autograd.Function):
                                  zrow])
         else:
             d_table = torch.cat([cols, zrow])
-        return (None, None, None, d_table, dscal[:12], dscal[12:], None,
-                None) + (None,) * len(draws)
+        return (None, None, None, None, d_table, dscal[:12], dscal[12:],
+                None, None) + (None,) * len(draws)
 
 
 def _render_fused(scene: Scene, config: RenderConfig, records_only,
@@ -460,13 +478,15 @@ def _render_fused(scene: Scene, config: RenderConfig, records_only,
     if records_only is None:
         records_only = _auto_records_only(
             config, None if local_offsets is None else local_offsets.shape[0])
+    # One tier for the trace and its backward.
+    grouped = scene.triangles.num_triangles > STATIC_TIER_MAX
     # The discrete decisions are constants of the gradient: trace a detached
     # copy, keep the graph for the parameter views only.
     hdr, aux = render_path_cuda_impl(
         scene.detach(), config, emit_records=True, records_only=records_only,
         local_offsets=local_offsets, rid_base=rid_base,
         flat_output=flat_output, draws=draws, occluders=occluders,
-        device=device)
+        grouped=grouped, device=device)
     if not any(t.requires_grad for t in scene.tensors()):
         return hdr
     table, cam_vec, light_vec = _pack_diff_inputs(scene, config)
@@ -479,8 +499,9 @@ def _render_fused(scene: Scene, config: RenderConfig, records_only,
     else:
         offsets = None
         planes = tuple(aux[1:])
-    return _AttachGrad.apply(config, int(rid_base), hdr, table, cam_vec,
-                             light_vec, aux.records, offsets, *planes)
+    return _AttachGrad.apply(config, int(rid_base), grouped, hdr, table,
+                             cam_vec, light_vec, aux.records, offsets,
+                             *planes)
 
 
 def render_path_decoupled_fused(scene: Scene, config: RenderConfig,

@@ -299,3 +299,132 @@ def cornell_box_with_spheres(resolution: Tuple[int, int] = (256, 256)) -> Scene:
         sphere_lights=empty_sphere_lights(),
         box_lights=empty_box_lights(),
     )
+
+
+# ---------------------------------------------------------------------------
+# High-triangle-count scene (the grouped tier of the trace kernel)
+# ---------------------------------------------------------------------------
+
+def _morton2(i: int, j: int) -> int:
+    """Interleave the bits of (i, j): the Z-order curve index."""
+    code = 0
+    for b in range(16):
+        code |= (((i >> b) & 1) << (2 * b)) | (((j >> b) & 1) << (2 * b + 1))
+    return code
+
+
+def _tessellate_quad(b: _TriBuilder, corners, n: int, material: dict) -> None:
+    """Split the quad (c0, c1, c2, c3 in winding order) into an n x n grid of
+    cells, two triangles each, keeping the outward orientation of the corner
+    order. Cells are emitted in Morton (Z-curve) order, so that any run of
+    consecutive triangles covers a compact patch: the grouped traversal's
+    groups of 16 consecutive triangles then have small bounding boxes. The
+    records name triangles by index, so this order is part of the scene."""
+    c0, c1, c2, c3 = (np.asarray(c, np.float64) for c in corners)
+    for i, j in sorted(((i, j) for i in range(n) for j in range(n)),
+                       key=lambda ij: _morton2(*ij)):
+        u0, u1 = i / n, (i + 1) / n
+        v0, v1 = j / n, (j + 1) / n
+
+        def lerp(u, v):
+            top = c0 + (c1 - c0) * u
+            bot = c3 + (c2 - c3) * u
+            return (top + (bot - top) * v).astype(_F)
+
+        p00, p10, p11, p01 = lerp(u0, v0), lerp(u1, v0), lerp(u1, v1), \
+            lerp(u0, v1)
+        b.add(p00, p10, p11, material)
+        b.add(p00, p11, p01, material)
+
+
+def icosphere(center, radius, subdiv: int = 2) -> np.ndarray:
+    """Triangle mesh of a sphere: an icosahedron subdivided ``subdiv`` times
+    (20 * 4^subdiv triangles), vertices projected onto the sphere, in float64
+    then rounded once to float32. Returns [T, 3, 3] float32 vertices: the
+    arbitrary triangle geometry the reference's driver BVH takes
+    (RTrace/computeShader.swift:45-97)."""
+    phi = (1.0 + math.sqrt(5.0)) / 2.0
+    v = np.array([
+        [-1, phi, 0], [1, phi, 0], [-1, -phi, 0], [1, -phi, 0],
+        [0, -1, phi], [0, 1, phi], [0, -1, -phi], [0, 1, -phi],
+        [phi, 0, -1], [phi, 0, 1], [-phi, 0, -1], [-phi, 0, 1],
+    ], np.float64)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    faces = [
+        (0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+        (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+        (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+        (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1),
+    ]
+    tris = [(v[a], v[b], v[c]) for a, b, c in faces]
+    for _ in range(subdiv):
+        nxt = []
+        for a, b, c in tris:
+            ab = (a + b) / 2.0
+            bc = (b + c) / 2.0
+            ca = (c + a) / 2.0
+            ab /= np.linalg.norm(ab)
+            bc /= np.linalg.norm(bc)
+            ca /= np.linalg.norm(ca)
+            nxt += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        tris = nxt
+    out = np.asarray(tris, np.float64) * radius + np.asarray(center,
+                                                             np.float64)
+    return out.astype(_F)
+
+
+def cornell_box_tessellated(
+    resolution: Tuple[int, int] = (512, 512),
+    wall_subdiv: int = 6,
+    sphere_subdiv: int = 2,
+    room_size: float = 5.0,
+) -> Scene:
+    """High-triangle-count Cornell scene for the grouped tier of the trace
+    and backward kernels: the 5 walls tessellated into ``2 * wall_subdiv^2``
+    triangles each, two icosphere meshes (20 * 4^sphere_subdiv triangles
+    each) where the analytic spheres of ``cornell_box_with_spheres`` sit, and
+    the 2-triangle ceiling light panel. The defaults give 5 * 72 + 2 * 320 +
+    2 = 1,002 triangles; ``wall_subdiv=16, sphere_subdiv=4`` gives 12,802.
+    Same camera, light and materials as the sphere scene."""
+    half = room_size / 2.0
+    light_y = half - 0.01
+    b = _TriBuilder()
+    h = half
+    # Walls as quads, corner order matching the flat walls' outward normals:
+    # back, left, right, floor, ceiling (materials of cornell_box_triangles).
+    _tessellate_quad(b, [(-h, -h, -h), (h, -h, -h), (h, h, -h), (-h, h, -h)],
+                     wall_subdiv, WHITE)                      # back (z=-h)
+    _tessellate_quad(b, [(-h, -h, h), (-h, -h, -h), (-h, h, -h), (-h, h, h)],
+                     wall_subdiv, RED)                        # left (x=-h)
+    _tessellate_quad(b, [(h, -h, -h), (h, -h, h), (h, h, h), (h, h, -h)],
+                     wall_subdiv, GREEN)                      # right (x=+h)
+    _tessellate_quad(b, [(-h, -h, h), (h, -h, h), (h, -h, -h), (-h, -h, -h)],
+                     wall_subdiv, WHITE)                      # floor (y=-h)
+    _tessellate_quad(b, [(-h, h, -h), (h, h, -h), (h, h, h), (-h, h, h)],
+                     wall_subdiv, WHITE)                      # ceiling (y=+h)
+
+    for center, radius, mat in [
+        ((-1.0, -1.6, -1.0), 0.9,
+         dict(diffuse=(0.9, 0.9, 0.9), metallic=0.05, roughness=0.3)),
+        ((1.0, -1.7, 0.8), 0.8,
+         dict(diffuse=(0.25, 0.25, 0.75), metallic=0.3, roughness=0.6)),
+    ]:
+        for tri in icosphere(center, radius, sphere_subdiv):
+            b.add(tri[0], tri[1], tri[2], mat)
+
+    lw = ld = 1.0
+    hw, hd = lw / 2, ld / 2
+    b.add((-hw, light_y, -hd), (hw, light_y, -hd), (hw, light_y, hd),
+          LIGHT_MATERIAL)
+    b.add((-hw, light_y, -hd), (hw, light_y, hd), (-hw, light_y, hd),
+          LIGHT_MATERIAL)
+
+    return Scene(
+        camera=make_camera(resolution=resolution),
+        light=make_square_light(center=(0.0, light_y, 0.0), width=lw,
+                                depth=ld),
+        triangles=b.build(),
+        spheres=empty_spheres(),
+        sphere_lights=empty_sphere_lights(),
+        box_lights=empty_box_lights(),
+    )

@@ -275,6 +275,9 @@ def test_draws_of_the_wrong_shape_raise():
 
 
 def test_more_than_64_triangles_raises():
+    """The 72-triangle doubled box takes the grouped tier: its plain
+    version's records and image equal the brute-force plain version's.
+    (The name dates from when the port refused more than 64 triangles.)"""
     scene = cornell_box(resolution=(32, 16))
     tri = scene.triangles
     doubled = dataclasses.replace(tri, **{
@@ -282,8 +285,16 @@ def test_more_than_64_triangles_raises():
         for f in dataclasses.fields(tri)})
     big = dataclasses.replace(scene, triangles=doubled)
     assert big.triangles.num_triangles == 72
-    with pytest.raises(NotImplementedError, match="grouped tier"):
-        cuda_path.render_path_cuda(big, _cfg(), device="cpu")
+    cfg = _cfg(spp=2)
+    hdr = cuda_path.render_path_cuda(big, cfg, device="cpu")
+    hdr_g, aux_g = cuda_path.render_path_cuda_impl(
+        big, cfg, emit_records=True, device="cpu")
+    hdr_b, aux_b = cuda_path.render_path_cuda_impl(
+        big, cfg, emit_records=True, grouped=False, device="cpu")
+    assert torch.equal(aux_g.records, aux_b.records)
+    assert torch.equal(hdr, hdr_b) and torch.equal(hdr_g, hdr_b)
+    # The copies lie on the originals: a triangle's twin never wins.
+    assert int((aux_b.records % cuda_path.OCC_BIT).max()) <= 36
 
 
 def test_requires_grad_raises():
@@ -327,7 +338,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         cuda_path.path_trace_kernel(
             off, 0, packed, cuda_path.shadow_indices(None, 36, "cpu"), None,
             cfg, False)
-    assert cuda_path.LAUNCHES == {"draws_kernel": 0, "path_kernel": 0}
+    grouped = cuda_path._pack_inputs(scene, cfg, grouped=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_path.path_trace_kernel(
+            off, 0, grouped, cuda_path.shadow_indices(None, 36, "cpu"), None,
+            cfg, False)
+    assert cuda_path.LAUNCHES == {"draws_kernel": 0, "path_kernel": 0,
+                                  "path_kernel_grouped": 0}
 
 
 def test_default_device_raises_without_a_card():

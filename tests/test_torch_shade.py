@@ -375,10 +375,13 @@ def test_backward_kernel_wrapper_refuses_cpu_tensors():
     scene = cornell_box(resolution=(32, 16))
     cfg = RenderConfig(width=32, height=16, spp=1, bounces=2, pixel_chunk=512)
     aux, views = _views(scene, cfg)
-    with pytest.raises(ValueError, match="CUDA"):
-        cuda_shade.shade_bwd_kernel(torch.zeros((3, 512)), aux.records,
-                                    tuple(aux[1:]), None, *views, cfg)
-    assert cuda_shade.LAUNCHES == {"shade_bwd_kernel": 0}
+    for grouped in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            cuda_shade.shade_bwd_kernel(torch.zeros((3, 512)), aux.records,
+                                        tuple(aux[1:]), None, *views, cfg,
+                                        grouped=grouped)
+    assert cuda_shade.LAUNCHES == {"shade_bwd_kernel": 0,
+                                   "shade_bwd_grouped_kernel": 0}
 
 
 def test_backward_checks_its_inputs():
@@ -404,12 +407,32 @@ def test_bare_trace_refuses_a_scene_that_asks_for_gradients():
 
 
 def test_more_than_64_triangles_with_gradients_raises():
+    """The 72-triangle doubled box, which asks for gradients, now takes the
+    grouped tier (the trace's grouped sweep and the grouped backward's plain
+    version): its image and its gradients equal those of the brute-force
+    tier forced onto the same scene. (The name dates from when the port
+    refused more than 64 triangles.)"""
     scene = cornell_box(resolution=(32, 16))
     tri = scene.triangles
     doubled = dataclasses.replace(tri, **{
         f.name: torch.cat([getattr(tri, f.name)] * 2)
         for f in dataclasses.fields(tri)})
-    big = with_grad(dataclasses.replace(scene, triangles=doubled))
+    big = dataclasses.replace(scene, triangles=doubled)
+    assert big.triangles.num_triangles == 72
     cfg = RenderConfig(width=32, height=16, spp=1, bounces=2, pixel_chunk=512)
-    with pytest.raises(NotImplementedError, match="grouped tier"):
-        decoupled.render_path_decoupled(big, cfg, device="cpu")
+    got = with_grad(big)
+    hdr = decoupled.render_path_decoupled(got, cfg, device="cpu")
+    hdr.mean().backward()
+    # Brute force: the static tier's trace and the autograd replay of its
+    # records, on the same scene.
+    brute, aux = cuda_path.render_path_cuda_impl(
+        big, cfg, emit_records=True, grouped=False, device="cpu")
+    assert torch.equal(hdr.detach(), brute)
+    ref = with_grad(big)
+    decoupled.shade_replay(ref, aux, cfg).mean().backward()
+    got, ref = convert.grads_to_numpy(got), convert.grads_to_numpy(ref)
+    for group in BOX_GROUPS:
+        part, field = group.split(".")
+        assert np.abs(ref[part][field]).max() > 0.0, group
+        np.testing.assert_allclose(got[part][field], ref[part][field],
+                                   **GRAD_TOL, err_msg=group)
