@@ -2,15 +2,16 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --count-drift
 
 Builds the CUDA kernels from the sources in this checkout, holds each against
 its plain PyTorch version on the card, renders six frames through the
 command-line entry point (three with the path tracer, three with the MIS
 integrator) and trains through the library entry points (the main paths:
 the path tracer's and the MIS integrator's gradients, the silhouette path's
-sphere-center recovery, and the path tracer's gradients on tessellated scenes
-of 1,002 and 12,802 triangles through the grouped tier), times the kernels,
-and prints
+sphere-center recovery, and the gradients of both integrators on tessellated
+scenes of 1,002 and 12,802 triangles through the grouped tiers), times the
+kernels, and prints
 
   * a ``kernels`` JSON line (time, bound, plain-version time, launches on the
     main path, largest difference from the plain version, per kernel),
@@ -19,6 +20,11 @@ and prints
 
 It needs a card: without one it exits non-zero and prints no result. Every
 failed check raises, so a run that ends in the ``ok`` line passed them all.
+
+``--count-drift`` runs only a measurement for the grouped MIS kernel's
+bound: how far the plain grouped sweep's box and triangle tests per sample
+move between the sample count the ``full`` phase counts them at and the 300
+samples it scales them to (``count_drift``).
 
 Phases
   build   nvcc builds ops/csrc/path_kernels.cu, shade_kernels.cu,
@@ -117,10 +123,40 @@ Phases
           trace and one grouped backward launch each, counted; two more
           under ``torch.profiler``; the shadow table's size after the cull
           and the peak device memory.
-  full    the kernels at the shapes of A to L against their plain versions
+  mis_grouped
+          the MIS grouped tier at 128 x 96 x 2 camera rays x 12 samples on
+          the tessellated walls (252 triangles) with and without the two
+          analytic spheres, cull on and off: the grouped MIS kernel with
+          records on and off against its plain version (the same sweep in
+          PyTorch), both against the brute-force plain version (the same
+          winners on every lane, the probe bits where they feed the image,
+          the image within atol 5e-8 / rtol 1e-6), two launches bit-equal;
+          the grouped MIS backward against its plain version, two launches
+          bit-equal; both forced onto the box and sphere scenes (images and
+          records bit-equal to the static MIS kernel's on every lane, the
+          backward within the static one's limits of it); both at 1,282
+          triangles on a 32 x 24 frame, whose records hold primitive codes
+          above 10 bits.
+  M, N    benchmarks/bench_grouped.py --mis: the tessellated box at 512 x 512
+          x 6 camera rays x 300 samples, M 1,002 triangles (and the same
+          scene with the two analytic spheres), N 12,802
+          (BASELINE.md:139). ``render_mis_cuda_impl`` in hdr mode and with
+          records + occluder cull, then gradients of
+          ``render_mis_decoupled(scene, occluders=...).mean()`` for every
+          float tensor (M four steps, N two), one grouped MIS kernel and one
+          grouped MIS backward launch each, counted; two more under
+          ``torch.profiler``; the seconds of the phase, the paths and their
+          rows are printed.
+  full    the kernels at the shapes of A to N against their plain versions
           (the MIS kernels' on the whole frame, records and all; the grouped
-          trace's on the whole frame at K, on every 128th pixel at L), and
-          their times.
+          trace's on the whole frame at K, on every 128th pixel at L; the
+          grouped MIS kernel's timed launch against the brute-force plain
+          version on every 127th pixel at M and every 509th at N, at the
+          full 6 x 300 — decisions and image as in mis_grouped — and
+          against the plain grouped sweep on the same pixels at 2 camera
+          rays x 30 samples, whose box and triangle counts
+          estimate its bound; the grouped MIS backward's on the whole
+          frame), and their times.
 
 Tolerances. Draws: bit-equal (the radical inverse spells out each rounding).
 Records: a share of at most 0.5 % of the decisions may differ — the kernel and
@@ -343,8 +379,8 @@ TESS_K = dict(wall_subdiv=6, sphere_subdiv=2)
 TESS_L = dict(wall_subdiv=16, sphere_subdiv=4)
 
 
-def tess_with_spheres(resolution):
-    tess = cornell_box_tessellated(resolution=resolution, **TESS_SMALL)
+def tess_with_spheres(resolution, tess_kw=TESS_SMALL):
+    tess = cornell_box_tessellated(resolution=resolution, **tess_kw)
     return dataclasses.replace(
         tess, spheres=cornell_box_with_spheres(resolution=resolution).spheres)
 
@@ -357,6 +393,7 @@ GROUPED_SCENES = {
     "tess-252+spheres": tess_with_spheres,
 }
 ALL_SCENES = dict(SCENES, **GROUPED_SCENES)
+MIS_ALL_SCENES = dict(MIS_SCENES, **GROUPED_SCENES)
 # Float32 operations of the grouped sweep, counted from trace.cuh like the
 # counts above: one padded-box slab test (six subtracts, six multiplies,
 # eleven min / max, the min with the far limit and the compare: 25); in the
@@ -370,6 +407,37 @@ OPS_SWEEP_RAY, OPS_SHADOW_RAY = 9, 2
 # of box and triangle tests there, scaled to the frame, give K2g's bound at L
 # (at K it runs on the whole frame).
 L_PIXEL_STRIDE = 128
+
+# The MIS grouped tier (K4g, K5g): benchmarks/bench_grouped.py --mis at
+# 512 x 512 x 6 x 300 on the tessellated box (path M: 1,002 triangles, with
+# and without the two analytic spheres; path N: 12,802), and a scene of
+# 1,282 triangles (wall_subdiv 8, sphere_subdiv 2) whose records hold
+# primitive codes above 10 bits, on a small frame. At M and N the timed K4g
+# launch (6 x 300, records + cull) is held on every ``stride``-th pixel
+# against the brute-force plain version at the same shape. The plain grouped
+# sweep is launch-bound (a Python loop over the groups): it runs on the same
+# pixels at fewer camera rays and samples, against K4g at that shape, and its
+# counts of box and triangle tests, scaled to the frame, estimate K4g's bound
+# (the rows' ``est_`` fields; ``--count-drift`` measures how far the counts
+# per sample move between the sample counts). The strides are prime, so that
+# the pixels spread over the frame's columns (a stride of 512 would take
+# column 0 only).
+K4G_REPLACES = "gpuraytracer_tpu/ops/pallas_mis.py:328"
+K5G_REPLACES = "gpuraytracer_tpu/ops/pallas_mis_bwd.py:1163"
+TESS_1282 = dict(wall_subdiv=8, sphere_subdiv=2)
+MIS_1282 = dict(width=32, height=24, camera_rays=2, mis_samples=12)
+MIS_GROUPED_CHECK = {"M": dict(stride=127, camera_rays=2, mis_samples=30),
+                     "N": dict(stride=509, camera_rays=2, mis_samples=30)}
+
+
+def mis_grouped_path_scenes(resolution):
+    """Paths M and N: label, scene name, scene."""
+    return (("M", "tess-1002", cornell_box_tessellated(resolution=resolution,
+                                                      **TESS_K)),
+            ("M", "tess-1002+spheres", tess_with_spheres(resolution, TESS_K)),
+            ("N", "tess-12802", cornell_box_tessellated(resolution=resolution,
+                                                       **TESS_L)))
+
 
 # The gradient groups that must be non-zero on the box scene.
 GRAD_GROUPS = ("light.color", "light.center", "light.normal",
@@ -819,15 +887,20 @@ def shade_bound(sh: ShadeInputs, regenerate: bool):
 # ---------------------------------------------------------------------------
 
 class MisInputs:
-    """What the MIS wrapper and its plain version take, on the card."""
+    """What the MIS wrapper and its plain version take, on the card.
+    ``grouped``: pack for the grouped tier (K4g and its plain sweep); the
+    occluder cull then lives in the shadow table."""
 
-    def __init__(self, scene_name: str, cfg: RenderConfig, cull: bool):
+    def __init__(self, scene_name: str, cfg: RenderConfig, cull: bool,
+                 grouped=False, scene=None):
         dev = torch.device("cuda")
         self.cfg = cfg
-        self.scene = MIS_SCENES[scene_name](resolution=cfg.resolution)
-        self.packed = cuda_mis._pack_inputs(self.scene.to(dev), cfg)
+        self.scene = (MIS_ALL_SCENES[scene_name](resolution=cfg.resolution)
+                      if scene is None else scene)
         self.num_tris = self.scene.triangles.num_triangles
         occ = potential_occluders(self.scene, cfg) if cull else None
+        self.packed = cuda_mis._pack_inputs(self.scene.to(dev), cfg, grouped,
+                                            occ)
         self.shadow_idx = cuda_path.shadow_indices(occ, self.num_tris, dev)
 
     def kernel(self, emit=False):
@@ -835,11 +908,31 @@ class MisInputs:
             self.cfg.num_pixels, 0, self.packed, self.shadow_idx, self.cfg,
             emit)
 
-    def plain(self, emit=False, pixel_chunk=None):
+    def plain(self, emit=False, pixel_chunk=None, pix=None, stats=None):
+        """The plain version on the whole frame, or on the pixels ``pix``
+        (ids, one chunk); ``stats`` takes the grouped sweep's counts."""
         cfg = (self.cfg if pixel_chunk is None
                else self.cfg.replace(pixel_chunk=pixel_chunk))
+        if pix is None:
+            return cuda_mis.render_mis_plain(
+                cfg.num_pixels, 0, self.packed, self.shadow_idx, cfg, emit,
+                stats)
         return cuda_mis.render_mis_plain(
-            cfg.num_pixels, 0, self.packed, self.shadow_idx, cfg, emit)
+            pix.numel(), pix, self.packed, self.shadow_idx,
+            cfg.replace(pixel_chunk=pix.numel()), emit, stats)
+
+    def brute(self, emit=False, pix=None):
+        """The brute-force plain version (every triangle tested) on the same
+        scene and cull, on the whole frame or on the pixels ``pix`` (ids, one
+        chunk)."""
+        packed = self.packed._replace(grouped=None)
+        if pix is None:
+            return cuda_mis.render_mis_plain(
+                self.cfg.num_pixels, 0, packed, self.shadow_idx, self.cfg,
+                emit)
+        return cuda_mis.render_mis_plain(
+            pix.numel(), pix, packed, self.shadow_idx,
+            self.cfg.replace(pixel_chunk=pix.numel()), emit)
 
 
 def mis_fields(rec: cuda_mis.MisRecords):
@@ -913,45 +1006,122 @@ def compare_mis(what, hdr_k, rec_k, hdr_p, rec_p, packed):
     return flip_share, max_err
 
 
-def mis_bound(inp: MisInputs, rec: cuda_mis.MisRecords, emit: bool):
-    """(bound_ms, bound_by, counts) of one MIS trace from the records of
-    this frame: the primitive tests its rays need — a closest hit tests
-    every primitive, a probe that reaches the light every occluder, a
-    blocked probe at least one — and the shading of its live samples,
-    against the bytes in and out. Only live lanes count, with records as
-    without: a lane whose primary ray missed or landed on the light still
-    writes records, but nothing reads them (``mis_live``), so the function
-    needs none of its traversals; ``emit`` adds the records' bytes alone."""
+def check_same_mis_decisions(what, rec_a, rec_b, packed):
+    """Two MIS record streams of one frame, traced by the two tiers (or by
+    a kernel and the plain version of the other tier), on the same cull:
+    the same winners on every lane (primary hit and both lobe rays), the
+    same probe bits wherever they feed the image (``mis_live``). Returns the
+    number of probe bits that differ on dead lanes (printed, not held: such
+    a probe starts from a point nothing reads)."""
+    check(torch.equal(rec_a.camera, rec_b.camera),
+          f"{what}: primary winners differ")
+    fa, fb = mis_fields(rec_a), mis_fields(rec_b)
+    for name in ("cos_prim", "vndf_prim"):
+        check(torch.equal(fa[name], fb[name]), f"{what}: {name} differs")
+    _, live = mis_live(rec_b, packed)
+    dead = 0
+    for name in ("reach1", "reach2", "reach3"):
+        differ = fa[name] != fb[name]
+        check(not bool((differ & live[name]).any()),
+              f"{what}: {name} differs where it feeds the image")
+        dead += int(differ.sum())
+    return dead
+
+
+def mis_work(inp: MisInputs, rec: cuda_mis.MisRecords):
+    """What one MIS frame's live lanes need, from its records: the closest
+    hits (primary rays, two lobe rays per live sample), the light probes
+    that reach the light and those that are blocked, and the operations of
+    the shading around them (OPS_MIS_*). Only live lanes count, with records
+    as without: a lane whose primary ray missed or landed on the light still
+    writes records, but nothing reads them (``mis_live``)."""
     cfg, n = inp.cfg, inp.cfg.num_pixels
-    t, s, n_shadow = inp.num_tris, inp.packed.num_spheres, len(inp.shadow_idx)
-    s_per = cfg.mis_samples // 3
-    closest = t * OPS_TRI_CLOSEST + s * OPS_SPH_CLOSEST
-    probe = n_shadow * OPS_TRI_SHADOW + s * OPS_SPH_SHADOW
     rays = cfg.camera_rays * n
     f = mis_fields(rec)
     surf, live = mis_live(rec, inp.packed)
-    samples = int(surf.sum()) * s_per
-    ops = rays * (closest + OPS_MIS_CAMERA)
-    ops += samples * (2 * closest + OPS_MIS_SAMPLE)
-    probes = dict(reached=0, blocked=0)
+    samples = int(surf.sum()) * (cfg.mis_samples // 3)
+    work = dict(rays=rays, live_samples=samples, probes_reached=0,
+                probes_blocked=0,
+                shading_ops=rays * OPS_MIS_CAMERA + samples * OPS_MIS_SAMPLE)
     for name in ("reach1", "reach2", "reach3"):
         where = live[name].expand_as(f[name])
         reached = int((f[name] & where).sum())
         blocked = int(where.sum()) - reached
-        probes["reached"] += reached
-        probes["blocked"] += blocked
-        ops += reached * probe + blocked * OPS_TRI_SHADOW
+        work["probes_reached"] += reached
+        work["probes_blocked"] += blocked
         if name != "reach1":
-            ops += (reached * OPS_MIS_SECONDARY
-                    + blocked * OPS_MIS_SECONDARY_BLOCKED)
+            work["shading_ops"] += (reached * OPS_MIS_SECONDARY
+                                    + blocked * OPS_MIS_SECONDARY_BLOCKED)
+    return work
+
+
+def mis_bound(inp: MisInputs, rec: cuda_mis.MisRecords, emit: bool):
+    """(bound_ms, bound_by, counts) of one MIS trace from the records of
+    this frame: the primitive tests its live rays need — a closest hit tests
+    every primitive, a probe that reaches the light every occluder, a
+    blocked probe at least one — and the shading of its live samples
+    (``mis_work``), against the bytes in and out; ``emit`` adds the records'
+    bytes alone."""
+    cfg, n = inp.cfg, inp.cfg.num_pixels
+    t, s, n_shadow = inp.num_tris, inp.packed.num_spheres, len(inp.shadow_idx)
+    w = mis_work(inp, rec)
+    ops = ((w["rays"] + 2 * w["live_samples"])
+           * (t * OPS_TRI_CLOSEST + s * OPS_SPH_CLOSEST)
+           + w["probes_reached"] * (n_shadow * OPS_TRI_SHADOW
+                                    + s * OPS_SPH_SHADOW)
+           + w["probes_blocked"] * OPS_TRI_SHADOW + w["shading_ops"])
     tables = 4 * sum(x.numel() for x in inp.packed[:6]) + 4 * n_shadow
     nbytes = 12 * n + tables
     if emit:
-        nbytes += 4 * rays * (1 + s_per)
+        nbytes += 4 * w["rays"] * (1 + cfg.mis_samples // 3)
     bound, by = roofline(nbytes, ops)
-    counts = dict(live_samples=samples, probes_reached=probes["reached"],
-                  probes_blocked=probes["blocked"],
-                  traversals=rays + 2 * samples + sum(probes.values()))
+    counts = dict(live_samples=w["live_samples"],
+                  probes_reached=w["probes_reached"],
+                  probes_blocked=w["probes_blocked"],
+                  traversals=w["rays"] + 2 * w["live_samples"]
+                  + w["probes_reached"] + w["probes_blocked"])
+    return bound, by, counts
+
+
+def mis_grouped_bound(inp: MisInputs, rec: cuda_mis.MisRecords, stats,
+                      scale_rays, scale_samples, emit: bool):
+    """(bound_ms, bound_by, counts) of one K4g trace: the box and triangle
+    tests on live lanes that the plain sweep counted on a sample of the
+    frame at fewer camera rays and samples (``stats`` of
+    ``render_mis_plain``: its primary rays times ``scale_rays``, its lobe
+    rays and light probes times ``scale_samples``), estimates and so named
+    ``est_``; the sphere tests and the shading of this frame's live lanes
+    (``mis_work``), counted; against the bytes in and out. The operations
+    per test are K2g's (OPS_BOX_*, OPS_SWEEP_RAY, OPS_SHADOW_RAY,
+    OPS_TRI_*)."""
+    cfg, n, s = inp.cfg, inp.cfg.num_pixels, inp.packed.num_spheres
+    scale = dict(camera=scale_rays, closest=scale_samples,
+                 shadow=scale_samples)
+    est = {f"{loop}_{k}": int(scale[loop] * stats[loop].get(k, 0))
+           for loop in scale for k in ("rays", "boxes", "triangles")}
+    w = mis_work(inp, rec)
+    ops = ((est["camera_boxes"] + est["closest_boxes"]) * OPS_BOX_CLOSEST
+           + est["shadow_boxes"] * OPS_BOX_SHADOW
+           + (est["camera_rays"] + est["closest_rays"] + est["shadow_rays"])
+           * OPS_SWEEP_RAY
+           + est["shadow_rays"] * OPS_SHADOW_RAY
+           + (est["camera_triangles"] + est["closest_triangles"])
+           * OPS_TRI_CLOSEST
+           + est["shadow_triangles"] * OPS_TRI_SHADOW
+           + (w["rays"] + 2 * w["live_samples"]) * s * OPS_SPH_CLOSEST
+           + w["probes_reached"] * s * OPS_SPH_SHADOW + w["shading_ops"])
+    grp = inp.packed.grouped
+    tables = (sum(t.numel() for t in grp[:6]) + inp.packed.atab.numel()
+              + inp.packed.sph.numel() + inp.packed.tabs.numel()
+              + cuda_mis.NLIGHT + 12)
+    nbytes = 12 * n + 4 * tables
+    if emit:
+        nbytes += 4 * w["rays"] * (1 + cfg.mis_samples // 3)
+    bound, by = roofline(nbytes, int(ops))
+    counts = {f"est_{k}": v for k, v in est.items()}
+    counts.update(live_samples=w["live_samples"],
+                  probes_reached=w["probes_reached"],
+                  probes_blocked=w["probes_blocked"], est_operations=int(ops))
     return bound, by, counts
 
 
@@ -965,9 +1135,12 @@ class MisBwdInputs:
     culled, as the differentiable path traces), the parameter views, the
     sample table and a cotangent from a seeded generator."""
 
-    def __init__(self, scene_name: str, cfg: RenderConfig):
+    def __init__(self, scene_name: str, cfg: RenderConfig, grouped=False,
+                 scene=None):
         self.cfg = cfg
-        self.trace = MisInputs(scene_name, cfg, cull=True)
+        self.grouped = grouped
+        self.trace = MisInputs(scene_name, cfg, cull=True, grouped=grouped,
+                               scene=scene)
         _, self.records = self.trace.kernel(emit=True)
         views = cuda_mis_bwd._pack_diff_inputs_mis(
             self.trace.scene.to("cuda"), cfg)
@@ -981,8 +1154,12 @@ class MisBwdInputs:
         return (self.g, self.records, self.table, self.cam, self.light, stab,
                 self.cfg)
 
-    def kernel(self):
-        return cuda_mis_bwd.mis_bwd_kernel(*self._args(self.stab))
+    def kernel(self, grouped=None):
+        """K5, or K5g where the inputs were traced by K4g (``grouped``
+        forces a tier)."""
+        return cuda_mis_bwd.mis_bwd_kernel(
+            *self._args(self.stab),
+            grouped=self.grouped if grouped is None else grouped)
 
     def plain(self, nudge=False, whole_frame=False):
         """The plain version; with ``nudge`` on a sample table whose cosine
@@ -1111,12 +1288,12 @@ def ptxas_resources(log_text: str):
             for kernel in ("silh_kernel", "soft_bwd_kernel"):
                 if kernel in mangled:
                     name = kernel
-            m = re.search(r"mis_kernelILb(\d)E", mangled)
+            m = re.search(r"mis_kernelILb(\d)ELb(\d)E", mangled)
             if m:
-                name = f"mis_kernel<EMIT={m.group(1)}>"
-            m = re.search(r"mis_bwd_kernelILb(\d)E", mangled)
+                name = f"mis_kernel<EMIT={m.group(1)}, GROUPED={m.group(2)}>"
+            m = re.search(r"mis_bwd(_grouped)?_kernelILb(\d)E", mangled)
             if m:
-                name = f"mis_bwd_kernel<SPH={m.group(1)}>"
+                name = f"mis_bwd{m.group(1) or ''}_kernel<SPH={m.group(2)}>"
             m = re.search(r"path_kernelILb(\d)ELb(\d)ELb(\d)E", mangled)
             if m:
                 name = (f"path_kernel<EMIT={m.group(1)}, "
@@ -1163,18 +1340,23 @@ def phase_build():
         log(f"  ptxas: {name}: {res['registers']} registers, "
             f"{res['stack_bytes']} B stack, {res['spill_store_bytes']} B "
             f"spill stores, {res['spill_load_bytes']} B spill loads")
-    check(len(resources) == 24, "ptxas did not report the draws kernel, the "
+    check(len(resources) == 28, "ptxas did not report the draws kernel, the "
           "six trace-kernel instantiations (static and grouped), the eight "
           "backward-kernel instantiations (static and grouped), the three "
-          "reductions, the two MIS-kernel and the two MIS-backward "
-          "instantiations, the silhouette record kernel and its backward: "
-          f"{resources}\n{logs}")
-    smi = subprocess.run(
+          "reductions, the four MIS-kernel and the four MIS-backward "
+          "instantiations (static and grouped), the silhouette record kernel "
+          f"and its backward: {resources}\n{logs}")
+    smi = card_name_and_limit()
+    log(f"  card: {smi}")
+    return resources, smi
+
+
+def card_name_and_limit() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(f"  card: {smi}")
-    return resources, smi
 
 
 def check_glue(tag, sh: ShadeInputs):
@@ -2801,6 +2983,384 @@ def grouped_rows(launches, resources):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The MIS grouped tier: K4g and K5g
+# ---------------------------------------------------------------------------
+
+def phase_mis_grouped():
+    """K4g and K5g against their plain versions at the small MIS size on the
+    252-triangle walls, with and without the two analytic spheres, cull on
+    and off; both forced onto the box and sphere scenes against K4 and K5;
+    and K4g and K5g at 1,282 triangles, whose records hold primitive codes
+    above 10 bits."""
+    cfg = RenderConfig(integrator="mis", **MIS_SMALL)
+    log(f"== mis_grouped: K4g and K5g against their plain versions, "
+        f"{cfg.width} x {cfg.height} x {cfg.camera_rays} camera rays x "
+        f"{cfg.mis_samples} samples")
+    start = time.perf_counter()
+    errs = {}
+    for scene_name in ("tess-252", "tess-252+spheres"):
+        for cull in (True, False):
+            tag = f"{scene_name}/{'cull' if cull else 'no cull'}"
+            inp = MisInputs(scene_name, cfg, cull, grouped=True)
+            hdr_h, none = inp.kernel()
+            hdr_e, rec_e = inp.kernel(emit=True)
+            hdr_2, rec_2 = inp.kernel(emit=True)
+            torch.cuda.synchronize()
+            check(none is None, "hdr mode returned records")
+            check(torch.equal(hdr_h, hdr_e), f"K4g {tag}: the image with "
+                  "records on is not bit-equal to the image with records off")
+            check(torch.equal(hdr_e, hdr_2)
+                  and torch.equal(rec_e.camera, rec_2.camera)
+                  and torch.equal(rec_e.samples, rec_2.samples),
+                  f"K4g {tag}: two launches on the same inputs differ")
+            hdr_p, rec_p = inp.plain(emit=True)
+            errs[f"K4g {tag}"] = compare_mis(f"K4g {tag}", hdr_e, rec_e, hdr_p,
+                                             rec_p, inp.packed)[1]
+            hdr_b, rec_b = inp.brute(emit=True)
+            dead_p = check_same_mis_decisions(
+                f"plain sweep {tag} vs brute force", rec_p, rec_b, inp.packed)
+            dead_k = check_same_mis_decisions(
+                f"K4g {tag} vs brute force", rec_e, rec_b, inp.packed)
+            for what, hdr in (("plain sweep", hdr_p), ("K4g", hdr_e)):
+                check(bool(((hdr - hdr_b).abs()
+                            <= 5e-8 + 1e-6 * hdr_b.abs()).all()),
+                      f"{what} {tag}: image differs from the brute force "
+                      "beyond atol 5e-8 / rtol 1e-6")
+            log(f"  K4g {tag}: plain sweep and kernel make the brute force's "
+                f"decisions (probe bits on dead lanes that differ: {dead_p}, "
+                f"{dead_k}); max |K4g - brute force| "
+                f"{(hdr_e - hdr_b).abs().max().item():.3e}")
+            if not cull:
+                continue
+            bw = MisBwdInputs(scene_name, cfg, grouped=True)
+            got, again = bw.kernel(), bw.kernel()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"K5g {tag}: two launches on the same inputs differ")
+            errs[f"K5g {tag}"] = compare_k5(f"K5g {tag}", got, bw.plain(),
+                                            bw.plain(nudge=True))
+
+    # Forced onto the static tier's scenes: K4g's images and records are
+    # K4's on every lane; K5g lies within K5's limits of K5.
+    for scene_name in SCENES:
+        st = MisInputs(scene_name, cfg, cull=True)
+        gr = MisInputs(scene_name, cfg, cull=True, grouped=True)
+        for emit in (False, True):
+            h_s, r_s = st.kernel(emit)
+            h_g, r_g = gr.kernel(emit)
+            torch.cuda.synchronize()
+            same = torch.equal(h_s, h_g) and (
+                not emit or (torch.equal(r_s.camera, r_g.camera)
+                             and torch.equal(r_s.samples, r_g.samples)))
+            check(same, f"K4g forced onto {scene_name} (records {emit}): not "
+                  "bit-equal to K4")
+        log(f"  K4g forced onto {scene_name}: images and records bit-equal to "
+            "K4's on every lane, records on and off")
+        bw = MisBwdInputs(scene_name, cfg)
+        k5, k5g, k5g_again = (bw.kernel(), bw.kernel(grouped=True),
+                              bw.kernel(grouped=True))
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(k5g, k5g_again)),
+              f"K5g forced onto {scene_name}: two launches differ")
+        ref, nudged = bw.plain(), bw.plain(nudge=True)
+        shifted = tuple(a + (b - c) for a, b, c in zip(k5, nudged, ref))
+        errs[f"K5g forced onto {scene_name}"] = compare_k5(
+            f"K5g forced onto {scene_name} vs K5", k5g, k5, shifted)
+
+    # 1,282 triangles: primitive codes above 10 bits in the records.
+    cfg = RenderConfig(integrator="mis", **MIS_1282)
+    scene = cornell_box_tessellated(resolution=cfg.resolution, **TESS_1282)
+    inp = MisInputs(None, cfg, cull=True, grouped=True, scene=scene)
+    hdr_k, rec_k = inp.kernel(emit=True)
+    hdr_p, rec_p = inp.plain(emit=True)
+    tag = f"K4g {inp.num_tris} triangles, {cfg.width} x {cfg.height}"
+    errs[tag] = compare_mis(tag, hdr_k, rec_k, hdr_p, rec_p, inp.packed)[1]
+    check_same_mis_decisions(f"{tag} vs brute force", rec_k,
+                             inp.brute(emit=True)[1], inp.packed)
+    f = mis_fields(rec_k)
+    top = max(int(rec_k.camera.max()), int(f["cos_prim"].max()),
+              int(f["vndf_prim"].max()))
+    check(1023 < top <= inp.num_tris, f"{tag}: largest primitive code {top}")
+    bw = MisBwdInputs(None, cfg, grouped=True, scene=scene)
+    errs[f"K5g {inp.num_tris} triangles"] = compare_k5(
+        f"K5g {inp.num_tris} triangles", bw.kernel(), bw.plain(),
+        bw.plain(nudge=True))
+    seconds = time.perf_counter() - start
+    log(f"  {tag}: records hold primitive codes up to {top}; phase "
+        f"mis_grouped took {seconds:.1f} s")
+    return errs, seconds
+
+
+def phase_mis_grouped_path(label, scene_name, scene, steps):
+    """Paths M and N: the tessellated box at 512 x 512 x 6 camera rays x 300
+    samples (benchmarks/bench_grouped.py --mis). Forward through
+    ``render_mis_cuda_impl`` in hdr mode and with records + occluder cull;
+    then gradients of ``render_mis_decoupled(scene, occluders=...).mean()``
+    for every float tensor, ``steps`` steps with one K4g and one K5g launch
+    each, counted; two more under the profiler."""
+    cfg = RenderConfig(integrator="mis", **MIS_BENCH)
+    n_tris = scene.triangles.num_triangles
+    log(f"== {label}: {scene_name}, {n_tris} triangles, "
+        f"{scene.spheres.num_spheres} spheres, {cfg.width}x{cfg.height} x "
+        f"{cfg.camera_rays} x {cfg.mis_samples}")
+    started = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    occluders = potential_occluders(scene, cfg)
+    occ_s = time.perf_counter() - start
+    reset_launches()
+    hdr = cuda_mis.render_mis_cuda_impl(scene, cfg)
+    hdr_r, _ = cuda_mis.render_mis_cuda_impl(scene, cfg, emit_records=True,
+                                             occluders=occluders)
+    torch.cuda.synchronize()
+    fwd_launches = read_launches()
+    check(fwd_launches == launches_of(mis_kernel_grouped=2),
+          f"path {label}: forward launches {fwd_launches}")
+    check(hdr.shape == (cfg.height, cfg.width, 3)
+          and bool(torch.isfinite(hdr).all()), f"path {label}: image")
+    gap = (hdr - hdr_r).abs().max().item()
+    check(bool(((hdr - hdr_r).abs() <= 5e-8 + 1e-6 * hdr.abs()).all()),
+          f"path {label}: records + cull change the image by {gap:.3e}")
+    mean = hdr.mean(dim=(0, 1)).tolist()
+    check(all(v > 0.0 for v in mean), f"path {label}: a black image {mean}")
+    del hdr_r
+
+    leaves = with_grad(scene)
+
+    def one_step():
+        out = cuda_mis_bwd.render_mis_decoupled(leaves, cfg,
+                                                occluders=occluders)
+        return out, scene_grads(leaves, out)
+
+    step_ms, grads = [], {}
+    for step in range(steps):
+        before = read_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out, grads = one_step()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - start))
+        after = read_launches()
+        per_step = {k: after[k] - before[k] for k in after}
+        check(per_step == launches_of(mis_kernel_grouped=1,
+                                      mis_bwd_grouped_kernel=1),
+              f"path {label} step {step}: launches {per_step}, expected one "
+              "K4g and one K5g")
+    launches = read_launches()
+    check(bool(torch.isfinite(out).all()), f"path {label}: image")
+    for name, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"path {label}: d {name} not "
+              "finite")
+    wanted = ["light.emitted_radiance", "light.center", "triangles.verts",
+              "triangles.roughness", "camera.position"]
+    if scene.spheres.num_spheres:
+        wanted.append("spheres.center")
+    for name in wanted:
+        check(name in grads and grads[name].abs().max().item() > 0.0,
+              f"path {label}: gradient of {name} is missing or all zero")
+    wall_ms, busy_ms, top = device_busy(lambda: [one_step()
+                                                 for _ in range(2)])
+    share = f"{busy_ms / wall_ms:.1%}" if busy_ms else "not measured"
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    seconds = time.perf_counter() - started
+    log(f"  path {label} {scene_name}: occluder cull keeps {sum(occluders)} "
+        f"of {n_tris} triangles ({occ_s:.2f} s on the host); image mean "
+        f"{[round(v, 4) for v in mean]}, records + cull vs hdr mode max "
+        f"{gap:.3e}; step times " + ", ".join(f"{t:.1f}" for t in step_ms)
+        + " ms (host clock, the first with warm-up); under the profiler "
+        f"{wall_ms / 2:.1f} ms per step of which the card is busy "
+        f"{busy_ms / 2:.1f} ms ({share}); most device time: "
+        + ", ".join(f"{name} {ms / 2:.3f} ms" for name, ms in top)
+        + f"; launches {launches}; peak device memory {peak:.2f} GiB; "
+        f"{seconds:.1f} s")
+    return launches, dict(
+        triangles=n_tris, spheres=scene.spheres.num_spheres,
+        shadow_triangles=sum(occluders), occluders_s=occ_s, steps_ms=step_ms,
+        profiled_ms=wall_ms / 2, device_busy_ms=busy_ms / 2, peak_gib=peak,
+        seconds=seconds)
+
+
+def mis_grouped_rows(launches, resources):
+    """K4g and K5g at the shapes of paths M and N, as those paths launch
+    them (K4g with records and the occluder cull): K4g against the
+    brute-force plain version on every ``stride``-th pixel at the full
+    shape, and against the plain grouped sweep on the same pixels at fewer
+    camera rays and samples (MIS_GROUPED_CHECK); K5g against
+    ``mis_bwd_plain`` on the whole frame; their times and bounds."""
+    log("== full: K4g and K5g at the shapes of paths M and N")
+    started = time.perf_counter()
+    rows = []
+    cfg = RenderConfig(integrator="mis", **MIS_BENCH)
+    n = cfg.num_pixels
+    for label, scene_name, scene in mis_grouped_path_scenes(cfg.resolution):
+        key = f"{label} {scene_name}"
+        chk = MIS_GROUPED_CHECK[label]
+        inp = MisInputs(None, cfg, cull=True, grouped=True, scene=scene)
+        sph = int(inp.packed.num_spheres > 0)
+        shape = (f"{label}: {cfg.width}x{cfg.height} x {cfg.camera_rays} x "
+                 f"{cfg.mis_samples}, {inp.num_tris} triangles "
+                 f"({inp.packed.grouped.num_shadow} in the shadow table), "
+                 f"{inp.packed.num_spheres} spheres")
+        hdr, rec = inp.kernel(emit=True)
+        k_ms = time_ms(lambda: inp.kernel(emit=True), repeats=3)
+        h_ms = time_ms(lambda: inp.kernel(), repeats=3)
+        # The timed launch against the brute-force plain version at the same
+        # shape, on a sample of the frame.
+        pix = torch.arange(0, n, chk["stride"], device="cuda")
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        hdr_b, rec_b = inp.brute(emit=True, pix=pix)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - start)
+        plain_shape = (f"brute force on every {chk['stride']}th pixel "
+                       f"({pix.numel()}) x {cfg.camera_rays} x "
+                       f"{cfg.mis_samples}")
+        dead = check_same_mis_decisions(
+            f"K4g at {key} vs brute force, {plain_shape}",
+            cuda_mis.MisRecords(rec.camera[:, pix], rec.samples[..., pix]),
+            rec_b, inp.packed)
+        gap = (hdr[:, pix] - hdr_b).abs()
+        err = gap.max().item()
+        check(bool((gap <= 5e-8 + 1e-6 * hdr_b.abs()).all()),
+              f"K4g at {key}: image differs from the brute force beyond "
+              f"atol 5e-8 / rtol 1e-6 (max {err:.3e})")
+        log(f"  K4g at {key}: the brute force's decisions on {plain_shape} "
+            f"(probe bits on dead lanes that differ: {dead}); max |K4g - "
+            f"brute force| {err:.3e}; brute force {plain_ms:.0f} ms")
+        del hdr, hdr_b, rec_b, gap
+        # The plain grouped sweep on the same pixels at fewer camera rays and
+        # samples, against K4g on that configuration; its counts estimate
+        # the bound's box and triangle tests.
+        small = cfg.replace(camera_rays=chk["camera_rays"],
+                            mis_samples=chk["mis_samples"])
+        sub = MisInputs(None, small, cull=True, grouped=True, scene=scene)
+        hdr_k, rec_k = sub.kernel(emit=True)
+        stats = {}
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        hdr_p, rec_p = sub.plain(emit=True, pix=pix, stats=stats)
+        torch.cuda.synchronize()
+        sweep_ms = 1e3 * (time.perf_counter() - start)
+        sweep_shape = (f"grouped sweep on every {chk['stride']}th pixel x "
+                       f"{small.camera_rays} x {small.mis_samples}")
+        flips, sweep_err = compare_mis(
+            f"K4g at {key} ({pix.numel()} pixels x {small.camera_rays} x "
+            f"{small.mis_samples})", hdr_k[:, pix],
+            cuda_mis.MisRecords(rec_k.camera[:, pix], rec_k.samples[..., pix]),
+            hdr_p, rec_p, sub.packed)
+        del hdr_k, rec_k, hdr_p, rec_p
+        check(stats["shadow"].get("rays", 0) > 0,
+              f"K4g at {key}: the sampled pixels hold no live sample")
+        scale_rays = n / pix.numel() * cfg.camera_rays / small.camera_rays
+        scale_samples = scale_rays * ((cfg.mis_samples // 3)
+                                      / (small.mis_samples // 3))
+        bound, by, counts = mis_grouped_bound(inp, rec, stats, scale_rays,
+                                              scale_samples, emit=True)
+        h_bound, h_by, _ = mis_grouped_bound(inp, rec, stats, scale_rays,
+                                             scale_samples, emit=False)
+        res = resources["mis_kernel<EMIT=1, GROUPED=1>"]
+        rows.append(dict(
+            name=f"mis_kernel[grouped, records, occluder cull, {scene_name}]",
+            route="cuda", source=MIS_SOURCE, replaces=K4G_REPLACES,
+            shape=shape, launches=launches[key]["mis_kernel_grouped"],
+            max_abs_err=err, dead_probe_bits=dead, ms=k_ms[1],
+            ms_min=k_ms[0], ms_max=k_ms[2], plain_ms=plain_ms,
+            plain_shape=plain_shape, sweep_ms=sweep_ms,
+            sweep_shape=sweep_shape, sweep_max_abs_err=sweep_err,
+            sweep_flip_share=flips, counts_from=sweep_shape
+            + ", scaled to the frame",
+            bound_ms=bound, bound_by=by, library_ms=None, hdr_ms=h_ms[1],
+            hdr_bound_ms=h_bound, hdr_bound_by=h_by,
+            mrays_per_s=nominal_rays(cfg) / k_ms[1] / 1e3,
+            registers=res["registers"], stack_bytes=res["stack_bytes"],
+            spill_store_bytes=res["spill_store_bytes"],
+            spill_load_bytes=res["spill_load_bytes"], **counts))
+        log(f"  K4g at {key}: {counts}; hdr mode {h_ms[1]:.1f} ms, bound "
+            f"{h_bound:.3f} ms by {h_by}; {sweep_shape} {sweep_ms:.0f} ms")
+        del rec, inp, sub
+        torch.cuda.empty_cache()
+
+        bw = MisBwdInputs(None, cfg, grouped=True, scene=scene)
+        got, again = bw.kernel(), bw.kernel()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K5g at {key}: two launches differ")
+        start = time.perf_counter()
+        ref = bw.plain(whole_frame=True)
+        torch.cuda.synchronize()
+        p_ms = 1e3 * (time.perf_counter() - start)
+        err = compare_k5(f"K5g at {key}", got, ref,
+                         bw.plain(nudge=True, whole_frame=True))
+        del ref, got, again
+        torch.cuda.empty_cache()
+        k_ms = time_ms(bw.kernel, repeats=3)
+        bound, by, counts = k5_bound(bw)
+        res = resources[f"mis_bwd_grouped_kernel<SPH={sph}>"]
+        rows.append(dict(
+            name=f"mis_bwd_grouped_kernel[{scene_name}]", route="cuda",
+            source=MIS_BWD_SOURCE, replaces=K5G_REPLACES, shape=shape,
+            launches=launches[key]["mis_bwd_grouped_kernel"],
+            max_abs_err=err, ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2],
+            plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=None,
+            registers=res["registers"], stack_bytes=res["stack_bytes"],
+            spill_store_bytes=res["spill_store_bytes"],
+            spill_load_bytes=res["spill_load_bytes"], **counts))
+        del bw
+        torch.cuda.empty_cache()
+    for row in rows:
+        log(f"  {row['name']} @ {row['shape']}: kernel {row['ms']:.3f} ms "
+            f"(min {row['ms_min']:.3f}, max {row['ms_max']:.3f}), bound "
+            f"{row['bound_ms']:.3f} ms by {row['bound_by']}, plain "
+            f"{row['plain_ms']:.1f} ms, launches {row['launches']}, "
+            f"{row['registers']} registers, {row['stack_bytes']} B stack")
+    seconds = time.perf_counter() - started
+    log(f"  K4g and K5g rows took {seconds:.1f} s")
+    return rows, seconds
+
+
+def count_drift():
+    """How far the plain grouped sweep's box and triangle tests per (pixel,
+    camera ray, sample) move with the number of samples, on the pixels the
+    K4g rows sample and with their cull: the scenes of paths M (without the
+    spheres) and N at 1 camera ray x 30 and x 300 samples. The K4g rows
+    count at 30 samples and scale to 300 (their ``est_`` fields): the change
+    printed is that scaling's error."""
+    cfg = RenderConfig(integrator="mis", **MIS_BENCH)
+    log(f"== count drift: the plain grouped sweep's tests per sample at "
+        f"{cfg.width}x{cfg.height}")
+    out = {}
+    for label, scene_name, scene in mis_grouped_path_scenes(cfg.resolution):
+        if scene.spheres.num_spheres:
+            continue  # the same triangles as path M's first scene
+        chk = MIS_GROUPED_CHECK[label]
+        pix = torch.arange(0, cfg.num_pixels, chk["stride"], device="cuda")
+        per = {}
+        for samples in (chk["mis_samples"], cfg.mis_samples):
+            one = cfg.replace(camera_rays=1, mis_samples=samples)
+            inp = MisInputs(None, one, cull=True, grouped=True, scene=scene)
+            stats = {}
+            start = time.perf_counter()
+            inp.plain(pix=pix, stats=stats)
+            torch.cuda.synchronize()
+            units = pix.numel() * (samples // 3)
+            per[samples] = {f"{loop}_{k}": stats[loop].get(k, 0) / units
+                            for loop in ("closest", "shadow")
+                            for k in ("rays", "boxes", "triangles")}
+            log(f"  {label} {scene_name}, {pix.numel()} pixels x 1 x "
+                f"{samples}: per (pixel, sample) {per[samples]} "
+                f"({time.perf_counter() - start:.1f} s)")
+        lo, hi = per[chk["mis_samples"]], per[cfg.mis_samples]
+        change = {k: hi[k] / lo[k] - 1.0 for k in lo}
+        log(f"  {label} {scene_name}: change from {chk['mis_samples']} to "
+            f"{cfg.mis_samples} samples "
+            + ", ".join(f"{k} {v:+.2%}" for k, v in change.items()))
+        out[f"{label} {scene_name}"] = dict(
+            pixels=pix.numel(), samples=[chk["mis_samples"], cfg.mis_samples],
+            per_sample={str(k): v for k, v in per.items()}, change=change)
+    return out
+
+
 def k2_at_j_row(launches_j, path_j, resources):
     """K2 at path J's shape (hdr, direct, one bounce, sphere scene, no
     cull), as path J launches it: against its plain version, its time by
@@ -2843,6 +3403,14 @@ def main() -> int:
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() "
               "is False", file=sys.stderr)
         return 1
+    if sys.argv[1:] not in ([], ["--count-drift"]):
+        print("usage: python3 chip_smoke.py [--count-drift]", file=sys.stderr)
+        return 2
+    if sys.argv[1:]:
+        drift = count_drift()
+        print(json.dumps({"count_drift": drift}), flush=True)
+        print(card_name_and_limit(), flush=True)
+        return 0
     started = time.perf_counter()
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
@@ -2865,11 +3433,21 @@ def main() -> int:
         grouped_small = phase_grouped()
         launches["K"], path_k = phase_grouped_path("K", TESS_K, steps=4)
         launches["L"], path_l = phase_grouped_path("L", TESS_L, steps=2)
+        mis_grouped_small, mis_grouped_s = phase_mis_grouped()
+        paths_mn = {}
+        for label, scene_name, scene in mis_grouped_path_scenes(
+                (MIS_BENCH["width"], MIS_BENCH["height"])):
+            key = f"{label} {scene_name}"
+            launches[key], paths_mn[key] = phase_mis_grouped_path(
+                label, scene_name, scene, steps=4 if label == "M" else 2)
         rows, small_ms, mis_plain = phase_full(launches, plain_small)
         rows += mis_bwd_rows(path_i, resources)
         rows += soft_rows(launches["J"], resources)
         rows += k2_at_j_row(launches["J"], path_j, resources)
         rows += grouped_rows(launches, resources)
+        mis_grouped_row_list, mis_grouped_rows_s = mis_grouped_rows(
+            launches, resources)
+        rows += mis_grouped_row_list
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.synchronize()
@@ -2890,6 +3468,13 @@ def main() -> int:
                       "path_J": path_j, "soft_recovery": recovery,
                       "grouped_small_max_abs_err": grouped_small,
                       "path_K": path_k, "path_L": path_l,
+                      "mis_grouped_small_max_abs_err": mis_grouped_small,
+                      "paths_M_N": paths_mn,
+                      "mis_grouped_seconds": {
+                          "phase": mis_grouped_s,
+                          "paths": sum(v["seconds"]
+                                       for v in paths_mn.values()),
+                          "rows": mis_grouped_rows_s},
                       "ptxas": resources}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

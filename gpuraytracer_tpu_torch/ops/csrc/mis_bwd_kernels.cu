@@ -11,6 +11,9 @@
 // ---------------------------------------------------------------------------
 // mis_bwd_kernel  replaces  gpuraytracer_tpu/ops/pallas_mis_bwd.py:_mis_bwd_kernel
 //                 (static tier: at most 64 triangles, plus analytic spheres)
+// mis_bwd_grouped_kernel  replaces  the same kernel's grouped tier
+//                 (grouped=True: any number of primitives below the record
+//                 encoding's limit; pallas_mis_bwd.py:1153-1230, 1398-1417)
 // ---------------------------------------------------------------------------
 // Inputs: the cotangent g [3, N] of the raw accumulated hdr, the two record
 // streams of mis_kernel (camera [camera_rays, N], samples [camera_rays, s_per,
@@ -50,6 +53,30 @@
 //     the two lobe winners, and the camera winner after the loop) and the 29
 //     scalars go through reduce.cuh's fixed-order reduction, no float atomics:
 //     two launches on equal inputs give equal bits.
+//
+// The grouped tier runs the same per-(pixel, camera ray) body (mis_bwd_item)
+// with two changes, because its tables do not fit a block's shared memory
+// (the static layout needs 4 (5 ndif P + 16 s_per + 145) B: about 300 KB at
+// P = 1,004 with spheres, 2.6 MB at 12,802 triangles):
+//   * the table is the transposed [P][ndif] table in global memory (60 KB at
+//     P = 1,004 with spheres, 512 KB at 12,802 triangles, held by L2), read by
+//     the recorded winner's index, code - 1, only where code > 0;
+//   * the scatter keeps its fixed order without memory that grows with items
+//     x P, as shade_bwd_grouped_kernel's (shade_kernels.cu): a persistent grid
+//     of G blocks (the card's resident blocks, at most one per 128 (pixel,
+//     camera ray) items, capped at 1 GiB of tables), each warp owning one
+//     dense [P][ndif] + 29 table in global memory that it zeroes, walks the
+//     32-item tiles w, w + 4G, w + 8G, ... in that order (tile t: camera ray
+//     t / ceil(n / 32), its 32 pixels from (t mod ceil(n / 32)) * 32) and adds
+//     to through warp_scatter_rows, a __syncwarp after each scatter;
+//     reduce_partials_kernel then sums the 4G tables in float64 in table
+//     order.  No float atomics: two launches on equal inputs give equal bits.
+//     The tables cost 4G (P ndif + 29) floats written twice and read once
+//     (0.54 GB at 12,802 triangles and G = 264).  Bound as for the static
+//     tier.
+// Not carried over from the TPU: the block-range one-hot fetch and the
+// VMEM block scatter (an indexed load and the per-warp tables take their
+// place).
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -600,13 +627,18 @@ __device__ __forceinline__ void direct_light_rev(const DlRes& r, const float* L,
   }
 }
 
+// The stage functions below are __noinline__ calls, one copy per tier
+// (GROUPED): ptxas allocates a called function's registers once for all its
+// callers, and shared with the grouped kernel they took the static kernel
+// from 231 to 243 registers.
+
 // ---- the cosine / VNDF bounce body, forward recompute and reverse in one:
 // the recorded winner's column `at2` (the caller runs it only where the lobe
 // ray hit something: on the light, or on geometry whose light sample was
 // reached), the camera-material BRDF toward sd as b2.  Adds the light's and
 // the winner's cotangents to d_L and d_at2; returns d_off, d_b2, d_sd,
 // d_pdf_self, d_w.
-template <bool SPH>
+template <bool SPH, bool GROUPED>
 __device__ __noinline__ void bounce_fwd_rev(const float* cs, const float* L,
                                             const float* at2, const float* sd,
                                             float pdf_self, float w, float su0,
@@ -745,6 +777,7 @@ __device__ __noinline__ void bounce_fwd_rev(const float* cs, const float* L,
 
 // ---- strategy 1: the light rectangle, heuristic-weighted (run where the
 // camera ray is on a surface and the light sample was reached)
+template <bool GROUPED>
 __device__ __noinline__ void strategy_light(const float* cs, const float* L,
                                             const float* tb, const float* gs,
                                             float s_per_f, float* d_cs, float* d_L) {
@@ -790,7 +823,7 @@ __device__ __noinline__ void strategy_light(const float* cs, const float* L,
 
 // ---- strategy 2: the cosine lobe (run where its ray hit the light, or
 // geometry whose light sample was reached)
-template <bool SPH>
+template <bool SPH, bool GROUPED>
 __device__ __noinline__ void strategy_cosine(const float* cs, const float* L,
                                              const float* tb, const float* at2,
                                              const float* gs, float s_per_f,
@@ -812,7 +845,7 @@ __device__ __noinline__ void strategy_cosine(const float* cs, const float* L,
   bv_fwd(cs, cd, b2, &pdf_v, bv);
   const float w_c = ph3_fwd(pdf_c, pdf_l, pdf_v, s_per_f, ph);
   float d_off[3], d_b2[3], d_cd[3], d_pdf_self, d_w;
-  bounce_fwd_rev<SPH>(cs, L, at2, cd, pdf_c, w_c, tb[TAB_CSU0], tb[TAB_CSU1], b2, gs,
+  bounce_fwd_rev<SPH, GROUPED>(cs, L, at2, cd, pdf_c, w_c, tb[TAB_CSU0], tb[TAB_CSU1], b2, gs,
                       d_L, d_at, d_off, d_b2, d_cd, &d_pdf_self, &d_w);
   float d_p1, d_p2, d_p3v;
   ph3_rev(ph, d_w, &d_p1, &d_p2, &d_p3v);
@@ -833,7 +866,7 @@ __device__ __noinline__ void strategy_cosine(const float* cs, const float* L,
 }
 
 // ---- strategy 3: the GGX visible-normal lobe (the same gate)
-template <bool SPH>
+template <bool SPH, bool GROUPED>
 __device__ __noinline__ void strategy_vndf(const float* cs, const float* L,
                                            const float* tb, const float* at2,
                                            const float* gs, float s_per_f, float* d_cs,
@@ -868,7 +901,7 @@ __device__ __noinline__ void strategy_vndf(const float* cs, const float* L,
   const float pdf_c2 = cospdf_fwd(nh3, vd, &raw_pc);
   const float w_v = ph3_fwd(pdf_v2, pdf_l2, pdf_c2, s_per_f, ph);
   float d_off[3], d_b2[3], d_vd[3], d_pdf_self, d_w;
-  bounce_fwd_rev<SPH>(cs, L, at2, vd, pdf_v2, w_v, tb[TAB_VSU0], tb[TAB_VSU1], b2v, gs,
+  bounce_fwd_rev<SPH, GROUPED>(cs, L, at2, vd, pdf_v2, w_v, tb[TAB_VSU0], tb[TAB_VSU1], b2v, gs,
                       d_L, d_at, d_off, d_b2, d_vd, &d_pdf_self, &d_w);
   float d_p1, d_p2, d_p3v;
   ph3_rev(ph, d_w, &d_p1, &d_p2, &d_p3v);
@@ -929,7 +962,7 @@ struct HoistRes {
 // recorded winner's column `at` (plane, or sphere), the basis, the VNDF view
 // frame, the offset origin and the camera-material invariants: cs[44].  Run
 // on lanes whose camera ray landed on a surface.
-template <bool SPH>
+template <bool SPH, bool GROUPED>
 __device__ __noinline__ void hoist_fwd(const float* at, const float* cam, float px,
                                        float py, float jx, float jy, float fW, float fH,
                                        float* cs, HoistRes& r) {
@@ -1024,7 +1057,7 @@ __device__ __noinline__ void hoist_fwd(const float* at, const float* cam, float 
 
 // Reverse: the 44 accumulated cotangents d_cs to the winner's column d_at
 // [NDIF] and the camera's d_cam [12].
-template <bool SPH>
+template <bool SPH, bool GROUPED>
 __device__ __noinline__ void hoist_rev(const HoistRes& r, const float* at,
                                        const float* cam, const float* d_cs,
                                        float* d_at, float* d_cam) {
@@ -1173,6 +1206,104 @@ __device__ __noinline__ void hoist_rev(const HoistRes& r, const float* at,
   }
 }
 
+// One (pixel i, camera ray cr): the hoisted stage from the camera record, the
+// samples' strategies from the sample records, the reverse of the hoisted
+// stage; the table rows (the two lobe winners per sample, the camera winner
+// after the loop) scattered into this warp's table `wtab` [P][NDIF], the
+// camera's and light's cotangents written to ds[29].  `tab` is the [P][NDIF]
+// parameter table (shared memory in the static tier, global in the grouped
+// one), `stab` the staged [s_per][16] sample table, `cam` and `L` the 12
+// camera and 17 light scalars.  Every lane of the warp calls it (the scatter
+// shuffles); a lane past the range runs on with no live ray.  GLOBAL_TABLE:
+// wtab lies in global memory, and a __syncwarp after each scatter orders one
+// leader's add before the next one's.
+template <bool SPH, bool GLOBAL_TABLE>
+__device__ __forceinline__ void mis_bwd_item(const BwdParams& p, const float* tab,
+                                             const float* stab, const float* cam,
+                                             const float* L, float* wtab, int i, int cr,
+                                             int lane, float* ds) {
+  constexpr int NDIF = SPH ? 15 : 10;
+  const int s_per = p.s_per;
+  const size_t n = (size_t)p.n_local;
+  const bool in_range = i < p.n_local;
+  const int code_cam = in_range ? p.cam_rec[(size_t)cr * n + i] : 0;
+  const bool cam_hit = code_cam > 0;
+  const int pc_cam = cam_hit ? code_cam - 1 : 0;
+  const float* at_cam = tab + NDIF * pc_cam;
+  const bool isem = cam_hit && at_cam[9] > 0.5f;
+  const bool surf = cam_hit && !isem;
+  float g[3];
+  for (int c = 0; c < 3; ++c) g[c] = in_range ? p.g[c * n + i] : 0.0f;
+
+  // A camera ray on the light adds the emitted radiance.
+  float d_L[NLIGHT];
+  for (int k = 0; k < NLIGHT; ++k) d_L[k] = 0.0f;
+  for (int c = 0; c < 3; ++c) d_L[L_E + c] = sel(cam_hit && isem, g[c]);
+
+  float cs[NCS], d_cs[NCS];
+  for (int k = 0; k < NCS; ++k) { cs[k] = 0.0f; d_cs[k] = 0.0f; }
+  HoistRes hr;
+  if (surf) {
+    // hashRandom jitter: the literal 800 / 600 strides of the reference.
+    const int rid = p.rid_base + i;
+    const uint32_t xi = (uint32_t)(rid % p.width);
+    const uint32_t yi = (uint32_t)(rid / p.width);
+    const uint32_t sample_id = (yi * 800u + xi) * (uint32_t)cr;
+    const float jx = __uint2float_rn(hash_u32(xi + yi * 800u + sample_id)) * INV_2_32;
+    const float jy =
+        __uint2float_rn(hash_u32(yi + xi * 600u + sample_id + 12345u)) * INV_2_32;
+    hoist_fwd<SPH, GLOBAL_TABLE>(at_cam, cam, (float)xi, (float)yi, jx, jy, (float)p.width,
+                   (float)p.height, cs, hr);
+  }
+  const float inv_s = (float)(1.0 / (double)s_per);
+  const float s_per_f = (float)s_per;
+  float gs[3];
+  for (int c = 0; c < 3; ++c) gs[c] = sel(surf, g[c] * inv_s);
+
+  for (int k = 0; k < s_per; ++k) {
+    const float* tb = stab + TAB_ROWS * k;
+    const int rec = surf ? p.samp_rec[((size_t)cr * s_per + k) * n + i] : 0;
+    const int code_c = (rec >> REC_SHIFT_C) & REC_CODE_MASK;
+    const int code_v = (rec >> REC_SHIFT_V) & REC_CODE_MASK;
+    float d_at_c[NDIF], d_at_v[NDIF];
+    for (int q = 0; q < NDIF; ++q) { d_at_c[q] = 0.0f; d_at_v[q] = 0.0f; }
+    if (surf && (rec & 1)) strategy_light<GLOBAL_TABLE>(cs, L, tb, gs, s_per_f, d_cs, d_L);
+    bool act_c = false, act_v = false;
+    if (surf && code_c > 0) {
+      const float* at = tab + NDIF * (code_c - 1);
+      const bool on_light = at[9] > 0.5f;
+      if (on_light || (rec & 2)) {
+        strategy_cosine<SPH, GLOBAL_TABLE>(cs, L, tb, at, gs, s_per_f, d_cs, d_L, d_at_c);
+        act_c = !on_light;
+      }
+    }
+    if (surf && code_v > 0) {
+      const float* at = tab + NDIF * (code_v - 1);
+      const bool on_light = at[9] > 0.5f;
+      if (on_light || (rec & 4)) {
+        strategy_vndf<SPH, GLOBAL_TABLE>(cs, L, tb, at, gs, s_per_f, d_cs, d_L, d_at_v);
+        act_v = !on_light;
+      }
+    }
+    // A lobe ray on the light gives its winner no cotangent.
+    warp_scatter_rows<NDIF>(__ballot_sync(grt::FULL_MASK, act_c), act_c, code_c - 1,
+                            d_at_c, wtab, lane);
+    if (GLOBAL_TABLE) __syncwarp();
+    warp_scatter_rows<NDIF>(__ballot_sync(grt::FULL_MASK, act_v), act_v, code_v - 1,
+                            d_at_v, wtab, lane);
+    if (GLOBAL_TABLE) __syncwarp();
+  }
+
+  float d_at_cam[NDIF];
+  for (int q = 0; q < NDIF; ++q) d_at_cam[q] = 0.0f;
+  for (int q = 0; q < NCAM; ++q) ds[q] = 0.0f;
+  if (surf) hoist_rev<SPH, GLOBAL_TABLE>(hr, at_cam, cam, d_cs, d_at_cam, ds);
+  warp_scatter_rows<NDIF>(__ballot_sync(grt::FULL_MASK, surf), surf, pc_cam, d_at_cam,
+                          wtab, lane);
+  if (GLOBAL_TABLE) __syncwarp();
+  for (int q = 0; q < NLIGHT; ++q) ds[NCAM + q] = d_L[q];
+}
+
 template <bool SPH>
 __global__ void __launch_bounds__(BLOCK_THREADS) mis_bwd_kernel(const BwdParams p) {
   constexpr int NDIF = SPH ? 15 : 10;
@@ -1201,89 +1332,10 @@ __global__ void __launch_bounds__(BLOCK_THREADS) mis_bwd_kernel(const BwdParams 
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float* my_wtab = s_wtab + warp * P * NDIF;
-  const float* cam = s_vec;
-  const float* L = s_vec + NCAM;
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int cr = blockIdx.y;
-  const size_t n = (size_t)p.n_local;
-  // A thread past the range runs on (the warp's shuffles need every lane)
-  // with no live ray.
-  const bool in_range = i < p.n_local;
-  const int code_cam = in_range ? p.cam_rec[(size_t)cr * n + i] : 0;
-  const bool cam_hit = code_cam > 0;
-  const int pc_cam = cam_hit ? code_cam - 1 : 0;
-  const float* at_cam = s_tab + NDIF * pc_cam;
-  const bool isem = cam_hit && at_cam[9] > 0.5f;
-  const bool surf = cam_hit && !isem;
-  float g[3];
-  for (int c = 0; c < 3; ++c) g[c] = in_range ? p.g[c * n + i] : 0.0f;
-
-  // A camera ray on the light adds the emitted radiance.
-  float d_L[NLIGHT];
-  for (int k = 0; k < NLIGHT; ++k) d_L[k] = 0.0f;
-  for (int c = 0; c < 3; ++c) d_L[L_E + c] = sel(cam_hit && isem, g[c]);
-
-  float cs[NCS], d_cs[NCS];
-  for (int k = 0; k < NCS; ++k) { cs[k] = 0.0f; d_cs[k] = 0.0f; }
-  HoistRes hr;
-  if (surf) {
-    // hashRandom jitter: the literal 800 / 600 strides of the reference.
-    const int rid = p.rid_base + i;
-    const uint32_t xi = (uint32_t)(rid % p.width);
-    const uint32_t yi = (uint32_t)(rid / p.width);
-    const uint32_t sample_id = (yi * 800u + xi) * (uint32_t)cr;
-    const float jx = __uint2float_rn(hash_u32(xi + yi * 800u + sample_id)) * INV_2_32;
-    const float jy =
-        __uint2float_rn(hash_u32(yi + xi * 600u + sample_id + 12345u)) * INV_2_32;
-    hoist_fwd<SPH>(at_cam, cam, (float)xi, (float)yi, jx, jy, (float)p.width,
-                   (float)p.height, cs, hr);
-  }
-  const float inv_s = (float)(1.0 / (double)s_per);
-  const float s_per_f = (float)s_per;
-  float gs[3];
-  for (int c = 0; c < 3; ++c) gs[c] = sel(surf, g[c] * inv_s);
-
-  for (int k = 0; k < s_per; ++k) {
-    const float* tb = s_stab + TAB_ROWS * k;
-    const int rec = surf ? p.samp_rec[((size_t)cr * s_per + k) * n + i] : 0;
-    const int code_c = (rec >> REC_SHIFT_C) & REC_CODE_MASK;
-    const int code_v = (rec >> REC_SHIFT_V) & REC_CODE_MASK;
-    float d_at_c[NDIF], d_at_v[NDIF];
-    for (int q = 0; q < NDIF; ++q) { d_at_c[q] = 0.0f; d_at_v[q] = 0.0f; }
-    if (surf && (rec & 1)) strategy_light(cs, L, tb, gs, s_per_f, d_cs, d_L);
-    bool act_c = false, act_v = false;
-    if (surf && code_c > 0) {
-      const float* at = s_tab + NDIF * (code_c - 1);
-      const bool on_light = at[9] > 0.5f;
-      if (on_light || (rec & 2)) {
-        strategy_cosine<SPH>(cs, L, tb, at, gs, s_per_f, d_cs, d_L, d_at_c);
-        act_c = !on_light;
-      }
-    }
-    if (surf && code_v > 0) {
-      const float* at = s_tab + NDIF * (code_v - 1);
-      const bool on_light = at[9] > 0.5f;
-      if (on_light || (rec & 4)) {
-        strategy_vndf<SPH>(cs, L, tb, at, gs, s_per_f, d_cs, d_L, d_at_v);
-        act_v = !on_light;
-      }
-    }
-    // A lobe ray on the light gives its winner no cotangent.
-    warp_scatter_rows<NDIF>(__ballot_sync(grt::FULL_MASK, act_c), act_c, code_c - 1,
-                            d_at_c, my_wtab, lane);
-    warp_scatter_rows<NDIF>(__ballot_sync(grt::FULL_MASK, act_v), act_v, code_v - 1,
-                            d_at_v, my_wtab, lane);
-  }
-
-  float d_at_cam[NDIF], ds[NSCAL];
-  for (int q = 0; q < NDIF; ++q) d_at_cam[q] = 0.0f;
-  for (int q = 0; q < NCAM; ++q) ds[q] = 0.0f;
-  if (surf) hoist_rev<SPH>(hr, at_cam, cam, d_cs, d_at_cam, ds);
-  warp_scatter_rows<NDIF>(__ballot_sync(grt::FULL_MASK, surf), surf, pc_cam, d_at_cam,
-                          my_wtab, lane);
-  for (int q = 0; q < NLIGHT; ++q) ds[NCAM + q] = d_L[q];
+  float ds[NSCAL];
+  mis_bwd_item<SPH, false>(p, s_tab, s_stab, s_vec, s_vec + NCAM,
+                           s_wtab + warp * P * NDIF, blockIdx.x * blockDim.x + threadIdx.x,
+                           blockIdx.y, lane, ds);
 
   // ---- block partial: scalars over the warp, then warps in index order
   for (int q = 0; q < NSCAL; ++q) {
@@ -1304,6 +1356,59 @@ __global__ void __launch_bounds__(BLOCK_THREADS) mis_bwd_kernel(const BwdParams 
   }
 }
 
+// The grouped tier: a persistent grid; warp w of the grid owns the table
+// partials[w] = [P][NDIF] then 29 scalars, and walks the 32-item tiles w,
+// w + (warps in the grid), ...  A tile is 32 neighbouring pixels of one camera
+// ray: tile t holds camera ray t / ceil(n / 32) and the pixels from
+// (t mod ceil(n / 32)) * 32.  p.table is the TRANSPOSED [P][NDIF] table, read
+// from global memory; the sample table, camera and light are staged.
+template <bool SPH>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+mis_bwd_grouped_kernel(const BwdParams p) {
+  constexpr int NDIF = SPH ? 15 : 10;
+  extern __shared__ float smem[];
+  const int s_per = p.s_per;
+  float* s_stab = smem;                         // [s_per][16]
+  float* s_vec = s_stab + TAB_ROWS * s_per;     // camera 12, light 17
+  for (int k = threadIdx.x; k < TAB_ROWS * s_per; k += blockDim.x) {
+    const int s = k / TAB_ROWS, row = k - s * TAB_ROWS;
+    s_stab[k] = p.stab[row * s_per + s];
+  }
+  for (int k = threadIdx.x; k < NSCAL; k += blockDim.x) {
+    s_vec[k] = k < NCAM ? p.cam[k] : p.light[k - NCAM];
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int n_warps = gridDim.x * WARPS;
+  const size_t row = (size_t)p.num_prims * NDIF + NSCAL;
+  float* wtab = p.partials + (size_t)warp * row;
+  for (size_t k = lane; k < row; k += 32) wtab[k] = 0.0f;
+  __syncwarp();
+
+  float ds[NSCAL];
+  for (int q = 0; q < NSCAL; ++q) ds[q] = 0.0f;
+  const int pixel_tiles = (p.n_local + 31) / 32;
+  const int tiles = pixel_tiles * p.camera_rays;
+  for (int tile = warp; tile < tiles; tile += n_warps) {
+    const int cr = tile / pixel_tiles;
+    float item[NSCAL];
+    mis_bwd_item<SPH, true>(p, p.table, s_stab, s_vec, s_vec + NCAM, wtab,
+                            (tile - cr * pixel_tiles) * 32 + lane, cr, lane, item);
+    for (int q = 0; q < NSCAL; ++q) ds[q] += item[q];
+  }
+  for (int q = 0; q < NSCAL; ++q) {
+    const float v = warp_sum(ds[q]);
+    if (lane == 0) wtab[row - NSCAL + q] = v;
+  }
+}
+
+// Shared memory of the grouped kernel: the sample table, camera and light.
+size_t grouped_smem(int s_per) {
+  return sizeof(float) * ((size_t)TAB_ROWS * s_per + NSCAL);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1314,14 +1419,33 @@ int grt_mis_bwd_blocks(int n_local, int camera_rays) {
   return ((n_local + BLOCK_THREADS - 1) / BLOCK_THREADS) * camera_rays;
 }
 
-// Launches mis_bwd_kernel and reduce_partials_kernel on `stream`; returns
-// cudaGetLastError() as an int.  out is [num_prims * ndif + 29] float32: dtab
-// [P, ndif] row-major, then camera 12 and light 17.
+// Blocks of the grouped tier's persistent grid on the current device: the
+// blocks the card holds at once, at most one per 128 (pixel, camera ray)
+// items, and at most as many as keep the per-warp tables (WARPS x (num_prims
+// * ndif + 29) floats each) within 1 GiB.  The wrapper sizes the partials
+// [blocks * 4, ...] with it; 0 means the occupancy query failed.
+int grt_mis_bwd_grouped_blocks(int n_local, int camera_rays, int s_per, int num_prims,
+                               int has_spheres) {
+  const size_t smem = grouped_smem(s_per);
+  const int tiles = ((n_local + 31) / 32) * camera_rays;
+  const size_t row = (size_t)num_prims * (has_spheres ? 15 : 10) + NSCAL;
+  return has_spheres ? grt::persistent_blocks(mis_bwd_grouped_kernel<true>,
+                                              BLOCK_THREADS, smem, tiles, row)
+                     : grt::persistent_blocks(mis_bwd_grouped_kernel<false>,
+                                              BLOCK_THREADS, smem, tiles, row);
+}
+
+// Launches mis_bwd_kernel (grouped == 0: table [ndif, P], partials
+// [grt_mis_bwd_blocks, ...]) or mis_bwd_grouped_kernel (grouped == 1: table
+// [P, ndif], partials [4 * blocks, ...] with blocks from
+// grt_mis_bwd_grouped_blocks), then reduce_partials_kernel, on `stream`;
+// returns cudaGetLastError() as an int.  out is [num_prims * ndif + 29]
+// float32: dtab [P, ndif] row-major, then camera 12 and light 17.
 int grt_mis_bwd(const float* g, const int32_t* cam_rec, const int32_t* samp_rec,
                 const float* table, const float* cam, const float* light,
                 const float* stab, float* partials, float* out, int n_local,
                 int rid_base, int width, int height, int camera_rays, int s_per,
-                int num_prims, int has_spheres, void* stream) {
+                int num_prims, int has_spheres, int grouped, int blocks, void* stream) {
   BwdParams p;
   p.g = g; p.cam_rec = cam_rec; p.samp_rec = samp_rec; p.table = table;
   p.cam = cam; p.light = light; p.stab = stab; p.partials = partials;
@@ -1333,21 +1457,33 @@ int grt_mis_bwd(const float* g, const int32_t* cam_rec, const int32_t* samp_rec,
     return (int)cudaErrorInvalidValue;
   }
   const int ndif = has_spheres ? 15 : 10;
+  const int count = num_prims * ndif + NSCAL;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (grouped) {
+    if (blocks <= 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = grouped_smem(s_per);
+    if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = has_spheres ? grt::allow_smem(mis_bwd_grouped_kernel<true>, smem)
+                                        : grt::allow_smem(mis_bwd_grouped_kernel<false>, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (has_spheres) {
+      mis_bwd_grouped_kernel<true><<<blocks, BLOCK_THREADS, smem, st>>>(p);
+    } else {
+      mis_bwd_grouped_kernel<false><<<blocks, BLOCK_THREADS, smem, st>>>(p);
+    }
+    const int code = (int)cudaGetLastError();
+    if (code != 0) return code;
+    grt::launch_reduce_partials(partials, blocks * WARPS, count, out, st);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = sizeof(float) * ((size_t)ndif * num_prims + (size_t)TAB_ROWS * s_per
                                        + NSCAL + (size_t)WARPS * num_prims * ndif
                                        + (size_t)WARPS * NSCAL);
   if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
-  // Beyond the 48 KiB every launch may have, a kernel asks for its size first.
-  if (smem > 48 * 1024) {
-    const cudaError_t err = has_spheres
-        ? cudaFuncSetAttribute(mis_bwd_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
-        : cudaFuncSetAttribute(mis_bwd_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = has_spheres ? grt::allow_smem(mis_bwd_kernel<true>, smem)
+                                      : grt::allow_smem(mis_bwd_kernel<false>, smem);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((n_local + BLOCK_THREADS - 1) / BLOCK_THREADS, camera_rays);
-  cudaStream_t st = (cudaStream_t)stream;
   if (has_spheres) {
     mis_bwd_kernel<true><<<grid, BLOCK_THREADS, smem, st>>>(p);
   } else {
@@ -1355,8 +1491,7 @@ int grt_mis_bwd(const float* g, const int32_t* cam_rec, const int32_t* samp_rec,
   }
   const int code = (int)cudaGetLastError();
   if (code != 0) return code;
-  grt::launch_reduce_partials(partials, grid.x * grid.y, num_prims * ndif + NSCAL, out,
-                              st);
+  grt::launch_reduce_partials(partials, grid.x * grid.y, count, out, st);
   return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,9 @@
 //
 // ---------------------------------------------------------------------------
 // mis_kernel   replaces  gpuraytracer_tpu/ops/pallas_mis.py:_mis_kernel
-//              (static tier: at most 64 triangles, plus analytic spheres)
+//              static tier (GROUPED = false: at most 64 triangles, plus
+//              analytic spheres) and grouped tier (GROUPED = true: any
+//              number of triangles below the record encoding's limit)
 // ---------------------------------------------------------------------------
 // Per pixel: `camera_rays` hash-jittered primary rays; per primary ray that
 // lands on a surface, s_per samples of three strategies — the light rectangle,
@@ -57,12 +59,49 @@
 // per-primitive dot products of the fixed secondary origin, which the TPU
 // kernel hoists out of its sample loop, are recomputed per test here: keeping
 // 3 * T of them per thread costs more registers than the multiplies they save.
+//
+// The grouped tier (the TPU kernel's grouped=True branch, pallas_mis.py:
+// closest_tris_grouped :328, fetch_grouped :374, occluded_grouped :404;
+// packing :917-1003) keeps all of the above except the scene tables, which
+// do not fit a block's shared memory at a thousand triangles: the geometry,
+// its two-level box tables and the dense occluder-culled shadow table (made
+// on the host by ops/cuda_path.py as the JAX package makes them) stay in
+// global memory and are read through the read-only path, where L2 holds them
+// (48 B per triangle: 48 KB at 1,002 triangles, 620 KB at 12,802).  The two
+// closest hits and three light probes of a sample run path_kernel's grouped
+// sweep (trace.cuh closest_grouped, occluded_grouped): per super, then per
+// group, a slab test of the padded box against the ray's far limit and the
+// group's triangle tests only where the box is reached; the probe accepts
+// hits in (RAY_TMIN, t_max).  The decisions equal those of the loop over
+// every triangle.  The winner's attributes are one indexed load of its row
+// of the transposed [T + S][12] table in global memory; a miss reads row 0,
+// as the static tier does, so that the grouped tier forced onto a small scene
+// writes the static tier's records on every lane.  Only the sample table and
+// the spheres are staged.  The sweep stays inside the __noinline__
+// traversal functions.  Bound: OPERATIONS, counted from the box and triangle
+// tests this frame's live lanes execute.  Not carried over from the TPU:
+// share_shadow (a workaround for the TPU's scalar-memory limit; the
+// decisions are the same either way), the bf16 chunk-split block-range fetch
+// and f32-carried masks.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "trace.cuh"
+
 namespace {
+
+using grt::closest_grouped;
+using grt::closest_triangle;
+using grt::GEO_ROWS;
+using grt::occluded_grouped;
+using grt::SPH_ROWS;
+using grt::sphere_roots;
+using grt::triangle_inside;
+using grt::triangle_plane;
 
 constexpr float BIG = 1e30f;
 constexpr float RAY_TMIN = 1e-3f;
@@ -70,9 +109,7 @@ constexpr float RAY_TMAX = 1e3f;
 constexpr float INV_2_32 = 2.3283064365386963e-10f;  // 2^-32
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float INV_PI_F = (float)(1.0 / 3.14159265358979323846);
-constexpr int GEO_ROWS = 12;   // n xyz, c0, s1 xyz, c1, s2 xyz, c2
 constexpr int ATTR_ROWS = 12;  // normal, diffuse, metallic, roughness, is_emissive, sphere center
-constexpr int SPH_ROWS = 4;    // center xyz, radius
 constexpr int TAB_ROWS = 16;   // ten draws and six derived direction scalars per sample
 constexpr int REC_SHIFT_C = 3;
 constexpr int REC_SHIFT_V = 17;
@@ -84,24 +121,58 @@ struct MisParams {
   const float* light;         // [17] center, radiance, width, depth, normal, tangent, bitangent
   const float* tri;           // [21, T] packed triangle rows (first 12: geometry)
   const float* sph;           // [4, max(S,1)] center xyz, radius
-  const float* atab;          // [12, T + S] attribute rows
+  const float* atab;          // [12, T + S] attribute rows; grouped: [T + S][12]
   const float* tab;           // [16, s_per] per-sample table
-  const int32_t* shadow_idx;  // [n_shadow] triangles kept in the light probes
+  const int32_t* shadow_idx;  // [n_shadow] triangles kept in the light probes (static)
   float* hdr;                 // [3, n_local]
   int32_t* cam_rec;           // [camera_rays, n_local] (EMIT only)
   int32_t* samp_rec;          // [camera_rays, s_per, n_local] (EMIT only)
+  const float4* geo;          // grouped: [P_gpad][12] triangle geometry
+  const float4* aabb;         // grouped: [n_super * 8][8] group boxes
+  const float4* sup;          // grouped: [n_super][8] super boxes
+  const float4* sgeo;         // grouped: the light probes' three tables
+  const float4* saabb;
+  const float4* ssup;
   int n_local, rid_base, width, height, camera_rays, s_per;
   int num_tris, num_spheres, n_shadow;
+  int n_super, n_shadow_super;  // grouped: supers of the two sweeps
 };
 
-// The staged scene, as the device functions see it.
+// The scene, as the device functions see it: staged in shared memory (the
+// static tier) ...
 struct Tables {
   const float* geo;     // [T][12]
   const float* shadow;  // [n_shadow][12]
   const float* sph;     // [S][4]
-  const float* attr;    // [T + S][12]
+  const float* attr;    // [T + S][12]; in global memory in the grouped tier
   int T, S, n_shadow;
 };
+
+// ... or, in the grouped tier, the spheres staged and the rest in global
+// memory (trace.cuh's layouts; geo and shadow above are not read).
+struct GroupedTables : Tables {
+  const float4* ggeo;
+  const float4* aabb;
+  const float4* sup;
+  const float4* sgeo;
+  const float4* saabb;
+  const float4* ssup;
+  int n_super, n_shadow_super;
+};
+
+template <bool GROUPED>
+using TablesT = typename std::conditional<GROUPED, GroupedTables, Tables>::type;
+
+// An attribute of the winner: a shared-memory read, or in the grouped tier a
+// load through the read-only path.
+template <bool GROUPED>
+__device__ __forceinline__ float attr_at(const float* a) {
+  if constexpr (GROUPED) {
+    return __ldg(a);
+  } else {
+    return *a;
+  }
+}
 
 struct Light {
   float cx, cy, cz, er, eg, eb, w, d, nx, ny, nz, tx, ty, tz, bx, by, bz;
@@ -297,56 +368,23 @@ __device__ __noinline__ V3 vndf_direction(const Frame& f, float nx, float ny, fl
   return vd;
 }
 
-// Quadratic ray/sphere roots, in the operation order of the plain version
-// (intersect.sphere_candidates).
-__device__ __forceinline__ bool sphere_roots(const float* s, float ox, float oy,
-                                             float oz, float dx, float dy, float dz,
-                                             float* t1, float* t2) {
-  const float ocx = ox - s[0], ocy = oy - s[1], ocz = oz - s[2];
-  const float a = dx * dx + dy * dy + dz * dz;
-  const float b = 2.0f * (ocx * dx + ocy * dy + ocz * dz);
-  const float c = (ocx * ocx + ocy * ocy + ocz * ocz) - s[3] * s[3];
-  const float disc = b * b - 4.0f * a * c;
-  const bool pos = disc > 0.0f;
-  const float sq = sqrtf(pos ? disc : 1.0f);
-  *t1 = (-b - sq) / (2.0f * a);
-  *t2 = (-b + sq) / (2.0f * a);
-  return pos;
-}
-
-// One ray/triangle test against a staged [12] row: the hit distance, and
-// whether it lies in (t_lo, t_hi) inside the triangle.
-__device__ __forceinline__ bool triangle_test(const float* row, float ox, float oy,
-                                              float oz, float dx, float dy, float dz,
-                                              float t_lo, float t_hi, float* t_out) {
-  const float4* g = reinterpret_cast<const float4*>(row);
-  const float4 pn = g[0], p1 = g[1], p2 = g[2];
-  const float den = dx * pn.x + dy * pn.y + dz * pn.z;
-  const float num = pn.w - (ox * pn.x + oy * pn.y + oz * pn.z);
-  const float tt = num / den;  // raw IEEE divide; a parallel ray fails the test below
-  const float u = (ox * p1.x + oy * p1.y + oz * p1.z)
-                  + tt * (dx * p1.x + dy * p1.y + dz * p1.z) - p1.w;
-  const float v = (ox * p2.x + oy * p2.y + oz * p2.z)
-                  + tt * (dx * p2.x + dy * p2.y + dz * p2.z) - p2.w;
-  *t_out = tt;
-  return (fabsf(den) >= 1e-12f) && (tt > t_lo) && (tt < t_hi) && (u >= 0.0f)
-         && (v >= 0.0f) && (u + v <= 1.0f);
-}
-
 // Closest hit over all triangles (index order, strictly closer wins, so ties
-// keep the lower index), then the spheres; the winner's attributes by index.
-// A miss reads row 0, as the TPU kernel's clipped fetch does, so that the
-// records dead lanes write are the same; every use is gated by `hit`.
-__device__ __noinline__ Surface closest_full(const Tables& sc, float ox, float oy,
-                                                float oz, float dx, float dy,
-                                                float dz) {
+// keep the lower index; the grouped tier by the sweep, which finds the same
+// winner), then the spheres; the winner's attributes by index.  A miss reads
+// row 0, as the TPU kernel's clipped fetch does, so that the records dead
+// lanes write are the same; every use is gated by `hit`.
+template <bool GROUPED>
+__device__ __noinline__ Surface closest_full(const TablesT<GROUPED>& sc, float ox,
+                                             float oy, float oz, float dx, float dy,
+                                             float dz) {
   float t_best = BIG;
   int prim = -1;
-  for (int k = 0; k < sc.T; ++k) {
-    float tt;
-    const bool in = triangle_test(sc.geo + GEO_ROWS * k, ox, oy, oz, dx, dy, dz,
-                                  RAY_TMIN, RAY_TMAX, &tt);
-    if (in && (tt < t_best)) { t_best = tt; prim = k; }
+  if constexpr (GROUPED) {
+    closest_grouped(sc.ggeo, sc.aabb, sc.sup, sc.n_super, sc.T, ox, oy, oz, dx, dy, dz,
+                    RAY_TMIN, RAY_TMAX, &t_best, &prim);
+  } else {
+    closest_triangle(sc.geo, sc.T, ox, oy, oz, dx, dy, dz, RAY_TMIN, RAY_TMAX, &t_best,
+                     &prim);
   }
   for (int k = 0; k < sc.S; ++k) {
     float t1, t2;
@@ -362,17 +400,19 @@ __device__ __noinline__ Surface closest_full(const Tables& sc, float ox, float o
   h.t = t_best;
   h.prim = prim;
   const float* at = sc.attr + ATTR_ROWS * (h.hit ? prim : 0);
-  h.nx = at[0]; h.ny = at[1]; h.nz = at[2];
-  h.dfr = at[3]; h.dfg = at[4]; h.dfb = at[5];
-  h.met = at[6]; h.rgh = at[7];
-  h.isem = at[8] > 0.5f;
+  h.nx = attr_at<GROUPED>(at); h.ny = attr_at<GROUPED>(at + 1);
+  h.nz = attr_at<GROUPED>(at + 2);
+  h.dfr = attr_at<GROUPED>(at + 3); h.dfg = attr_at<GROUPED>(at + 4);
+  h.dfb = attr_at<GROUPED>(at + 5);
+  h.met = attr_at<GROUPED>(at + 6); h.rgh = attr_at<GROUPED>(at + 7);
+  h.isem = attr_at<GROUPED>(at + 8) > 0.5f;
   if (sc.S > 0) {
     // Sphere normal: (hit point - center) normalized, floor 1e-6.
     const bool sphere_won = h.hit && (prim >= sc.T);
     const float t_s = sphere_won ? t_best : 0.0f;
-    const float nvx = ox + dx * t_s - at[9];
-    const float nvy = oy + dy * t_s - at[10];
-    const float nvz = oz + dz * t_s - at[11];
+    const float nvx = ox + dx * t_s - attr_at<GROUPED>(at + 9);
+    const float nvy = oy + dy * t_s - attr_at<GROUPED>(at + 10);
+    const float nvz = oz + dz * t_s - attr_at<GROUPED>(at + 11);
     const float inv = 1.0f / sqrtf(fmaxf(nvx * nvx + nvy * nvy + nvz * nvz, 1e-6f));
     if (sphere_won) { h.nx = nvx * inv; h.ny = nvy * inv; h.nz = nvz * inv; }
   }
@@ -380,15 +420,23 @@ __device__ __noinline__ Surface closest_full(const Tables& sc, float ox, float o
 }
 
 // No occluder strictly short of t_max: any hit in (RAY_TMIN, t_max) over the
-// occluder list, spheres always tested.
-__device__ __noinline__ bool light_reachable(const Tables& sc, float ox, float oy,
-                                                float oz, float dx, float dy,
-                                                float dz, float t_max) {
-  for (int k = 0; k < sc.n_shadow; ++k) {
-    float tt;
-    if (triangle_test(sc.shadow + GEO_ROWS * k, ox, oy, oz, dx, dy, dz, RAY_TMIN,
-                      t_max, &tt)) {
+// occluder list (the grouped tier: over the dense culled shadow table by the
+// sweep), spheres always tested.
+template <bool GROUPED>
+__device__ __noinline__ bool light_reachable(const TablesT<GROUPED>& sc, float ox,
+                                             float oy, float oz, float dx, float dy,
+                                             float dz, float t_max) {
+  if constexpr (GROUPED) {
+    if (occluded_grouped(sc.sgeo, sc.saabb, sc.ssup, sc.n_shadow_super, sc.n_shadow, ox,
+                         oy, oz, dx, dy, dz, RAY_TMIN, t_max)) {
       return false;
+    }
+  } else {
+    for (int k = 0; k < sc.n_shadow; ++k) {
+      const float4* g = reinterpret_cast<const float4*>(sc.shadow + GEO_ROWS * k);
+      float den, tt, u, v;
+      triangle_plane(g[0], g[1], g[2], ox, oy, oz, dx, dy, dz, &den, &tt, &u, &v);
+      if (triangle_inside(den, tt, u, v, RAY_TMIN, t_max)) return false;
     }
   }
   for (int k = 0; k < sc.S; ++k) {
@@ -406,8 +454,8 @@ __device__ __noinline__ bool light_reachable(const Tables& sc, float ox, float o
 // occlusion form of the light probe.  Returns the contribution (zero unless
 // `active` and the light sample is reachable) and, through *reach, the probe's
 // decision.  With NEED_REACH false an inactive lane returns without probing.
-template <bool NEED_REACH>
-__device__ __forceinline__ V3 direct_light(const Tables& sc, const Light& L,
+template <bool NEED_REACH, bool GROUPED>
+__device__ __forceinline__ V3 direct_light(const TablesT<GROUPED>& sc, const Light& L,
                                            float px, float py, float pz, float nx,
                                            float ny, float nz, float inx, float iny,
                                            float inz, float dfr, float dfg, float dfb,
@@ -431,8 +479,8 @@ __device__ __forceinline__ V3 direct_light(const Tables& sc, const Light& L,
   // Plain division, not a reciprocal multiply: sample 0 of the Halton table
   // is the light rectangle's corner, and the probe sits on its edge.
   const float ldx = tox / dist, ldy = toy / dist, ldz = toz / dist;
-  *reach = light_reachable(sc, ox, oy, oz, ldx, ldy, ldz,
-                           dist * (float)(1.0 - 1e-4));
+  *reach = light_reachable<GROUPED>(sc, ox, oy, oz, ldx, ldy, ldz,
+                                    dist * (float)(1.0 - 1e-4));
   if (!(active && *reach)) return out;
   const float pdf_l = square_light_pdf(L, px, py, pz, ldx, ldy, ldz);
   const float vx = -inx, vy = -iny, vz = -inz;
@@ -454,8 +502,8 @@ __device__ __forceinline__ V3 direct_light(const Tables& sc, const Light& L,
 // trace the sampled ray; on the light add the weighted light term, on
 // geometry one unweighted light sample at the bounce point.  Also returns the
 // decisions for the record: the winner and the secondary probe's bit.
-template <bool EMIT>
-__device__ __forceinline__ V3 bounce_strategy(const Tables& sc, const Light& L,
+template <bool EMIT, bool GROUPED>
+__device__ __forceinline__ V3 bounce_strategy(const TablesT<GROUPED>& sc, const Light& L,
                                               float px, float py, float pz, float nx,
                                               float ny, float nz, float inx, float iny,
                                               float inz, float dfr, float dfg,
@@ -467,7 +515,7 @@ __device__ __forceinline__ V3 bounce_strategy(const Tables& sc, const Light& L,
   const float ox = px + nx * 1e-4f;
   const float oy = py + ny * 1e-4f;
   const float oz = pz + nz * 1e-4f;
-  const Surface h = closest_full(sc, ox, oy, oz, sdx, sdy, sdz);
+  const Surface h = closest_full<GROUPED>(sc, ox, oy, oz, sdx, sdy, sdz);
   *prim2 = h.prim;
   const bool hit_light = active && h.hit && h.isem;
   const bool hit_geo = active && h.hit && !h.isem;
@@ -475,9 +523,10 @@ __device__ __forceinline__ V3 bounce_strategy(const Tables& sc, const Light& L,
   const float bpx = ox + sdx * t_safe;
   const float bpy = oy + sdy * t_safe;
   const float bpz = oz + sdz * t_safe;
-  const V3 sec = direct_light<EMIT>(sc, L, bpx, bpy, bpz, h.nx, h.ny, h.nz, sdx, sdy,
-                                    sdz, h.dfr, h.dfg, h.dfb, h.met, h.rgh, su0, su1,
-                                    hit_geo, false, 1.0f, sec_reach);
+  const V3 sec = direct_light<EMIT, GROUPED>(sc, L, bpx, bpy, bpz, h.nx, h.ny, h.nz,
+                                             sdx, sdy, sdz, h.dfr, h.dfg, h.dfb, h.met,
+                                             h.rgh, su0, su1, hit_geo, false, 1.0f,
+                                             sec_reach);
   V3 out;
   out.x = 0.0f; out.y = 0.0f; out.z = 0.0f;
   if (!(hit_light || hit_geo)) return out;
@@ -498,30 +547,33 @@ __device__ __forceinline__ V3 bounce_strategy(const Tables& sc, const Light& L,
   return out;
 }
 
-template <bool EMIT>
+template <bool EMIT, bool GROUPED>
 __global__ void __launch_bounds__(BLOCK_THREADS) mis_kernel(const MisParams p) {
-  extern __shared__ float4 smem4[];
-  float* s_geo = reinterpret_cast<float*>(smem4);          // [T][12]
-  float* s_shadow = s_geo + GEO_ROWS * p.num_tris;         // [n_shadow][12]
-  float* s_attr = s_shadow + GEO_ROWS * p.n_shadow;        // [T + S][12]
-  float* s_tab = s_attr + ATTR_ROWS * (p.num_tris + p.num_spheres);  // [s_per][16]
-  float* s_sph = s_tab + TAB_ROWS * p.s_per;               // [S][4]
-
   const int T = p.num_tris;
   const int S = p.num_spheres;
   const int P = T + S;
   const int s_per = p.s_per;
-  for (int k = threadIdx.x; k < GEO_ROWS * T; k += blockDim.x) {
-    const int t = k / GEO_ROWS, r = k - t * GEO_ROWS;
-    s_geo[k] = p.tri[r * T + t];
-  }
-  for (int k = threadIdx.x; k < GEO_ROWS * p.n_shadow; k += blockDim.x) {
-    const int j = k / GEO_ROWS, r = k - j * GEO_ROWS;
-    s_shadow[k] = p.tri[r * T + p.shadow_idx[j]];
-  }
-  for (int k = threadIdx.x; k < ATTR_ROWS * P; k += blockDim.x) {
-    const int q = k / ATTR_ROWS, r = k - q * ATTR_ROWS;
-    s_attr[k] = p.atab[r * P + q];
+  // The grouped tier stages only the sample table and the spheres.
+  extern __shared__ float4 smem4[];
+  float* s_geo = reinterpret_cast<float*>(smem4);                    // [T][12]
+  float* s_shadow = s_geo + (GROUPED ? 0 : GEO_ROWS * T);            // [n_shadow][12]
+  float* s_attr = s_shadow + (GROUPED ? 0 : GEO_ROWS * p.n_shadow);  // [T + S][12]
+  float* s_tab = s_attr + (GROUPED ? 0 : ATTR_ROWS * P);             // [s_per][16]
+  float* s_sph = s_tab + TAB_ROWS * s_per;                           // [S][4]
+
+  if (!GROUPED) {
+    for (int k = threadIdx.x; k < GEO_ROWS * T; k += blockDim.x) {
+      const int t = k / GEO_ROWS, r = k - t * GEO_ROWS;
+      s_geo[k] = p.tri[r * T + t];
+    }
+    for (int k = threadIdx.x; k < GEO_ROWS * p.n_shadow; k += blockDim.x) {
+      const int j = k / GEO_ROWS, r = k - j * GEO_ROWS;
+      s_shadow[k] = p.tri[r * T + p.shadow_idx[j]];
+    }
+    for (int k = threadIdx.x; k < ATTR_ROWS * P; k += blockDim.x) {
+      const int q = k / ATTR_ROWS, r = k - q * ATTR_ROWS;
+      s_attr[k] = p.atab[r * P + q];
+    }
   }
   for (int k = threadIdx.x; k < TAB_ROWS * s_per; k += blockDim.x) {
     const int s = k / TAB_ROWS, r = k - s * TAB_ROWS;
@@ -536,9 +588,15 @@ __global__ void __launch_bounds__(BLOCK_THREADS) mis_kernel(const MisParams p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n_local) return;
 
-  Tables sc;
-  sc.geo = s_geo; sc.shadow = s_shadow; sc.sph = s_sph; sc.attr = s_attr;
+  TablesT<GROUPED> sc;
+  sc.geo = s_geo; sc.shadow = s_shadow; sc.sph = s_sph;
+  sc.attr = GROUPED ? p.atab : s_attr;
   sc.T = T; sc.S = S; sc.n_shadow = p.n_shadow;
+  if constexpr (GROUPED) {
+    sc.ggeo = p.geo; sc.aabb = p.aabb; sc.sup = p.sup;
+    sc.sgeo = p.sgeo; sc.saabb = p.saabb; sc.ssup = p.ssup;
+    sc.n_super = p.n_super; sc.n_shadow_super = p.n_shadow_super;
+  }
 
   Light L;
   L.cx = p.light[0]; L.cy = p.light[1]; L.cz = p.light[2];
@@ -579,7 +637,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS) mis_kernel(const MisParams p) {
     const V3 d = normalize3(s * uhx + t * vhx - wvx, s * uhy + t * vhy - wvy,
                             s * uhz + t * vhz - wvz);
 
-    const Surface h = closest_full(sc, posx, posy, posz, d.x, d.y, d.z);
+    const Surface h = closest_full<GROUPED>(sc, posx, posy, posz, d.x, d.y, d.z);
     if (EMIT) p.cam_rec[(size_t)cr * n_local + i] = h.hit ? h.prim + 1 : 0;
     if (h.hit && h.isem) { acc_r += L.er; acc_g += L.eg; acc_b += L.eb; }
     const bool surf = h.hit && !h.isem;
@@ -605,9 +663,10 @@ __global__ void __launch_bounds__(BLOCK_THREADS) mis_kernel(const MisParams p) {
 
       // Strategy 1: the light rectangle.
       bool reach1;
-      const V3 s1 = direct_light<EMIT>(sc, L, p_x, p_y, p_z, nhx, nhy, nhz, d.x, d.y,
-                                       d.z, h.dfr, h.dfg, h.dfb, h.met, h.rgh, ta.x,
-                                       ta.y, surf, true, s_per_f, &reach1);
+      const V3 s1 = direct_light<EMIT, GROUPED>(sc, L, p_x, p_y, p_z, nhx, nhy, nhz,
+                                                d.x, d.y, d.z, h.dfr, h.dfg, h.dfb,
+                                                h.met, h.rgh, ta.x, ta.y, surf, true,
+                                                s_per_f, &reach1);
 
       // Strategy 2: the cosine lobe.
       const V3 cd = cosine_direction(fr, nhx, nhy, nhz, tc.z, tc.w, td.x);
@@ -617,10 +676,9 @@ __global__ void __launch_bounds__(BLOCK_THREADS) mis_kernel(const MisParams p) {
       const float w_c = power_heuristic_3(pdf_c, pdf_l, pdf_v, s_per_f);
       int prim_c;
       bool reach2;
-      const V3 s2 = bounce_strategy<EMIT>(sc, L, p_x, p_y, p_z, nhx, nhy, nhz, d.x,
-                                          d.y, d.z, h.dfr, h.dfg, h.dfb, h.met, h.rgh,
-                                          surf, cd.x, cd.y, cd.z, pdf_c, w_c, tb.x,
-                                          tb.y, &prim_c, &reach2);
+      const V3 s2 = bounce_strategy<EMIT, GROUPED>(
+          sc, L, p_x, p_y, p_z, nhx, nhy, nhz, d.x, d.y, d.z, h.dfr, h.dfg, h.dfb, h.met,
+          h.rgh, surf, cd.x, cd.y, cd.z, pdf_c, w_c, tb.x, tb.y, &prim_c, &reach2);
 
       // Strategy 3: the visible-normal lobe.
       const V3 vd = vndf_direction(fr, nhx, nhy, nhz, d.x, d.y, d.z, td.y, td.z, td.w);
@@ -631,10 +689,9 @@ __global__ void __launch_bounds__(BLOCK_THREADS) mis_kernel(const MisParams p) {
       const float w_v = power_heuristic_3(pdf_v2, pdf_l2, pdf_c2, s_per_f);
       int prim_v;
       bool reach3;
-      const V3 s3 = bounce_strategy<EMIT>(sc, L, p_x, p_y, p_z, nhx, nhy, nhz, d.x,
-                                          d.y, d.z, h.dfr, h.dfg, h.dfb, h.met, h.rgh,
-                                          surf, vdx, vdy, vdz, pdf_v2, w_v, tc.x,
-                                          tc.y, &prim_v, &reach3);
+      const V3 s3 = bounce_strategy<EMIT, GROUPED>(
+          sc, L, p_x, p_y, p_z, nhx, nhy, nhz, d.x, d.y, d.z, h.dfr, h.dfg, h.dfb, h.met,
+          h.rgh, surf, vdx, vdy, vdz, pdf_v2, w_v, tc.x, tc.y, &prim_v, &reach3);
 
       if (EMIT) {
         p.samp_rec[((size_t)cr * s_per + n) * n_local + i] =
@@ -657,51 +714,76 @@ __global__ void __launch_bounds__(BLOCK_THREADS) mis_kernel(const MisParams p) {
   p.hdr[2 * n_local + i] = acc_b;
 }
 
+// Opts in to shared memory beyond the 48 KiB every launch may have (a long
+// sample table: more than about 2,000 samples at 36 triangles), then launches.
+template <bool EMIT, bool GROUPED>
+cudaError_t launch_mis(const MisParams& p, size_t smem, cudaStream_t st) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mis_kernel<EMIT, GROUPED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int grid = (p.n_local + BLOCK_THREADS - 1) / BLOCK_THREADS;
+  mis_kernel<EMIT, GROUPED><<<grid, BLOCK_THREADS, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches mis_kernel on `stream`; returns cudaGetLastError() as an int.
+// grouped != 0 takes the grouped tier: atab is then the transposed [T + S][12]
+// table, geo / aabb / sup and sgeo / saabb / ssup the two sweeps' tables with
+// n_super and n_shadow_super supers, and shadow_idx is not read.
 int grt_mis_trace(const float* cam, const float* light, const float* tri,
                   const float* sph, const float* atab, const float* tab,
                   const int32_t* shadow_idx, float* hdr, int32_t* cam_rec,
-                  int32_t* samp_rec, int n_local, int rid_base, int width,
+                  int32_t* samp_rec, const float* geo, const float* aabb,
+                  const float* sup, const float* sgeo, const float* saabb,
+                  const float* ssup, int n_local, int rid_base, int width,
                   int height, int camera_rays, int s_per, int num_tris,
-                  int num_spheres, int n_shadow, int emit_records, void* stream) {
+                  int num_spheres, int n_shadow, int emit_records, int n_super,
+                  int n_shadow_super, int grouped, void* stream) {
   MisParams p;
   p.cam = cam; p.light = light; p.tri = tri; p.sph = sph; p.atab = atab; p.tab = tab;
   p.shadow_idx = shadow_idx; p.hdr = hdr; p.cam_rec = cam_rec; p.samp_rec = samp_rec;
+  p.geo = reinterpret_cast<const float4*>(geo);
+  p.aabb = reinterpret_cast<const float4*>(aabb);
+  p.sup = reinterpret_cast<const float4*>(sup);
+  p.sgeo = reinterpret_cast<const float4*>(sgeo);
+  p.saabb = reinterpret_cast<const float4*>(saabb);
+  p.ssup = reinterpret_cast<const float4*>(ssup);
   p.n_local = n_local; p.rid_base = rid_base; p.width = width; p.height = height;
   p.camera_rays = camera_rays; p.s_per = s_per; p.num_tris = num_tris;
   p.num_spheres = num_spheres; p.n_shadow = n_shadow;
+  p.n_super = n_super; p.n_shadow_super = n_shadow_super;
 
   if (n_local <= 0 || camera_rays <= 0 || s_per <= 0 || width <= 0 || height <= 0
       || rid_base < 0 || (long long)rid_base + n_local > (long long)width * height) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = sizeof(float) * ((size_t)GEO_ROWS * (num_tris + n_shadow)
-                                       + (size_t)ATTR_ROWS * (num_tris + num_spheres)
-                                       + (size_t)TAB_ROWS * s_per
-                                       + (size_t)SPH_ROWS * num_spheres);
+  if (grouped && (geo == nullptr || aabb == nullptr || sup == nullptr || sgeo == nullptr
+                  || saabb == nullptr || ssup == nullptr || n_super <= 0
+                  || n_shadow_super <= 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  size_t smem = sizeof(float) * ((size_t)TAB_ROWS * s_per + (size_t)SPH_ROWS * num_spheres);
+  if (!grouped) {
+    smem += sizeof(float) * ((size_t)GEO_ROWS * (num_tris + n_shadow)
+                             + (size_t)ATTR_ROWS * (num_tris + num_spheres));
+  }
   if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
-  // Beyond the 48 KiB every launch may have, a kernel asks for its size first
-  // (a long sample table: more than about 2,000 samples at 36 triangles).
-  if (smem > 48 * 1024) {
-    const cudaError_t err = emit_records
-        ? cudaFuncSetAttribute(mis_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
-        : cudaFuncSetAttribute(mis_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int grid = (n_local + BLOCK_THREADS - 1) / BLOCK_THREADS;
   cudaStream_t st = (cudaStream_t)stream;
-  if (emit_records) {
-    mis_kernel<true><<<grid, BLOCK_THREADS, smem, st>>>(p);
+  cudaError_t err;
+  if (grouped) {
+    err = emit_records ? launch_mis<true, true>(p, smem, st)
+                       : launch_mis<false, true>(p, smem, st);
   } else {
-    mis_kernel<false><<<grid, BLOCK_THREADS, smem, st>>>(p);
+    err = emit_records ? launch_mis<true, false>(p, smem, st)
+                       : launch_mis<false, false>(p, smem, st);
   }
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 }  // extern "C"

@@ -322,7 +322,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS) path_kernel(const PathParams p)
       if (GROUPED) {
         // The culled triangles by the sweep, then the spheres (no triangle).
         occ = occluded_grouped(p.sgeo, p.saabb, p.ssup, p.n_shadow_super, p.n_shadow,
-                               hx, hy, hz, ldx, ldy, ldz, ldist - 1e-3f)
+                               hx, hy, hz, ldx, ldy, ldz, 0.0f, ldist - 1e-3f)
               || occluded(s_shadow, 0, s_sph, S, hx, hy, hz, ldx, ldy, ldz,
                           ldist - 1e-3f);
       } else {

@@ -8,7 +8,9 @@
 // recorded the same primitive are summed by a butterfly of shuffles and added
 // by one lane to that warp's own copy of the table in shared memory; warps are
 // then summed in index order into one partial per block, and
-// reduce_partials_kernel sums the partials in block order in float64.
+// reduce_partials_kernel sums the partials in block order in float64.  The
+// grouped backwards keep one table per warp in global memory instead, on a
+// persistent grid that persistent_blocks sizes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -73,6 +75,39 @@ inline void launch_reduce_partials(const float* partials, int blocks, int count,
   const dim3 rblock(REDUCE_X, REDUCE_Y);
   reduce_partials_kernel<<<(count + REDUCE_X - 1) / REDUCE_X, rblock, 0, stream>>>(
       partials, blocks, count, out);
+}
+
+// Opts a kernel in to dynamic shared memory beyond the 48 KiB every launch
+// may have.
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// Blocks of a grouped backward's persistent grid on the current device, for
+// blocks of `threads` threads with `smem` bytes of dynamic shared memory: the
+// blocks the card holds at once, at most one per threads / 32 of the `tiles`
+// 32-item tiles, and at most as many as keep one table of `row_floats` floats
+// per warp within 1 GiB.  0 means the occupancy query failed.
+template <class Kernel>
+inline int persistent_blocks(Kernel kernel, int threads, size_t smem, int tiles,
+                             size_t row_floats) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (allow_smem(kernel, smem) != cudaSuccess || cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess
+      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)
+             != cudaSuccess
+      || sms * per_sm <= 0) {
+    return 0;
+  }
+  const int warps = threads / 32;
+  const size_t cap = ((size_t)1 << 30) / (sizeof(float) * warps * row_floats);
+  int blocks = sms * per_sm;
+  if (blocks > (tiles + warps - 1) / warps) blocks = (tiles + warps - 1) / warps;
+  if ((size_t)blocks > cap) blocks = (int)cap;
+  return blocks > 0 ? blocks : 1;
 }
 
 }  // namespace grt

@@ -623,19 +623,6 @@ shade_bwd_grouped_kernel(const ShadeParams p) {
   }
 }
 
-template <bool SPH, bool RNG>
-int grouped_resident_blocks() {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess
-      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess
-      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, shade_bwd_grouped_kernel<SPH, RNG>, BLOCK_THREADS, 0)
-             != cudaSuccess) {
-    return 0;
-  }
-  return sms * per_sm;
-}
-
 }  // namespace
 
 extern "C" {
@@ -653,17 +640,15 @@ int grt_shade_bwd_blocks(int n_local) {
 // it; 0 means the occupancy query failed.
 int grt_shade_bwd_grouped_blocks(int n_local, int num_prims, int has_spheres,
                                  int recompute_rng) {
-  const int resident =
-      has_spheres ? (recompute_rng ? grouped_resident_blocks<true, true>()
-                                   : grouped_resident_blocks<true, false>())
-                  : (recompute_rng ? grouped_resident_blocks<false, true>()
-                                   : grouped_resident_blocks<false, false>());
-  if (resident <= 0) return 0;
+  const int tiles = (n_local + 31) / 32;
   const size_t row = (size_t)num_prims * (has_spheres ? 14 : 10) + NSCAL;
-  const size_t cap = ((size_t)1 << 30) / (sizeof(float) * WARPS * row);
-  int blocks = min(resident, grt_shade_bwd_blocks(n_local));
-  if ((size_t)blocks > cap) blocks = (int)cap;
-  return blocks > 0 ? blocks : 1;
+  const auto blocks = [&](auto kernel) {
+    return grt::persistent_blocks(kernel, BLOCK_THREADS, 0, tiles, row);
+  };
+  return has_spheres ? (recompute_rng ? blocks(shade_bwd_grouped_kernel<true, true>)
+                                      : blocks(shade_bwd_grouped_kernel<true, false>))
+                     : (recompute_rng ? blocks(shade_bwd_grouped_kernel<false, true>)
+                                      : blocks(shade_bwd_grouped_kernel<false, false>));
 }
 
 // Launches shade_bwd_kernel (grouped == 0: table [nrows, P], partials

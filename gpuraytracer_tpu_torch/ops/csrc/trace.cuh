@@ -1,6 +1,7 @@
 // Ray-primitive tests shared by the port's trace kernels (sm_90a):
-// path_kernel (path_kernels.cu) and silh_kernel (soft_kernels.cu); the
-// grouped sweep (closest_grouped, occluded_grouped) is path_kernel's alone.
+// path_kernel (path_kernels.cu), mis_kernel (mis_kernels.cu) and silh_kernel
+// (soft_kernels.cu); the grouped sweep (closest_grouped, occluded_grouped)
+// serves the grouped tiers of path_kernel and mis_kernel.
 //
 // One definition, in the operation order of the plain versions
 // (intersect.triangle_candidates / sphere_candidates), so that the kernels
@@ -167,13 +168,14 @@ __device__ __forceinline__ void closest_grouped(
   }
 }
 
-// Shadow probe over n triangles by the grouped sweep: any hit in (0, t_max);
-// the boxes are tested against t_max (1 + slack) + slack, and the sweep ends
-// at the first occluder.
+// Shadow probe over n triangles by the grouped sweep: any hit in (t_min,
+// t_max) (the path tracer's probe takes t_min = 0, the MIS light probe
+// RAY_TMIN); the boxes are tested against t_max (1 + slack) + slack, and the
+// sweep ends at the first occluder.
 __device__ __forceinline__ bool occluded_grouped(
     const float4* __restrict__ geo, const float4* __restrict__ aabb,
     const float4* __restrict__ sup, int n_super, int n, float hx, float hy, float hz,
-    float ldx, float ldy, float ldz, float t_max) {
+    float ldx, float ldy, float ldz, float t_min, float t_max) {
   const float ivx = safe_inv(ldx), ivy = safe_inv(ldy), ivz = safe_inv(ldz);
   const float t_seg = t_max * FAR_SCALE + FAR_SLACK;
   for (int sg = 0; sg < n_super; ++sg) {
@@ -186,7 +188,7 @@ __device__ __forceinline__ bool occluded_grouped(
         float den, tt, u, v;
         triangle_plane(__ldg(geo + 3 * k), __ldg(geo + 3 * k + 1), __ldg(geo + 3 * k + 2),
                        hx, hy, hz, ldx, ldy, ldz, &den, &tt, &u, &v);
-        if (triangle_inside(den, tt, u, v, 0.0f, t_max)) return true;
+        if (triangle_inside(den, tt, u, v, t_min, t_max)) return true;
       }
     }
   }

@@ -1,13 +1,18 @@
 """The variant-A MIS integrator's kernel on the card, and its plain PyTorch
 version.
 
-Counterpart of ``gpuraytracer_tpu/ops/pallas_mis.py`` (static tier: at most
-64 triangles, plus analytic spheres):
+Counterpart of ``gpuraytracer_tpu/ops/pallas_mis.py``, both tiers: the
+static tier (at most 64 triangles, plus analytic spheres) tests every
+triangle; the grouped tier (any triangle count below the record encoding's
+limit) sweeps the two-level box hierarchy of the path tracer's grouped tier
+(``cuda_path.group_aabbs``, ``csrc/trace.cuh``), the light probes over the
+occluder-culled shadow table:
 
   * ``render_mis_cuda_impl``  the full camera-ray x sample loop
     (``mis_kernel``): hdr only, or with ``emit_records`` the two int32
     decision streams beside it; optional occluder cull of the light probes;
-    ``local_n`` / ``rid_base`` / ``flat_output`` render a pixel range.
+    ``local_n`` / ``rid_base`` / ``flat_output`` render a pixel range;
+    ``grouped`` forces a tier.
   * ``render_mis_cuda``       the entry point, hdr only; differentiable: its
     backward is autograd through the eager oracle (``render.render_mis``),
     as the JAX package's ``render_mis_pallas`` is. The fast differentiable
@@ -39,8 +44,10 @@ from ..render import _mis_chunk, _mis_sample_tables, pixel_coords
 from ..types import RenderConfig, Scene
 from ..utils.host import resolve_device
 from . import _build
-from .cuda_path import (STATIC_TIER_MAX, _raise_on_launch_error, _require,
-                        camera_vector, shadow_indices)
+from .cuda_path import (GroupedTables, _pack_grouped, _raise_on_launch_error,
+                        _require, camera_vector, closest_grouped,
+                        grouped_launch_tables, grouped_tier, occluded_grouped,
+                        shadow_indices)
 
 # Rows of the packed tables (the JAX package's layout).
 NROWS = 21   # tri: n xyz, c0, s1 xyz, c1, s2 xyz, c2, diffuse rgb, is_em, emissive rgb, metallic, roughness
@@ -76,8 +83,9 @@ _SMEM_LIMIT = 227 * 1024
 BACKWARD_LANE_STEPS = 1 << 21
 
 # Kernel launches since the process started (or since a caller reset them):
-# the wrapper adds one where it launches the kernel and nowhere else.
-LAUNCHES = {"mis_kernel": 0}
+# the wrapper adds one where it launches the kernel and nowhere else. The
+# grouped tier (K4g) counts apart from the static tier.
+LAUNCHES = {"mis_kernel": 0, "mis_kernel_grouped": 0}
 
 
 class MisRecords(NamedTuple):
@@ -97,6 +105,7 @@ class PackedMisScene(NamedTuple):
     atab: torch.Tensor   # [NATTR, T + S]
     tabs: torch.Tensor   # [NTAB_EXT, s_per]
     num_spheres: int
+    grouped: Optional[GroupedTables] = None  # the grouped tier's tables
 
 
 def sample_table(config: RenderConfig) -> torch.Tensor:
@@ -122,13 +131,17 @@ def sample_table(config: RenderConfig) -> torch.Tensor:
     return torch.cat([rows, derived], dim=0)
 
 
-def _pack_inputs(scene: Scene, config: RenderConfig) -> PackedMisScene:
+def _pack_inputs(scene: Scene, config: RenderConfig, grouped: bool = False,
+                 occluders=None) -> PackedMisScene:
     """Marshal a scene for the kernel: triangle constants to a [NROWS, T]
     table, the camera to a prescaled basis, the light to 17 scalars with its
     frame built here (the branching basis the oracle uses), sphere geometry
     to a [SROWS, S] table, the shading attributes of every primitive
     (triangles first, then spheres) to a [NATTR, T + S] table read by the
-    winner's index, and the sample table."""
+    winner's index, and the sample table. ``grouped`` adds the grouped
+    tier's tables from the first 12 rows of the triangle table, the light
+    probes' table culled by ``occluders`` (the JAX package's
+    ``pallas_mis._pack_inputs(grouped=True)``)."""
     c = compile_scene(scene.triangles)
     f32 = torch.float32
     tri = torch.stack([
@@ -181,29 +194,43 @@ def _pack_inputs(scene: Scene, config: RenderConfig) -> PackedMisScene:
         light=light_vec.contiguous(), sph=sph.contiguous(),
         atab=atab.contiguous(),
         tabs=sample_table(config).to(dev).contiguous(),
-        num_spheres=sp.num_spheres)
+        num_spheres=sp.num_spheres,
+        grouped=_pack_grouped(scene, tri, occluders) if grouped else None)
 
 
 # ---------------------------------------------------------------------------
 # The plain version
 # ---------------------------------------------------------------------------
 
-def render_mis_plain(n_local: int, rid_base: int, packed: PackedMisScene,
-                     shadow_idx: torch.Tensor, config: RenderConfig,
-                     emit_records: bool):
+def render_mis_plain(n_local: int, rid_base, packed: PackedMisScene,
+                     shadow_idx: Optional[torch.Tensor],
+                     config: RenderConfig, emit_records: bool,
+                     stats: Optional[dict] = None):
     """Plain PyTorch version of ``mis_kernel`` on the same inputs: the pixel
     range [rid_base, rid_base + n_local), the packed scene, the indices of
     the triangles kept in the light probes. Returns (hdr [3, n] float32,
     MisRecords or None). The arithmetic and its order are the kernel's
     (planar f32 math over [n] tensors, the [n, T] candidate tests of
-    ``intersect.py``, the derived rows of the sample table, the constant
-    cosThetaMax, the probe over the culled subset), not the oracle's; every
-    lane runs every step masked, and records are written for every (camera
-    ray, sample, pixel). Pixels go through in chunks of
-    ``config.pixel_chunk``."""
+    ``intersect.py`` or, where ``packed`` holds the grouped tables, the
+    grouped sweep (``cuda_path.closest_grouped``, ``occluded_grouped``;
+    ``shadow_idx`` is then unused, and may be None: the cull is in the
+    shadow table), the
+    derived rows of the sample table, the constant cosThetaMax, the probe
+    over the culled subset), not the oracle's; every lane runs every step
+    masked, and records are written for every (camera ray, sample, pixel).
+    Pixels go through in chunks of ``config.pixel_chunk``. ``rid_base``: the
+    first pixel's id, or the ids of all n_local pixels (an int64 tensor: a
+    sample of pixels from anywhere in the frame). ``stats``: a dict that the
+    grouped sweep adds its rays, box tests and triangle tests to, under
+    "camera" (primary rays), "closest" (the lobe rays) and "shadow" (the
+    light probes): live lanes, and with the suffix "_all" all lanes."""
+    def rid(s):
+        return (rid_base + s if isinstance(rid_base, int)
+                else rid_base[s:s + config.pixel_chunk])
+
     outs = [
-        _plain_chunk(min(config.pixel_chunk, n_local - s), rid_base + s,
-                     packed, shadow_idx, config, emit_records)
+        _plain_chunk(min(config.pixel_chunk, n_local - s), rid(s), packed,
+                     shadow_idx, config, emit_records, stats)
         for s in range(0, n_local, config.pixel_chunk)
     ]
     hdr = torch.cat([o[0] for o in outs], dim=-1)
@@ -213,7 +240,8 @@ def render_mis_plain(n_local: int, rid_base: int, packed: PackedMisScene,
                            torch.cat([o[2] for o in outs], dim=-1))
 
 
-def _plain_chunk(n_local, rid_base, packed, shadow_idx, config, emit_records):
+def _plain_chunk(n_local, rid_base, packed, shadow_idx, config, emit_records,
+                 stats):
     f32 = torch.float32
     dev = packed.tri.device
     W, H = config.width, config.height
@@ -228,12 +256,18 @@ def _plain_chunk(n_local, rid_base, packed, shadow_idx, config, emit_records):
         return (rows[0:3].T, rows[3], rows[4:7].T, rows[7], rows[8:11].T,
                 rows[11])
 
-    geo_all = geo(tri)
-    geo_shadow = geo(tri[:, shadow_idx.long()])
+    grp = packed.grouped
+    if grp is None:
+        geo_all = geo(tri)
+        geo_shadow = geo(tri[:, shadow_idx.long()])
+    elif stats is not None:
+        for key in ("camera", "closest", "shadow"):
+            stats.setdefault(key, {})
     sph_center = packed.sph[0:3].T[:S]
     sph_radius = packed.sph[3][:S]
 
-    rid = rid_base + torch.arange(n_local, dtype=torch.int64, device=dev)
+    rid = (rid_base + torch.arange(n_local, dtype=torch.int64, device=dev)
+           if isinstance(rid_base, int) else rid_base.to(dev, torch.int64))
     xi, yi = rid % W, rid // W
     px, py = xi.to(f32), yi.to(f32)
     cam = packed.cam
@@ -318,16 +352,31 @@ def _plain_chunk(n_local, rid_base, packed, shadow_idx, config, emit_records):
         cos_t = torch.clamp_min(-(dx * lnx + dy * lny + dz * lnz), 0.0)
         return dist2 / (lw * ld * cos_t + 1e-6)
 
-    def closest_full(ox, oy, oz, dx, dy, dz):
+    def sweep_stats(key):
+        return None if stats is None else stats[key]
+
+    def closest_full(ox, oy, oz, dx, dy, dz, live, key):
         o, d = vec(ox, oy, oz), vec(dx, dy, dz)
-        t_all, valid = triangle_candidates(*geo_all, o, d, RAY_TMIN, RAY_TMAX)
-        if S:
-            t_s, valid_s = sphere_candidates(sph_center, sph_radius, o, d,
-                                             RAY_TMIN, RAY_TMAX)
-            t_all = torch.cat([t_all, t_s], dim=-1)
-            valid = torch.cat([valid, valid_s], dim=-1)
-        t_masked = torch.where(valid, t_all, torch.full_like(t_all, _BIG))
-        t_best, winner = torch.min(t_masked, dim=-1)  # first minimum
+        if grp is None:
+            t_all, valid = triangle_candidates(*geo_all, o, d, RAY_TMIN,
+                                               RAY_TMAX)
+            if S:
+                t_s, valid_s = sphere_candidates(sph_center, sph_radius, o, d,
+                                                 RAY_TMIN, RAY_TMAX)
+                t_all = torch.cat([t_all, t_s], dim=-1)
+                valid = torch.cat([valid, valid_s], dim=-1)
+            t_masked = torch.where(valid, t_all, torch.full_like(t_all, _BIG))
+            t_best, winner = torch.min(t_masked, dim=-1)  # first minimum
+        else:
+            t_best, winner = closest_grouped(grp, o, d, live,
+                                             sweep_stats(key))
+            if S:  # spheres after the triangles, strict <
+                t_s, valid_s = sphere_candidates(sph_center, sph_radius, o, d,
+                                                 RAY_TMIN, RAY_TMAX)
+                for k in range(S):
+                    closer = valid_s[:, k] & (t_s[:, k] < t_best)
+                    t_best = torch.where(closer, t_s[:, k], t_best)
+                    winner = torch.where(closer, T + k, winner)
         hit = t_best < _BIG * 0.5
         prim = torch.where(hit, winner, torch.full_like(winner, -1))
         # A miss reads row 0; every use is gated by ``hit``.
@@ -344,10 +393,15 @@ def _plain_chunk(n_local, rid_base, packed, shadow_idx, config, emit_records):
         return (hit, t_best, prim, nx, ny, nz, (at[3], at[4], at[5]), at[6],
                 at[7], at[8] > 0.5)
 
-    def light_reachable(ox, oy, oz, dx, dy, dz, t_max):
+    def light_reachable(ox, oy, oz, dx, dy, dz, t_max, live):
         o, d = vec(ox, oy, oz), vec(dx, dy, dz)
-        _, blocked = triangle_candidates(*geo_shadow, o, d, RAY_TMIN, t_max)
-        occ = blocked.any(dim=-1)
+        if grp is None:
+            _, blocked = triangle_candidates(*geo_shadow, o, d, RAY_TMIN,
+                                             t_max)
+            occ = blocked.any(dim=-1)
+        else:
+            occ = occluded_grouped(grp, o, d, t_max, live,
+                                   sweep_stats("shadow"), t_min=RAY_TMIN)
         if S:
             _, blocked_s = sphere_candidates(sph_center, sph_radius, o, d,
                                              RAY_TMIN, t_max)
@@ -368,7 +422,7 @@ def _plain_chunk(n_local, rid_base, packed, shadow_idx, config, emit_records):
         # Plain division: the first Halton sample is the light's corner.
         ldx, ldy, ldz = tox / dist, toy / dist, toz / dist
         reach = light_reachable(ox, oy, oz, ldx, ldy, ldz,
-                                dist * (1.0 - 1e-4))
+                                dist * (1.0 - 1e-4), active)
         pdf_l = square_light_pdf(p_x, p_y, p_z, ldx, ldy, ldz)
         vx, vy, vz = -inx, -iny, -inz
         f = brdf(vx, vy, vz, nx, ny, nz, df, met, rgh, ldx, ldy, ldz)
@@ -386,7 +440,7 @@ def _plain_chunk(n_local, rid_base, packed, shadow_idx, config, emit_records):
                         rgh, active, sdx, sdy, sdz, pdf_self, w, su0, su1):
         ox, oy, oz = p_x + nx * 1e-4, p_y + ny * 1e-4, p_z + nz * 1e-4
         (hit, t2, prim2, n2x, n2y, n2z, d2, m2, r2,
-         isem2) = closest_full(ox, oy, oz, sdx, sdy, sdz)
+         isem2) = closest_full(ox, oy, oz, sdx, sdy, sdz, active, "closest")
         f = brdf(-inx, -iny, -inz, nx, ny, nz, df, met, rgh, sdx, sdy, sdz)
         pdf_ok = pdf_self > 0.0
         inv_pdf = torch.where(
@@ -418,7 +472,7 @@ def _plain_chunk(n_local, rid_base, packed, shadow_idx, config, emit_records):
         ox, oy, oz = (zero + pos[k] for k in range(3))
 
         (hit, t_hit, prim_cam, nhx, nhy, nhz, df, met, rgh,
-         isem) = closest_full(ox, oy, oz, dx, dy, dz)
+         isem) = closest_full(ox, oy, oz, dx, dy, dz, None, "camera")
         if emit_records:
             cam_rec.append(torch.where(hit, prim_cam + 1,
                                        torch.zeros_like(prim_cam))
@@ -522,16 +576,18 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signature declared."""
     lib = _build.load_library("mis_kernels").lib
     if lib.grt_mis_trace.argtypes is None:
-        lib.grt_mis_trace.argtypes = [_PTR] * 10 + [_INT] * 10 + [_PTR]
+        lib.grt_mis_trace.argtypes = [_PTR] * 16 + [_INT] * 13 + [_PTR]
         lib.grt_mis_trace.restype = _INT
     return lib
 
 
 def mis_trace_kernel(n_local: int, rid_base: int, packed: PackedMisScene,
-                     shadow_idx: torch.Tensor, config: RenderConfig,
-                     emit_records: bool):
+                     shadow_idx: Optional[torch.Tensor],
+                     config: RenderConfig, emit_records: bool):
     """Launch ``mis_kernel`` on the card. Same arguments and results as
-    ``render_mis_plain``, with ``shadow_idx`` int32."""
+    ``render_mis_plain`` (``rid_base`` an int), with ``shadow_idx`` int32.
+    Where ``packed`` holds the grouped tables the grouped tier runs (K4g)
+    and ``shadow_idx`` is not read (None will do)."""
     dev = packed.tri.device
     if dev.type != "cuda":
         raise ValueError("mis_trace_kernel needs CUDA tensors")
@@ -539,32 +595,38 @@ def mis_trace_kernel(n_local: int, rid_base: int, packed: PackedMisScene,
     T = packed.tri.shape[1]
     S = packed.num_spheres
     s_per = config.mis_samples // 3
-    n_shadow = shadow_idx.shape[0]
-    if T > STATIC_TIER_MAX:
-        raise NotImplementedError(
-            f"{T} triangles: the static-tier kernel takes at most "
-            f"{STATIC_TIER_MAX} (grouped tier: later slice)")
-    smem = 4 * (12 * (T + n_shadow) + NATTR * (T + S) + NTAB_EXT * s_per
-                + SROWS * S)
+    grp = packed.grouped
+    n_shadow = shadow_idx.shape[0] if grp is None else grp.num_shadow
+    # The static tier stages the scene tables; the grouped tier only the
+    # sample table and the spheres.
+    smem = 4 * (NTAB_EXT * s_per + SROWS * S)
+    if grp is None:
+        smem += 4 * (12 * (T + n_shadow) + NATTR * (T + S))
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"scene and sample tables need {smem} B of shared memory; the "
             f"kernel stages at most {_SMEM_LIMIT} B (fewer samples per "
-            "strategy or spheres, or a later tier)")
+            "strategy or spheres, or the grouped tier: grouped=True)")
     if n_local < 1 or rid_base < 0 or rid_base + n_local > config.num_pixels:
         raise ValueError(
             f"pixel range [{rid_base}, {rid_base + n_local}) is not inside "
             f"the frame's {config.num_pixels} pixels")
 
     lib = _library()
+    atab = _require(packed.atab, "atab", f32, (NATTR, T + S), dev)
+    if grp is None:
+        idx = _require(shadow_idx, "shadow_idx", i32, (n_shadow,), dev)
+        tables, supers = [None] * 6, (0, 0)
+    else:
+        atab_t = packed.atab.T.contiguous()  # [T + S][12], held to the launch
+        atab, idx = atab_t.data_ptr(), None
+        tables, supers = grouped_launch_tables(grp, dev)
     ptrs = [
         _require(packed.cam, "cam", f32, (12,), dev),
         _require(packed.light, "light", f32, (NLIGHT,), dev),
         _require(packed.tri, "tri", f32, (NROWS, T), dev),
         _require(packed.sph, "sph", f32, (SROWS, max(S, 1)), dev),
-        _require(packed.atab, "atab", f32, (NATTR, T + S), dev),
-        _require(packed.tabs, "tabs", f32, (NTAB_EXT, s_per), dev),
-        _require(shadow_idx, "shadow_idx", i32, (n_shadow,), dev),
+        atab, _require(packed.tabs, "tabs", f32, (NTAB_EXT, s_per), dev), idx,
     ]
     hdr = torch.empty((3, n_local), dtype=f32, device=dev)
     rec = None
@@ -578,11 +640,14 @@ def mis_trace_kernel(n_local: int, rid_base: int, packed: PackedMisScene,
             *ptrs, hdr.data_ptr(),
             rec.camera.data_ptr() if emit_records else None,
             rec.samples.data_ptr() if emit_records else None,
+            *[None if t is None else t.data_ptr() for t in tables],
             n_local, rid_base, config.width, config.height,
             config.camera_rays, s_per, T, S, n_shadow, int(emit_records),
+            *supers, int(grp is not None),
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on_launch_error(code, "mis_kernel")
-    LAUNCHES["mis_kernel"] += 1
+    name = "mis_kernel" if grp is None else "mis_kernel_grouped"
+    _raise_on_launch_error(code, name)
+    LAUNCHES[name] += 1
     return hdr, rec
 
 
@@ -593,11 +658,14 @@ def mis_trace_kernel(n_local: int, rid_base: int, packed: PackedMisScene,
 def render_mis_cuda_impl(scene: Scene, config: RenderConfig,
                          emit_records: bool = False, occluders=None,
                          local_n: Optional[int] = None, rid_base: int = 0,
-                         flat_output: bool = False, device="cuda"):
+                         flat_output: bool = False,
+                         grouped: Optional[bool] = None, device="cuda"):
     """Variant-A MIS render of ``scene`` on ``device`` through ``mis_kernel``
     (through the plain version when ``device`` is the CPU). Returns raw
     accumulated hdr [H, W, 3] (apply ``render.tonemap_mis`` for the image),
-    and with ``emit_records`` (hdr, MisRecords). ``occluders``: an
+    and with ``emit_records`` (hdr, MisRecords). ``grouped``: the tier; None
+    takes the grouped tier above STATIC_TIER_MAX triangles, as the JAX entry
+    does. Both tiers make the same decisions. ``occluders``: an
     ``intersect.potential_occluders`` tuple that culls the light probes.
     ``local_n`` / ``rid_base`` / ``flat_output`` render the pixels
     [rid_base, rid_base + local_n) and return flat [local_n, 3] hdr: the
@@ -614,10 +682,8 @@ def render_mis_cuda_impl(scene: Scene, config: RenderConfig,
         raise ValueError("camera_rays must be at least 1 and mis_samples at "
                          "least 3")
     num_tris = scene.triangles.num_triangles
-    if num_tris > STATIC_TIER_MAX:
-        raise NotImplementedError(
-            f"{num_tris} triangles: the static-tier kernel takes at most "
-            f"{STATIC_TIER_MAX} (grouped tier: later slice)")
+    if grouped is None:
+        grouped = grouped_tier(scene)
     if num_tris + scene.spheres.num_spheres >= REC_MAX_PRIMS:
         raise ValueError("record encoding limit exceeded")
     n_local = config.num_pixels if local_n is None else int(local_n)
@@ -626,8 +692,10 @@ def render_mis_cuda_impl(scene: Scene, config: RenderConfig,
             f"{n_local} pixels of {config.num_pixels}: pass flat_output=True "
             "to render a pixel range")
 
-    packed = _pack_inputs(scene.to(device), config)
-    shadow_idx = shadow_indices(occluders, num_tris, device)
+    # The grouped tier's cull lives in its shadow table.
+    shadow_idx = (None if grouped
+                  else shadow_indices(occluders, num_tris, device))
+    packed = _pack_inputs(scene.to(device), config, grouped, occluders)
     trace = mis_trace_kernel if device.type == "cuda" else render_mis_plain
     hdr, rec = trace(n_local, int(rid_base), packed, shadow_idx, config,
                      emit_records)

@@ -1,8 +1,9 @@
 """The backward of the variant-A MIS integrator: the MIS backward kernel on
 the card, its plain PyTorch version, and the autograd glue.
 
-Counterpart of ``gpuraytracer_tpu/ops/pallas_mis_bwd.py`` (static tier: at
-most 64 triangles, plus analytic spheres):
+Counterpart of ``gpuraytracer_tpu/ops/pallas_mis_bwd.py``, both tiers (the
+static tier at most 64 triangles plus analytic spheres; the grouped tier any
+primitive count below the record encoding's limit):
 
   * the forward/reverse pairs ``_fwd_*`` / ``_rev_*`` of the per-sample
     arithmetic (norm3, GGX D, Smith G1, BRDF, VNDF pdf, cosine pdf, light
@@ -17,8 +18,8 @@ most 64 triangles, plus analytic spheres):
   * ``replay_mis``: the image recomputed from the records by the forwards
     alone, for autograd to differentiate (the reference the sweep is held
     to);
-  * ``mis_bwd_kernel``: launches ``mis_bwd_kernel``
-    (``csrc/mis_bwd_kernels.cu``);
+  * ``mis_bwd_kernel``: launches ``mis_bwd_kernel`` or, for the grouped
+    tier, ``mis_bwd_grouped_kernel`` (``csrc/mis_bwd_kernels.cu``);
   * ``_pack_diff_inputs_mis`` and ``_AttachGradMis``: the differentiable
     parameter views and the one ``torch.autograd.Function``;
   * ``render_mis_fused``, ``render_mis_fused_local``,
@@ -54,7 +55,8 @@ from .cuda_mis import (NTAB_EXT, REC_CODE_MASK, REC_SHIFT_C, REC_SHIFT_V,
                        TAB_CSU0, TAB_CSU1, TAB_CTH, TAB_K0V, TAB_K1V, TAB_LU0,
                        TAB_LU1, TAB_VCT, TAB_VSU0, TAB_VSU1, TAB_W0C, TAB_W1C,
                        MisRecords, render_mis_cuda_impl, sample_table)
-from .cuda_path import _raise_on_launch_error, _require, camera_vector
+from .cuda_path import (_raise_on_launch_error, _require, camera_vector,
+                        grouped_tier)
 
 # Differentiable table rows: n xyz, c0, diffuse rgb, metallic, roughness,
 # is_emissive (a selector: no gradient); sphere scenes add center xyz,
@@ -99,7 +101,7 @@ _KERNEL_WARPS = 4         # warps per block of mis_bwd_kernel
 
 # Kernel launches since the process started (or since a caller reset them):
 # the wrapper adds one where it launches the kernel and nowhere else.
-LAUNCHES = {"mis_bwd_kernel": 0}
+LAUNCHES = {"mis_bwd_kernel": 0, "mis_bwd_grouped_kernel": 0}
 
 
 def _w(cond, x):
@@ -1354,18 +1356,21 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load_library("mis_bwd_kernels").lib
     if lib.grt_mis_bwd.argtypes is None:
-        lib.grt_mis_bwd.argtypes = [_PTR] * 9 + [_INT] * 8 + [_PTR]
+        lib.grt_mis_bwd.argtypes = [_PTR] * 9 + [_INT] * 10 + [_PTR]
         lib.grt_mis_bwd.restype = _INT
         lib.grt_mis_bwd_blocks.argtypes = [_INT, _INT]
         lib.grt_mis_bwd_blocks.restype = _INT
+        lib.grt_mis_bwd_grouped_blocks.argtypes = [_INT] * 5
+        lib.grt_mis_bwd_grouped_blocks.restype = _INT
     return lib
 
 
 def mis_bwd_kernel(g: torch.Tensor, records: MisRecords, table: torch.Tensor,
                    cam_vec: torch.Tensor, light_vec: torch.Tensor,
                    stab: torch.Tensor, config: RenderConfig,
-                   rid_base: int = 0):
-    """Launch ``mis_bwd_kernel`` on the card. Same arguments and results as
+                   rid_base: int = 0, grouped: bool = False):
+    """Launch ``mis_bwd_kernel`` on the card (``grouped``: its grouped tier,
+    K5g, ``mis_bwd_grouped_kernel``). Same arguments and results as
     ``mis_bwd_plain``."""
     if g.device.type != "cuda":
         raise ValueError("mis_bwd_kernel needs CUDA tensors")
@@ -1374,32 +1379,45 @@ def mis_bwd_kernel(g: torch.Tensor, records: MisRecords, table: torch.Tensor,
                                      stab, config, dev)
     ndif = table.shape[0]
     s_per = config.mis_samples // 3
-    smem = 4 * (ndif * P + NTAB_EXT * s_per + NSCAL
-                + _KERNEL_WARPS * (P * ndif + NSCAL))
+    # The static tier stages the parameter table and one table per warp.
+    smem = 4 * (NTAB_EXT * s_per + NSCAL)
+    if not grouped:
+        smem += 4 * (ndif * P + _KERNEL_WARPS * (P * ndif + NSCAL))
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"the parameter and sample tables need {smem} B of shared "
             f"memory; the backward kernel stages at most {_SMEM_LIMIT} B "
-            "(fewer samples per strategy or primitives, or a later tier)")
+            "(fewer samples per strategy, or the grouped tier: "
+            "grouped=True)")
     if n < 1 or rid_base < 0 or rid_base + n > config.num_pixels:
         raise ValueError(
             f"pixel range [{rid_base}, {rid_base + n}) is not inside the "
             f"frame's {config.num_pixels} pixels")
     lib = _library()
     count = P * ndif + NSCAL
-    partials = torch.empty((lib.grt_mis_bwd_blocks(n, config.camera_rays),
-                            count), dtype=torch.float32, device=dev)
-    out = torch.empty(count, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        if grouped:
+            blocks = lib.grt_mis_bwd_grouped_blocks(
+                n, config.camera_rays, s_per, P, num_spheres)
+            if blocks <= 0:
+                raise RuntimeError("mis_bwd_grouped_kernel: the occupancy "
+                                   "query failed")
+            rows = blocks * _KERNEL_WARPS  # one table per warp
+            table = table.T.contiguous()  # [P, ndif]
+        else:
+            blocks = rows = lib.grt_mis_bwd_blocks(n, config.camera_rays)
+        partials = torch.empty((rows, count), dtype=torch.float32, device=dev)
+        out = torch.empty(count, dtype=torch.float32, device=dev)
         code = lib.grt_mis_bwd(
             g.data_ptr(), records.camera.data_ptr(),
             records.samples.data_ptr(), table.data_ptr(), cam_vec.data_ptr(),
             light_vec.data_ptr(), stab.data_ptr(), partials.data_ptr(),
             out.data_ptr(), n, int(rid_base), config.width, config.height,
-            config.camera_rays, s_per, P, num_spheres,
+            config.camera_rays, s_per, P, num_spheres, int(grouped), blocks,
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on_launch_error(code, "mis_bwd_kernel")
-    LAUNCHES["mis_bwd_kernel"] += 1
+    name = "mis_bwd_grouped_kernel" if grouped else "mis_bwd_kernel"
+    _raise_on_launch_error(code, name)
+    LAUNCHES[name] += 1
     return out[:P * ndif].view(P, ndif), out[P * ndif:]
 
 
@@ -1446,15 +1464,16 @@ def _pack_diff_inputs_mis(scene: Scene, config: RenderConfig):
 
 class _AttachGradMis(torch.autograd.Function):
     """Forward: the MIS trace kernel's image, unchanged. Backward: one launch
-    of the backward kernel (the plain version for CPU tensors), giving the
-    cotangents of (table, cam_vec, light_vec); the records and the sample
-    table are constants. The cotangent goes in as it comes: the kernel
-    divides by s_per itself, and hdr sums the camera rays."""
+    of the backward kernel (its grouped tier where the trace took it; the
+    plain version for CPU tensors), giving the cotangents of (table, cam_vec,
+    light_vec); the records and the sample table are constants. The
+    cotangent goes in as it comes: the kernel divides by s_per itself, and
+    hdr sums the camera rays."""
 
     @staticmethod
-    def forward(ctx, config, rid_base, hdr, table, cam_vec, light_vec,
-                cam_rec, samp_rec, stab):
-        ctx.config, ctx.rid_base = config, rid_base
+    def forward(ctx, config, rid_base, grouped, hdr, table, cam_vec,
+                light_vec, cam_rec, samp_rec, stab):
+        ctx.config, ctx.rid_base, ctx.grouped = config, rid_base, grouped
         ctx.save_for_backward(table, cam_vec, light_vec, cam_rec, samp_rec,
                               stab)
         return hdr.view_as(hdr)
@@ -1468,44 +1487,47 @@ class _AttachGradMis(torch.autograd.Function):
                 cam_vec.detach().contiguous(), light_vec.detach().contiguous(),
                 stab, ctx.config, ctx.rid_base)
         if gs.device.type == "cuda":
-            dtab, dscal = mis_bwd_kernel(*args)
+            dtab, dscal = mis_bwd_kernel(*args, grouped=ctx.grouped)
         else:
             dtab, dscal = mis_bwd_plain(*args)
         d_table = dtab.T.contiguous()
         d_table[9] = 0.0                     # is_emissive: a selector
         if table.shape[0] == NDIF_SPH:
             d_table[14] = 0.0                # is_sphere: a selector
-        return (None, None, None, d_table, dscal[:NCAM], dscal[NCAM:], None,
-                None, None)
+        return (None, None, None, None, d_table, dscal[:NCAM], dscal[NCAM:],
+                None, None, None)
 
 
 def _render_fused(scene: Scene, config: RenderConfig, local_n, rid_base,
                   flat_output, occluders, device):
     device = resolve_device(device)
     scene = scene.to(device)
+    # One tier for the trace and its backward.
+    grouped = grouped_tier(scene)
     # The discrete decisions are constants of the gradient: trace a detached
     # copy, keep the graph for the parameter views only.
     hdr, rec = render_mis_cuda_impl(
         scene.detach(), config, emit_records=True, occluders=occluders,
         local_n=local_n, rid_base=rid_base, flat_output=flat_output,
-        device=device)
+        grouped=grouped, device=device)
     if not any(t.requires_grad for t in scene.tensors()):
         return hdr
     table, cam_vec, light_vec = _pack_diff_inputs_mis(scene, config)
     stab = sample_table(config).to(device).contiguous()
-    return _AttachGradMis.apply(config, int(rid_base), hdr, table, cam_vec,
-                                light_vec, rec.camera, rec.samples, stab)
+    return _AttachGradMis.apply(config, int(rid_base), grouped, hdr, table,
+                                cam_vec, light_vec, rec.camera, rec.samples,
+                                stab)
 
 
 def render_mis_fused(scene: Scene, config: RenderConfig, occluders=None,
                      device="cuda") -> torch.Tensor:
     """Differentiable variant-A render at the trace kernel's speed: the MIS
     kernel's raw accumulated hdr [H, W, 3] with the record-replay backward
-    kernel attached. Triangle and sphere scenes, at most 64 triangles (above
-    that the forward raises: the grouped tier is a later slice).
-    ``occluders``: an ``intersect.potential_occluders(scene, config)`` tuple
-    that culls the light probes; it is tied to the geometry it was computed
-    from."""
+    kernel attached. Triangle and sphere scenes, any triangle count below
+    the record encoding's limit (above 64 triangles both kernels take their
+    grouped tier). ``occluders``: an
+    ``intersect.potential_occluders(scene, config)`` tuple that culls the
+    light probes; it is tied to the geometry it was computed from."""
     return _render_fused(scene, config, None, 0, False, occluders, device)
 
 

@@ -498,11 +498,13 @@ def closest_grouped(g: GroupedTables, o, d, live=None, stats=None):
     return t_best, prim
 
 
-def occluded_grouped(g: GroupedTables, h, ld, t_max, live=None, stats=None):
+def occluded_grouped(g: GroupedTables, h, ld, t_max, live=None, stats=None,
+                     t_min=0.0):
     """Whether each shadow ray (h, ld [n, 3]) hits a triangle of the shadow
-    table in (0, t_max): the grouped sweep with the segment's far limit
+    table in (t_min, t_max): the grouped sweep with the segment's far limit
     t_max (1 + T_FAR_SLACK) + T_FAR_SLACK, a ray leaving the sweep at its
-    first occluder. The plain version of K2g's shadow probe."""
+    first occluder. The plain version of K2g's shadow probe (t_min 0) and of
+    K4g's light probe (t_min RAY_TMIN)."""
     n = h.shape[0]
     dev = h.device
     occ = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -529,7 +531,7 @@ def occluded_grouped(g: GroupedTables, h, ld, t_max, live=None, stats=None):
                 continue
             _, blocked = triangle_candidates(
                 *_geo_rows(g.shadow_geo[:, base:top]), h[reach], ld[reach],
-                0.0, t_max[reach])
+                t_min, t_max[reach])
             hit = blocked.any(dim=-1)
             occ[reach] = hit
             # A lane leaves the group at its first occluder.
@@ -540,7 +542,8 @@ def occluded_grouped(g: GroupedTables, h, ld, t_max, live=None, stats=None):
 
 
 def render_path_plain(offsets: torch.Tensor, rid_base: int,
-                      packed: PackedScene, shadow_idx: torch.Tensor,
+                      packed: PackedScene,
+                      shadow_idx: Optional[torch.Tensor],
                       draws, config: RenderConfig, emit_records: bool,
                       stats: Optional[dict] = None):
     """Plain PyTorch version of ``path_kernel`` on the same inputs: offsets
@@ -550,8 +553,8 @@ def render_path_plain(offsets: torch.Tensor, rid_base: int,
     its order are the kernel's: planar f32 math over [n] tensors and the
     [n, T] candidate tests of ``intersect.py``, or, where ``packed`` holds
     the grouped tables, the grouped sweep (``closest_grouped``,
-    ``occluded_grouped``; ``shadow_idx`` is then unused: the cull is in the
-    shadow table); dead lanes run on masked and records are written for
+    ``occluded_grouped``; ``shadow_idx`` is then unused, and may be None:
+    the cull is in the shadow table); dead lanes run on masked and records are written for
     every (sample, bounce, pixel). ``rid_base``: the first pixel's id, or
     the ids of all n pixels (an int64 tensor: a sample of pixels from
     anywhere in the frame). ``stats``: a dict that the grouped sweep adds its
@@ -768,13 +771,33 @@ def _boxes8(boxes: torch.Tensor) -> torch.Tensor:
     return torch.cat([boxes[0:3], z, boxes[3:6], z]).T.contiguous()
 
 
+def grouped_launch_tables(grp: GroupedTables, dev: torch.device):
+    """The grouped tables as the kernels read them, after checking them: the
+    two geometry tables triangle-major [P_gpad][12], the four box tables
+    [n][8] (``_boxes8``), and the supers of the closest-hit and the shadow
+    sweep. The caller holds the tensors until the launch."""
+    f32 = torch.float32
+    for name, geo, boxes, sup in (
+            ("geo", grp.geo, grp.aabb, grp.sup),
+            ("shadow_geo", grp.shadow_geo, grp.shadow_aabb, grp.shadow_sup)):
+        n_sup = sup.shape[1]
+        _require(geo, name, f32, (12, n_sup * SUPER * GROUP), dev)
+        _require(boxes, f"{name} boxes", f32, (6, n_sup * SUPER), dev)
+        _require(sup, f"{name} supers", f32, (6, n_sup), dev)
+    tables = [grp.geo.T.contiguous(), _boxes8(grp.aabb), _boxes8(grp.sup),
+              grp.shadow_geo.T.contiguous(), _boxes8(grp.shadow_aabb),
+              _boxes8(grp.shadow_sup)]
+    return tables, (grp.sup.shape[1], grp.shadow_sup.shape[1])
+
+
 def path_trace_kernel(offsets: torch.Tensor, rid_base: int,
-                      packed: PackedScene, shadow_idx: torch.Tensor,
+                      packed: PackedScene,
+                      shadow_idx: Optional[torch.Tensor],
                       draws, config: RenderConfig, emit_records: bool):
     """Launch ``path_kernel`` on the card. Same arguments and results as
     ``render_path_plain``, with ``offsets`` and ``shadow_idx`` int32. Where
     ``packed`` holds the grouped tables the grouped tier runs (K2g) and
-    ``shadow_idx`` is not read."""
+    ``shadow_idx`` is not read (None will do)."""
     if offsets.device.type != "cuda":
         raise ValueError("path_trace_kernel needs CUDA tensors")
     dev = offsets.device
@@ -814,18 +837,7 @@ def path_trace_kernel(offsets: torch.Tensor, rid_base: int,
         _require(packed.atab, "atab", f32, (NATTR, T + S), dev)
         atab_t = packed.atab.T.contiguous()  # [T + S][13], held to the launch
         ptrs += [atab_t.data_ptr(), None]
-        for name, geo, boxes, sup in (
-                ("geo", grp.geo, grp.aabb, grp.sup),
-                ("shadow_geo", grp.shadow_geo, grp.shadow_aabb,
-                 grp.shadow_sup)):
-            n_sup = sup.shape[1]
-            _require(geo, name, f32, (12, n_sup * SUPER * GROUP), dev)
-            _require(boxes, f"{name} boxes", f32, (6, n_sup * SUPER), dev)
-            _require(sup, f"{name} supers", f32, (6, n_sup), dev)
-        tables = [grp.geo.T.contiguous(), _boxes8(grp.aabb),
-                  _boxes8(grp.sup), grp.shadow_geo.T.contiguous(),
-                  _boxes8(grp.shadow_aabb), _boxes8(grp.shadow_sup)]
-        supers = (grp.sup.shape[1], grp.shadow_sup.shape[1])
+        tables, supers = grouped_launch_tables(grp, dev)
     if draws is not None:
         if len(draws) != 6:
             raise ValueError(f"draws: expected 6 planes, got {len(draws)}")
@@ -863,6 +875,12 @@ def reject_grad(scene: Scene) -> None:
             "differentiable: render with render_path_cuda or "
             "render_path_decoupled (they attach the backward kernel), or "
             "pass scene.detach()")
+
+
+def grouped_tier(scene: Scene) -> bool:
+    """The tier an entry point takes when the caller does not force one: the
+    grouped tier above STATIC_TIER_MAX triangles, as the JAX entry does."""
+    return scene.triangles.num_triangles > STATIC_TIER_MAX
 
 
 def shadow_indices(occluders, num_tris: int, device) -> torch.Tensor:
@@ -907,7 +925,7 @@ def render_path_cuda_impl(scene: Scene, config: RenderConfig,
     _stratified_k(config)
     num_tris = scene.triangles.num_triangles
     if grouped is None:
-        grouped = num_tris > STATIC_TIER_MAX
+        grouped = grouped_tier(scene)
     if num_tris + scene.spheres.num_spheres + 1 >= OCC_BIT:
         raise ValueError("record encoding limit exceeded")
     if records_only and not emit_records:
@@ -921,7 +939,9 @@ def render_path_cuda_impl(scene: Scene, config: RenderConfig,
             f"(records_only={records_only}, emit_records={emit_records}); "
             "drop the argument or disable records_only")
 
-    shadow_idx = shadow_indices(occluders, num_tris, device)
+    # The grouped tier's cull lives in its shadow table.
+    shadow_idx = (None if grouped
+                  else shadow_indices(occluders, num_tris, device))
     packed = _pack_inputs(scene.to(device), config, grouped, occluders)
     if local_offsets is None:
         local_offsets = pixel_rng_offsets(config, device)

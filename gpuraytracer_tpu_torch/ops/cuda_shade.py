@@ -47,7 +47,7 @@ from ..utils.host import resolve_device
 from . import _build
 from .cuda_path import (OCC_BIT, _check_bounces,
                         _draw_shapes, _raise_on_launch_error, _require,
-                        STATIC_TIER_MAX, _stratified_k, camera_vector,
+                        _stratified_k, camera_vector, grouped_tier,
                         pregen_draws_plain, render_path_cuda_impl)
 
 # Differentiable table rows: n xyz, c0, diffuse rgb, emissive rgb; for sphere
@@ -479,7 +479,7 @@ def _render_fused(scene: Scene, config: RenderConfig, records_only,
         records_only = _auto_records_only(
             config, None if local_offsets is None else local_offsets.shape[0])
     # One tier for the trace and its backward.
-    grouped = scene.triangles.num_triangles > STATIC_TIER_MAX
+    grouped = grouped_tier(scene)
     # The discrete decisions are constants of the gradient: trace a detached
     # copy, keep the graph for the parameter views only.
     hdr, aux = render_path_cuda_impl(

@@ -597,7 +597,7 @@ def test_decoupled_takes_gradients_and_keeps_its_value(ctor):
     got = [g for g in grads(scene) if g is not None]
     assert len(got) >= 12 and all(torch.isfinite(g).all() for g in got)
     assert float(scene.light.emitted_radiance.grad.abs().max()) > 0.0
-    assert M.LAUNCHES == {"mis_bwd_kernel": 0}
+    assert M.LAUNCHES == {"mis_bwd_kernel": 0, "mis_bwd_grouped_kernel": 0}
 
 
 def _frame(ctor, **kw):
@@ -680,8 +680,10 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
     table, cam, light = M._pack_diff_inputs_mis(scene, cfg)
     stab = cuda_mis.sample_table(cfg)
     g = torch.zeros((3, cfg.num_pixels))
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        M.mis_bwd_kernel(g, rec, table, cam, light, stab, cfg)
+    for grouped in (False, True):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            M.mis_bwd_kernel(g, rec, table, cam, light, stab, cfg,
+                             grouped=grouped)
     with pytest.raises(ValueError, match="stab"):
         M.mis_bwd_plain(g, rec, table, cam, light, stab[:, :1], cfg)
     with pytest.raises(ValueError, match="rows"):
@@ -689,13 +691,14 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             M.render_mis_decoupled(scene, cfg)
-    assert M.LAUNCHES == {"mis_bwd_kernel": 0}
+    assert M.LAUNCHES == {"mis_bwd_kernel": 0, "mis_bwd_grouped_kernel": 0}
 
 
 def test_kernel_source_is_registered_for_the_build():
     assert "mis_bwd_kernels" in _build.SOURCES
     text = (_build.CSRC_DIR / "mis_bwd_kernels.cu").read_text()
     assert "grt_mis_bwd" in text and "mis_bwd_kernel<" in text
+    assert "mis_bwd_grouped_kernel<" in text
     assert '#include "reduce.cuh"' in text
     shade = (_build.CSRC_DIR / "shade_kernels.cu").read_text()
     assert '#include "reduce.cuh"' in shade

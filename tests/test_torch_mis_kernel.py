@@ -224,16 +224,18 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="mis_samples"):
         cuda_mis.render_mis_cuda_impl(scene, cfg.replace(mis_samples=2),
                                       device="cpu")
-    packed = cuda_mis._pack_inputs(scene, cfg)
     idx = shadow_indices(None, 12, "cpu")
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        cuda_mis.mis_trace_kernel(cfg.num_pixels, 0, packed, idx, cfg, False)
+    for grouped in (False, True):
+        packed = cuda_mis._pack_inputs(scene, cfg, grouped=grouped)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            cuda_mis.mis_trace_kernel(cfg.num_pixels, 0, packed, idx, cfg,
+                                      False)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             cuda_mis.render_mis_cuda(scene, cfg)
         with pytest.raises(RuntimeError, match="cuda"):
             cuda_mis_bwd.render_mis_decoupled(scene, cfg)
-    assert cuda_mis.LAUNCHES == {"mis_kernel": 0}
+    assert cuda_mis.LAUNCHES == {"mis_kernel": 0, "mis_kernel_grouped": 0}
 
 
 def test_kernel_source_is_registered_for_the_build():
@@ -242,4 +244,5 @@ def test_kernel_source_is_registered_for_the_build():
     assert all((_build.CSRC_DIR / f"{name}.cu").is_file()
                for name in _build.SOURCES)
     text = (_build.CSRC_DIR / "mis_kernels.cu").read_text()
-    assert "mis_kernel<true><<<" in text and "grt_mis_trace" in text
+    assert "mis_kernel<EMIT, GROUPED><<<" in text and "grt_mis_trace" in text
+    assert '#include "trace.cuh"' in text

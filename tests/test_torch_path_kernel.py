@@ -274,10 +274,9 @@ def test_draws_of_the_wrong_shape_raise():
                                 device="cpu")
 
 
-def test_more_than_64_triangles_raises():
+def test_72_triangles_take_grouped_tier_equal_brute_force():
     """The 72-triangle doubled box takes the grouped tier: its plain
-    version's records and image equal the brute-force plain version's.
-    (The name dates from when the port refused more than 64 triangles.)"""
+    version's records and image equal the brute-force plain version's."""
     scene = cornell_box(resolution=(32, 16))
     tri = scene.triangles
     doubled = dataclasses.replace(tri, **{

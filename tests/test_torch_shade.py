@@ -406,12 +406,11 @@ def test_bare_trace_refuses_a_scene_that_asks_for_gradients():
     assert not hdr.requires_grad
 
 
-def test_more_than_64_triangles_with_gradients_raises():
-    """The 72-triangle doubled box, which asks for gradients, now takes the
+def test_72_triangles_with_gradients_take_grouped_tier_equal_brute_force():
+    """The 72-triangle doubled box, which asks for gradients, takes the
     grouped tier (the trace's grouped sweep and the grouped backward's plain
     version): its image and its gradients equal those of the brute-force
-    tier forced onto the same scene. (The name dates from when the port
-    refused more than 64 triangles.)"""
+    tier forced onto the same scene."""
     scene = cornell_box(resolution=(32, 16))
     tri = scene.triangles
     doubled = dataclasses.replace(tri, **{
