@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --count-drift
+    python3 chip_smoke.py --split
 
 Builds the CUDA kernels from the sources in this checkout, holds each against
 its plain PyTorch version on the card, renders six frames through the
@@ -24,7 +25,10 @@ failed check raises, so a run that ends in the ``ok`` line passed them all.
 ``--count-drift`` runs only a measurement for the grouped MIS kernel's
 bound: how far the plain grouped sweep's box and triangle tests per sample
 move between the sample count the ``full`` phase counts them at and the 300
-samples it scales them to (``count_drift``).
+samples it scales them to (``count_drift``). ``--split`` runs only a
+measurement of where K4g's and K5g's time goes: each rebuilt from a copy of
+the sources with one part taken out (``SPLIT_EDITS``) and timed at paths M
+and N beside the unedited build.
 
 Phases
   build   nvcc builds ops/csrc/path_kernels.cu, shade_kernels.cu,
@@ -218,6 +222,7 @@ gradient.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -229,6 +234,8 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1288,9 +1295,10 @@ def ptxas_resources(log_text: str):
             for kernel in ("silh_kernel", "soft_bwd_kernel"):
                 if kernel in mangled:
                     name = kernel
-            m = re.search(r"mis_kernelILb(\d)ELb(\d)E", mangled)
+            m = re.search(r"mis_kernelILb(\d)ELb(\d)ELb(\d)E", mangled)
             if m:
-                name = f"mis_kernel<EMIT={m.group(1)}, GROUPED={m.group(2)}>"
+                name = (f"mis_kernel<EMIT={m.group(1)}, GROUPED={m.group(2)}, "
+                        f"WIDE={m.group(3)}>")
             m = re.search(r"mis_bwd(_grouped)?_kernelILb(\d)E", mangled)
             if m:
                 name = f"mis_bwd{m.group(1) or ''}_kernel<SPH={m.group(2)}>"
@@ -1340,10 +1348,11 @@ def phase_build():
         log(f"  ptxas: {name}: {res['registers']} registers, "
             f"{res['stack_bytes']} B stack, {res['spill_store_bytes']} B "
             f"spill stores, {res['spill_load_bytes']} B spill loads")
-    check(len(resources) == 28, "ptxas did not report the draws kernel, the "
+    check(len(resources) == 30, "ptxas did not report the draws kernel, the "
           "six trace-kernel instantiations (static and grouped), the eight "
           "backward-kernel instantiations (static and grouped), the three "
-          "reductions, the four MIS-kernel and the four MIS-backward "
+          "reductions, the six MIS-kernel instantiations (static, grouped, "
+          "grouped with the wide sweep), the four MIS-backward "
           "instantiations (static and grouped), the silhouette record kernel "
           f"and its backward: {resources}\n{logs}")
     smi = card_name_and_limit()
@@ -3259,7 +3268,9 @@ def mis_grouped_rows(launches, resources):
                                               scale_samples, emit=True)
         h_bound, h_by, _ = mis_grouped_bound(inp, rec, stats, scale_rays,
                                              scale_samples, emit=False)
-        res = resources["mis_kernel<EMIT=1, GROUPED=1>"]
+        wide = int(inp.packed.grouped.sup.shape[1] > cuda_mis.WIDE_SUPERS)
+        res = resources[f"mis_kernel<EMIT=1, GROUPED=1, WIDE={wide}>"]
+        smem, per_sm = grouped_occupancy(inp)
         rows.append(dict(
             name=f"mis_kernel[grouped, records, occluder cull, {scene_name}]",
             route="cuda", source=MIS_SOURCE, replaces=K4G_REPLACES,
@@ -3275,7 +3286,8 @@ def mis_grouped_rows(launches, resources):
             mrays_per_s=nominal_rays(cfg) / k_ms[1] / 1e3,
             registers=res["registers"], stack_bytes=res["stack_bytes"],
             spill_store_bytes=res["spill_store_bytes"],
-            spill_load_bytes=res["spill_load_bytes"], **counts))
+            spill_load_bytes=res["spill_load_bytes"], smem_bytes=smem,
+            blocks_per_sm=per_sm, wide_sweep=bool(wide), **counts))
         log(f"  K4g at {key}: {counts}; hdr mode {h_ms[1]:.1f} ms, bound "
             f"{h_bound:.3f} ms by {h_by}; {sweep_shape} {sweep_ms:.0f} ms")
         del rec, inp, sub
@@ -3297,6 +3309,7 @@ def mis_grouped_rows(launches, resources):
         k_ms = time_ms(bw.kernel, repeats=3)
         bound, by, counts = k5_bound(bw)
         res = resources[f"mis_bwd_grouped_kernel<SPH={sph}>"]
+        smem, per_sm = grouped_bwd_occupancy(cfg, sph)
         rows.append(dict(
             name=f"mis_bwd_grouped_kernel[{scene_name}]", route="cuda",
             source=MIS_BWD_SOURCE, replaces=K5G_REPLACES, shape=shape,
@@ -3305,7 +3318,8 @@ def mis_grouped_rows(launches, resources):
             plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=None,
             registers=res["registers"], stack_bytes=res["stack_bytes"],
             spill_store_bytes=res["spill_store_bytes"],
-            spill_load_bytes=res["spill_load_bytes"], **counts))
+            spill_load_bytes=res["spill_load_bytes"], smem_bytes=smem,
+            blocks_per_sm=per_sm, **counts))
         del bw
         torch.cuda.empty_cache()
     for row in rows:
@@ -3313,10 +3327,125 @@ def mis_grouped_rows(launches, resources):
             f"(min {row['ms_min']:.3f}, max {row['ms_max']:.3f}), bound "
             f"{row['bound_ms']:.3f} ms by {row['bound_by']}, plain "
             f"{row['plain_ms']:.1f} ms, launches {row['launches']}, "
-            f"{row['registers']} registers, {row['stack_bytes']} B stack")
+            f"{row['registers']} registers, {row['stack_bytes']} B stack, "
+            f"{row['smem_bytes']} B shared memory, {row['blocks_per_sm']} "
+            "blocks per SM")
     seconds = time.perf_counter() - started
     log(f"  K4g and K5g rows took {seconds:.1f} s")
     return rows, seconds
+
+
+def grouped_occupancy(inp: MisInputs):
+    """K4g's shared memory per block at ``inp``'s shape, from the library
+    (held against the wrapper's plan), and the blocks one SM holds."""
+    lib = cuda_mis._library()
+    grp = inp.packed.grouped
+    shape = (inp.cfg.mis_samples // 3, inp.packed.num_spheres,
+             grp.sup.shape[1], grp.shadow_sup.shape[1])
+    smem = lib.grt_mis_grouped_smem(*shape)
+    check(smem == cuda_mis.grouped_smem_bytes(*shape),
+          f"K4g's shared memory {smem} B is not the wrapper's plan at {shape}")
+    per_sm = lib.grt_mis_grouped_blocks_per_sm(1, *shape)
+    check(per_sm > 0, "K4g's occupancy query failed")
+    return smem, per_sm
+
+
+def grouped_bwd_occupancy(cfg: RenderConfig, sph: int):
+    """K5g's shared memory per block (held against the wrapper's plan) and
+    the blocks one SM holds."""
+    lib = cuda_mis_bwd._library()
+    s_per = cfg.mis_samples // 3
+    smem = lib.grt_mis_bwd_grouped_smem(s_per, sph)
+    check(smem == cuda_mis_bwd.grouped_smem_bytes(s_per, 15 if sph else 10),
+          f"K5g's shared memory {smem} B is not the wrapper's plan")
+    per_sm = lib.grt_mis_bwd_grouped_blocks_per_sm(s_per, sph)
+    check(per_sm > 0, "K5g's occupancy query failed")
+    return smem, per_sm
+
+
+# Where K4g's and K5g's time goes (``--split``): each is rebuilt from a copy
+# of the sources with one part taken out (the results are then wrong: timing
+# only) and timed at the shapes of paths M and N beside the unedited build.
+SPLIT_EDITS = {
+    "K4g, box tables read from global memory": ("mis_kernels", [(
+        "mis_kernels.cu",
+        "    sc.ggeo = p.geo; sc.aabb = s_aabb; sc.sup = s_sup;\n"
+        "    sc.sgeo = p.sgeo; sc.saabb = s_saabb; sc.ssup = s_ssup;",
+        "    sc.ggeo = p.geo; sc.aabb = p.aabb; sc.sup = p.sup;\n"
+        "    sc.sgeo = p.sgeo; sc.saabb = p.saabb; sc.ssup = p.ssup;")]),
+    "K5g without the table writes": ("mis_bwd_kernels", [(
+        "reduce.cuh", "for (int c = 0; c < NCOL; ++c) dst[c] += sum[c];",
+        "for (int c = 0; c < NCOL; ++c) if (sum[c] == 1.25e-33f) dst[c] = sum[c];")]),
+    "K5g without the scatter": ("mis_bwd_kernels", [(
+        "reduce.cuh",
+        "  const unsigned peers = __match_any_sync(FULL_MASK, act ? key : -1);",
+        "  if (lane >= 0) return;\n"
+        "  const unsigned peers = __match_any_sync(FULL_MASK, act ? key : -1);")]),
+    "K5g without the strategies": ("mis_bwd_kernels", [
+        ("mis_bwd_kernels.cu", "if (surf && (rec & 1)) strategy_light",
+         "if (surf && (rec & 1) && !GLOBAL_TABLE) strategy_light"),
+        ("mis_bwd_kernels.cu",
+         "        strategy_cosine<SPH, GLOBAL_TABLE>(",
+         "        if (!GLOBAL_TABLE) strategy_cosine<SPH, GLOBAL_TABLE>("),
+        ("mis_bwd_kernels.cu",
+         "        strategy_vndf<SPH, GLOBAL_TABLE>(",
+         "        if (!GLOBAL_TABLE) strategy_vndf<SPH, GLOBAL_TABLE>(")]),
+}
+
+
+def split_builds():
+    """The SPLIT_EDITS builds, side by side: {what: (library, BuiltLibrary)}."""
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_split_"))
+
+    def build(item):
+        what, (name, edits) = item
+        src = work / re.sub(r"\W+", "_", what)
+        shutil.copytree(_build.CSRC_DIR, src)
+        for fname, old, new in edits:
+            text = (src / fname).read_text()
+            check(text.count(old) == 1, f"split {what}: {old!r} not found once")
+            (src / fname).write_text(text.replace(old, new))
+        out = src / f"lib{name}.so"
+        proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                               str(src / f"{name}.cu")], capture_output=True, text=True)
+        check(proc.returncode == 0, f"split {what}: nvcc failed\n{proc.stderr}")
+        return what, (name, _build.BuiltLibrary(
+            lib=ctypes.CDLL(str(out)), path=out, nvcc=_build.find_nvcc(),
+            log=proc.stdout + proc.stderr, seconds=0.0))
+
+    with ThreadPoolExecutor(len(SPLIT_EDITS)) as pool:
+        return dict(pool.map(build, SPLIT_EDITS.items()))
+
+
+def split():
+    """K4g and K5g at the shapes of paths M and N, unedited and with each
+    part of SPLIT_EDITS taken out, in turns (unedited first and last)."""
+    cfg = RenderConfig(integrator="mis", **MIS_BENCH)
+    log("== split: K4g and K5g with one part taken out, at paths M and N")
+    started = time.perf_counter()
+    own = {name: _build.load_library(name) for name in ("mis_kernels", "mis_bwd_kernels")}
+    variants = split_builds()
+    out = {}
+    for label, scene_name, scene in mis_grouped_path_scenes(cfg.resolution):
+        key = f"{label} {scene_name}"
+        inp = MisInputs(None, cfg, cull=True, grouped=True, scene=scene)
+        bw = MisBwdInputs(None, cfg, grouped=True, scene=scene)
+        runs = [("K4g", "mis_kernels", lambda: inp.kernel(emit=True)),
+                ("K5g", "mis_bwd_kernels", bw.kernel)]
+        for kernel, name, fn in runs:
+            order = ([(f"{kernel} unedited", own[name])]
+                     + [(w, lib) for w, (n, lib) in variants.items() if n == name]
+                     + [(f"{kernel} unedited, again", own[name])])
+            for what, lib in order:
+                _build._LOADED[name] = lib
+                ms = time_ms(fn, repeats=3)
+                out.setdefault(key, {})[what] = ms
+                log(f"  {key}: {what}: {ms[1]:.3f} ms (min {ms[0]:.3f}, max {ms[2]:.3f})")
+            _build._LOADED[name] = own[name]
+        del inp, bw
+        torch.cuda.empty_cache()
+    log(f"  split took {time.perf_counter() - started:.1f} s")
+    return out
 
 
 def count_drift():
@@ -3403,12 +3532,16 @@ def main() -> int:
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() "
               "is False", file=sys.stderr)
         return 1
-    if sys.argv[1:] not in ([], ["--count-drift"]):
-        print("usage: python3 chip_smoke.py [--count-drift]", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--count-drift"], ["--split"]):
+        print("usage: python3 chip_smoke.py [--count-drift | --split]",
+              file=sys.stderr)
         return 2
     if sys.argv[1:]:
-        drift = count_drift()
-        print(json.dumps({"count_drift": drift}), flush=True)
+        if sys.argv[1] == "--split":
+            result = {"split_ms": split()}
+        else:
+            result = {"count_drift": count_drift()}
+        print(json.dumps(result), flush=True)
         print(card_name_and_limit(), flush=True)
         return 0
     started = time.perf_counter()

@@ -73,7 +73,23 @@
 //     order.  No float atomics: two launches on equal inputs give equal bits.
 //     The tables cost 4G (P ndif + 29) floats written twice and read once
 //     (0.54 GB at 12,802 triangles and G = 264).  Bound as for the static
-//     tier.
+//     tier;
+//   * a thread's per-item state, which every live sample reads and updates
+//     (the hoisted plane cs[44], its cotangent d_cs[44], the light's d_L[17]
+//     and the two lobe winners' rows), lies in shared memory (State: 125 or
+//     135 floats a thread at that odd stride, so that a warp's 32 words of
+//     one slot fall in 32 banks), not on the stack: passed by address to the
+//     __noinline__ stage functions, on the stack it would live in local
+//     memory, 1,088 B a thread, 278 KB a SM for 256 threads, more than L1
+//     holds.  The stack keeps the hoisted stage's residuals, used once per
+//     item (528 / 568 B without / with spheres);
+//   * the scatter is reduce.cuh's warp_scatter_peers: __match_any_sync
+//     groups the lanes by key, and the lowest lane of each group sums the
+//     group's rows from the state in lane order and adds them once, the
+//     groups' leaders side by side, in place of a ballot, a shuffle and NDIF
+//     five-shuffle sums per distinct key in turn.
+//   Budget: 255 registers, 70,516 / 75,636 B of shared memory at 300
+//   samples, 2 blocks of 128 threads (8 warps) per SM, as before.
 // Not carried over from the TPU: the block-range one-hot fetch and the
 // VMEM block scatter (an indexed load and the per-warp tables take their
 // place).
@@ -86,6 +102,7 @@
 
 namespace {
 
+using grt::warp_scatter_peers;
 using grt::warp_scatter_rows;
 using grt::warp_sum;
 
@@ -1206,6 +1223,17 @@ __device__ __noinline__ void hoist_rev(const HoistRes& r, const float* at,
   }
 }
 
+// The grouped tier keeps a lane's per-item state in shared memory, not on
+// the stack: the hoisted plane cs, its cotangent d_cs, the light's d_L and the
+// two lobe winners' cotangent rows of the sample, NST floats a thread at an
+// odd stride, so that the 32 lanes' words of one slot lie in 32 banks.
+template <int NDIF>
+struct State {
+  static constexpr int CS = 0, D_CS = NCS, D_L = 2 * NCS, D_AT_C = D_L + NLIGHT,
+                       D_AT_V = D_AT_C + NDIF, NST = D_AT_V + NDIF;
+  static_assert(NST % 2 == 1, "the state's stride must be odd");
+};
+
 // One (pixel i, camera ray cr): the hoisted stage from the camera record, the
 // samples' strategies from the sample records, the reverse of the hoisted
 // stage; the table rows (the two lobe winners per sample, the camera winner
@@ -1215,14 +1243,16 @@ __device__ __noinline__ void hoist_rev(const HoistRes& r, const float* at,
 // one), `stab` the staged [s_per][16] sample table, `cam` and `L` the 12
 // camera and 17 light scalars.  Every lane of the warp calls it (the scatter
 // shuffles); a lane past the range runs on with no live ray.  GLOBAL_TABLE:
-// wtab lies in global memory, and a __syncwarp after each scatter orders one
-// leader's add before the next one's.
+// wtab lies in global memory, the lane's state at `state` (State<NDIF>) in
+// shared memory, the scatter is reduce.cuh's warp_scatter_peers, and a
+// __syncwarp after each scatter orders one leader's add before the next one's.
 template <bool SPH, bool GLOBAL_TABLE>
 __device__ __forceinline__ void mis_bwd_item(const BwdParams& p, const float* tab,
                                              const float* stab, const float* cam,
                                              const float* L, float* wtab, int i, int cr,
-                                             int lane, float* ds) {
+                                             int lane, float* ds, float* state) {
   constexpr int NDIF = SPH ? 15 : 10;
+  using St = State<NDIF>;
   const int s_per = p.s_per;
   const size_t n = (size_t)p.n_local;
   const bool in_range = i < p.n_local;
@@ -1236,11 +1266,14 @@ __device__ __forceinline__ void mis_bwd_item(const BwdParams& p, const float* ta
   for (int c = 0; c < 3; ++c) g[c] = in_range ? p.g[c * n + i] : 0.0f;
 
   // A camera ray on the light adds the emitted radiance.
-  float d_L[NLIGHT];
+  float d_L_own[GLOBAL_TABLE ? 1 : NLIGHT];
+  float* d_L = GLOBAL_TABLE ? state + St::D_L : d_L_own;
   for (int k = 0; k < NLIGHT; ++k) d_L[k] = 0.0f;
   for (int c = 0; c < 3; ++c) d_L[L_E + c] = sel(cam_hit && isem, g[c]);
 
-  float cs[NCS], d_cs[NCS];
+  float cs_own[GLOBAL_TABLE ? 1 : NCS], d_cs_own[GLOBAL_TABLE ? 1 : NCS];
+  float* cs = GLOBAL_TABLE ? state + St::CS : cs_own;
+  float* d_cs = GLOBAL_TABLE ? state + St::D_CS : d_cs_own;
   for (int k = 0; k < NCS; ++k) { cs[k] = 0.0f; d_cs[k] = 0.0f; }
   HoistRes hr;
   if (surf) {
@@ -1265,7 +1298,9 @@ __device__ __forceinline__ void mis_bwd_item(const BwdParams& p, const float* ta
     const int rec = surf ? p.samp_rec[((size_t)cr * s_per + k) * n + i] : 0;
     const int code_c = (rec >> REC_SHIFT_C) & REC_CODE_MASK;
     const int code_v = (rec >> REC_SHIFT_V) & REC_CODE_MASK;
-    float d_at_c[NDIF], d_at_v[NDIF];
+    float d_at_c_own[GLOBAL_TABLE ? 1 : NDIF], d_at_v_own[GLOBAL_TABLE ? 1 : NDIF];
+    float* d_at_c = GLOBAL_TABLE ? state + St::D_AT_C : d_at_c_own;
+    float* d_at_v = GLOBAL_TABLE ? state + St::D_AT_V : d_at_v_own;
     for (int q = 0; q < NDIF; ++q) { d_at_c[q] = 0.0f; d_at_v[q] = 0.0f; }
     if (surf && (rec & 1)) strategy_light<GLOBAL_TABLE>(cs, L, tb, gs, s_per_f, d_cs, d_L);
     bool act_c = false, act_v = false;
@@ -1286,21 +1321,32 @@ __device__ __forceinline__ void mis_bwd_item(const BwdParams& p, const float* ta
       }
     }
     // A lobe ray on the light gives its winner no cotangent.
-    warp_scatter_rows<NDIF>(__ballot_sync(grt::FULL_MASK, act_c), act_c, code_c - 1,
-                            d_at_c, wtab, lane);
-    if (GLOBAL_TABLE) __syncwarp();
-    warp_scatter_rows<NDIF>(__ballot_sync(grt::FULL_MASK, act_v), act_v, code_v - 1,
-                            d_at_v, wtab, lane);
-    if (GLOBAL_TABLE) __syncwarp();
+    if constexpr (GLOBAL_TABLE) {
+      warp_scatter_peers<NDIF>(act_c, code_c - 1, d_at_c, St::NST, wtab, lane);
+      __syncwarp();
+      warp_scatter_peers<NDIF>(act_v, code_v - 1, d_at_v, St::NST, wtab, lane);
+      __syncwarp();
+    } else {
+      warp_scatter_rows<NDIF>(__ballot_sync(grt::FULL_MASK, act_c), act_c, code_c - 1,
+                              d_at_c, wtab, lane);
+      warp_scatter_rows<NDIF>(__ballot_sync(grt::FULL_MASK, act_v), act_v, code_v - 1,
+                              d_at_v, wtab, lane);
+    }
   }
 
-  float d_at_cam[NDIF];
+  // The grouped tier takes the camera winner's row in the cosine winner's slot.
+  float d_at_cam_own[GLOBAL_TABLE ? 1 : NDIF];
+  float* d_at_cam = GLOBAL_TABLE ? state + St::D_AT_C : d_at_cam_own;
   for (int q = 0; q < NDIF; ++q) d_at_cam[q] = 0.0f;
   for (int q = 0; q < NCAM; ++q) ds[q] = 0.0f;
   if (surf) hoist_rev<SPH, GLOBAL_TABLE>(hr, at_cam, cam, d_cs, d_at_cam, ds);
-  warp_scatter_rows<NDIF>(__ballot_sync(grt::FULL_MASK, surf), surf, pc_cam, d_at_cam,
-                          wtab, lane);
-  if (GLOBAL_TABLE) __syncwarp();
+  if constexpr (GLOBAL_TABLE) {
+    warp_scatter_peers<NDIF>(surf, pc_cam, d_at_cam, St::NST, wtab, lane);
+    __syncwarp();
+  } else {
+    warp_scatter_rows<NDIF>(__ballot_sync(grt::FULL_MASK, surf), surf, pc_cam, d_at_cam,
+                            wtab, lane);
+  }
   for (int q = 0; q < NLIGHT; ++q) ds[NCAM + q] = d_L[q];
 }
 
@@ -1335,7 +1381,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS) mis_bwd_kernel(const BwdParams 
   float ds[NSCAL];
   mis_bwd_item<SPH, false>(p, s_tab, s_stab, s_vec, s_vec + NCAM,
                            s_wtab + warp * P * NDIF, blockIdx.x * blockDim.x + threadIdx.x,
-                           blockIdx.y, lane, ds);
+                           blockIdx.y, lane, ds, nullptr);
 
   // ---- block partial: scalars over the warp, then warps in index order
   for (int q = 0; q < NSCAL; ++q) {
@@ -1361,7 +1407,8 @@ __global__ void __launch_bounds__(BLOCK_THREADS) mis_bwd_kernel(const BwdParams 
 // w + (warps in the grid), ...  A tile is 32 neighbouring pixels of one camera
 // ray: tile t holds camera ray t / ceil(n / 32) and the pixels from
 // (t mod ceil(n / 32)) * 32.  p.table is the TRANSPOSED [P][NDIF] table, read
-// from global memory; the sample table, camera and light are staged.
+// from global memory; the sample table, camera and light are staged, and each
+// thread's per-item state lies in shared memory.
 template <bool SPH>
 __global__ void __launch_bounds__(BLOCK_THREADS)
 mis_bwd_grouped_kernel(const BwdParams p) {
@@ -1370,6 +1417,7 @@ mis_bwd_grouped_kernel(const BwdParams p) {
   const int s_per = p.s_per;
   float* s_stab = smem;                         // [s_per][16]
   float* s_vec = s_stab + TAB_ROWS * s_per;     // camera 12, light 17
+  float* s_state = s_vec + NSCAL;               // [BLOCK_THREADS][NST]
   for (int k = threadIdx.x; k < TAB_ROWS * s_per; k += blockDim.x) {
     const int s = k / TAB_ROWS, row = k - s * TAB_ROWS;
     s_stab[k] = p.stab[row * s_per + s];
@@ -1395,7 +1443,8 @@ mis_bwd_grouped_kernel(const BwdParams p) {
     const int cr = tile / pixel_tiles;
     float item[NSCAL];
     mis_bwd_item<SPH, true>(p, p.table, s_stab, s_vec, s_vec + NCAM, wtab,
-                            (tile - cr * pixel_tiles) * 32 + lane, cr, lane, item);
+                            (tile - cr * pixel_tiles) * 32 + lane, cr, lane, item,
+                            s_state + threadIdx.x * State<NDIF>::NST);
     for (int q = 0; q < NSCAL; ++q) ds[q] += item[q];
   }
   for (int q = 0; q < NSCAL; ++q) {
@@ -1404,9 +1453,11 @@ mis_bwd_grouped_kernel(const BwdParams p) {
   }
 }
 
-// Shared memory of the grouped kernel: the sample table, camera and light.
-size_t grouped_smem(int s_per) {
-  return sizeof(float) * ((size_t)TAB_ROWS * s_per + NSCAL);
+// Shared memory of the grouped kernel: the sample table, camera and light,
+// and the threads' per-item state.
+size_t grouped_smem(int s_per, bool has_spheres) {
+  const int nst = has_spheres ? State<15>::NST : State<10>::NST;
+  return sizeof(float) * ((size_t)TAB_ROWS * s_per + NSCAL + (size_t)BLOCK_THREADS * nst);
 }
 
 }  // namespace
@@ -1426,13 +1477,36 @@ int grt_mis_bwd_blocks(int n_local, int camera_rays) {
 // [blocks * 4, ...] with it; 0 means the occupancy query failed.
 int grt_mis_bwd_grouped_blocks(int n_local, int camera_rays, int s_per, int num_prims,
                                int has_spheres) {
-  const size_t smem = grouped_smem(s_per);
+  const size_t smem = grouped_smem(s_per, has_spheres != 0);
   const int tiles = ((n_local + 31) / 32) * camera_rays;
   const size_t row = (size_t)num_prims * (has_spheres ? 15 : 10) + NSCAL;
   return has_spheres ? grt::persistent_blocks(mis_bwd_grouped_kernel<true>,
                                               BLOCK_THREADS, smem, tiles, row)
                      : grt::persistent_blocks(mis_bwd_grouped_kernel<false>,
                                               BLOCK_THREADS, smem, tiles, row);
+}
+
+// Shared memory bytes of the grouped kernel (ops/cuda_mis_bwd.
+// grouped_smem_bytes mirrors it).
+int grt_mis_bwd_grouped_smem(int s_per, int has_spheres) {
+  return (int)grouped_smem(s_per, has_spheres != 0);
+}
+
+// Blocks of the grouped kernel one SM of the current device holds at that
+// shared memory; 0 where the query fails.
+int grt_mis_bwd_grouped_blocks_per_sm(int s_per, int has_spheres) {
+  const size_t smem = grouped_smem(s_per, has_spheres != 0);
+  int per_sm = 0;
+  const cudaError_t err =
+      has_spheres ? grt::allow_smem(mis_bwd_grouped_kernel<true>, smem)
+                  : grt::allow_smem(mis_bwd_grouped_kernel<false>, smem);
+  if (err != cudaSuccess) return 0;
+  const cudaError_t occ =
+      has_spheres ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        &per_sm, mis_bwd_grouped_kernel<true>, BLOCK_THREADS, smem)
+                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        &per_sm, mis_bwd_grouped_kernel<false>, BLOCK_THREADS, smem);
+  return occ == cudaSuccess ? per_sm : 0;
 }
 
 // Launches mis_bwd_kernel (grouped == 0: table [ndif, P], partials
@@ -1461,7 +1535,7 @@ int grt_mis_bwd(const float* g, const int32_t* cam_rec, const int32_t* samp_rec,
   cudaStream_t st = (cudaStream_t)stream;
   if (grouped) {
     if (blocks <= 0) return (int)cudaErrorInvalidValue;
-    const size_t smem = grouped_smem(s_per);
+    const size_t smem = grouped_smem(s_per, has_spheres != 0);
     if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
     const cudaError_t err = has_spheres ? grt::allow_smem(mis_bwd_grouped_kernel<true>, smem)
                                         : grt::allow_smem(mis_bwd_grouped_kernel<false>, smem);

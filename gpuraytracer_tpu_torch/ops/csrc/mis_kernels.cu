@@ -62,27 +62,51 @@
 //
 // The grouped tier (the TPU kernel's grouped=True branch, pallas_mis.py:
 // closest_tris_grouped :328, fetch_grouped :374, occluded_grouped :404;
-// packing :917-1003) keeps all of the above except the scene tables, which
-// do not fit a block's shared memory at a thousand triangles: the geometry,
-// its two-level box tables and the dense occluder-culled shadow table (made
-// on the host by ops/cuda_path.py as the JAX package makes them) stay in
-// global memory and are read through the read-only path, where L2 holds them
-// (48 B per triangle: 48 KB at 1,002 triangles, 620 KB at 12,802).  The two
-// closest hits and three light probes of a sample run path_kernel's grouped
-// sweep (trace.cuh closest_grouped, occluded_grouped): per super, then per
-// group, a slab test of the padded box against the ray's far limit and the
-// group's triangle tests only where the box is reached; the probe accepts
-// hits in (RAY_TMIN, t_max).  The decisions equal those of the loop over
-// every triangle.  The winner's attributes are one indexed load of its row
-// of the transposed [T + S][12] table in global memory; a miss reads row 0,
-// as the static tier does, so that the grouped tier forced onto a small scene
-// writes the static tier's records on every lane.  Only the sample table and
-// the spheres are staged.  The sweep stays inside the __noinline__
-// traversal functions.  Bound: OPERATIONS, counted from the box and triangle
-// tests this frame's live lanes execute.  Not carried over from the TPU:
-// share_shadow (a workaround for the TPU's scalar-memory limit; the
-// decisions are the same either way), the bf16 chunk-split block-range fetch
-// and f32-carried masks.
+// packing :917-1003) keeps the per-pixel body above; its scene tables do not
+// fit a block's shared memory at a thousand triangles.  The geometry (48 B a
+// triangle: 48 KB at 1,002 triangles, 620 KB at 12,802) and the dense
+// occluder-culled shadow table stay in global memory and are read through the
+// read-only path; their two-level box tables (32 B a box: 4 KB at 1,002
+// triangles, 52 KB at 12,802), made on the host by ops/cuda_path.py as the
+// JAX package makes them, are staged by cp.async in shared memory beside the
+// sample table and the spheres.  The two closest hits and three light probes
+// of a sample run trace.cuh's warp-cooperative sweep (closest_grouped_warp,
+// occluded_grouped_warp): the same box and triangle tests as path_kernel's
+// sweep, lane by lane, so the decisions equal those of the loop over every
+// triangle; the probe accepts hits in (RAY_TMIN, t_max).  A lane makes the
+// mask of the groups it reaches in a super and walks it, so that lanes in
+// different groups test triangles side by side; the shadow sweep makes the
+// masks of eight supers at once.  Above WIDE_SUPERS (32) supers the kernel's
+// WIDE instantiation, chosen at launch, takes the closest-hit sweep's wide
+// form (closest_grouped_wide: a lane tests up to 32 super boxes in a tight
+// loop, then walks the supers it reached): 10 % faster at 12,802 triangles,
+// 8 % slower at 1,002, and slower at both as a runtime branch in one
+// instantiation (registers under the cap below).  The winner's attributes are
+// one indexed load of its row of the transposed [T + S][12] table; a miss
+// reads row 0, as the static tier does, so that the grouped tier forced onto
+// a small scene writes the static tier's records on every lane.  Bound:
+// OPERATIONS, counted from the box and triangle tests this frame's live lanes
+// execute.  Staging the triangles a warp reaches in shared memory as well
+// (one cp.async round trip per super) did not pay: 0.5 % at 12,802
+// triangles, 23 % slower at 1,002, whose geometry stays in L1 (PERF.md).
+//
+// Grid and budget of the grouped tier: a persistent grid of one 384-thread
+// block per SM (12 warps, as three 128-thread blocks), so that the tables are
+// staged once per SM; its warps take 32-pixel tiles from a counter until the
+// range is done, so that no SM idles at the end.  At 384 threads ptxas may
+// give a thread 168 registers; the kernel takes 167-168, with 168 B of stack
+// and no spills.  Shared memory at 300 samples: 10,432 B at 1,002 triangles
+// (6,400 B sample table, 4,032 B of boxes), 58,816 B at 12,802 (52,416 B of
+// boxes).  The votes take the full warp: every lane calls the sweeps at the
+// same point of its program (the tile loop's trip count is the warp's,
+// broadcast by a shuffle; the camera-ray and sample loops are uniform; hdr
+// mode skips a camera ray's samples only where no lane of the warp is on a
+// surface, by a vote; a lane that would not trace, past the range or off a
+// surface, passes live = false and takes part in the votes), so each
+// __ballot_sync is reached by all 32 lanes in the same order under
+// independent thread scheduling.  Not carried over from the TPU: share_shadow
+// (a workaround for the TPU's scalar-memory limit; the decisions are the same
+// either way), the bf16 chunk-split block-range fetch and f32-carried masks.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -94,12 +118,14 @@
 
 namespace {
 
-using grt::closest_grouped;
+using grt::closest_grouped_warp;
+using grt::closest_grouped_wide;
 using grt::closest_triangle;
 using grt::GEO_ROWS;
-using grt::occluded_grouped;
+using grt::occluded_grouped_warp;
 using grt::SPH_ROWS;
 using grt::sphere_roots;
+using grt::SUPER;
 using grt::triangle_inside;
 using grt::triangle_plane;
 
@@ -114,6 +140,8 @@ constexpr int TAB_ROWS = 16;   // ten draws and six derived direction scalars pe
 constexpr int REC_SHIFT_C = 3;
 constexpr int REC_SHIFT_V = 17;
 constexpr int BLOCK_THREADS = 128;
+constexpr int GROUPED_THREADS = 384;  // the grouped tier: one persistent block per SM
+constexpr int GROUPED_WARPS = GROUPED_THREADS / 32;
 constexpr size_t MAX_SMEM_BYTES = 227 * 1024;  // one block's most on sm_90
 
 struct MisParams {
@@ -136,6 +164,7 @@ struct MisParams {
   int n_local, rid_base, width, height, camera_rays, s_per;
   int num_tris, num_spheres, n_shadow;
   int n_super, n_shadow_super;  // grouped: supers of the two sweeps
+  int* tiles_taken;             // grouped: the tile counter, 0 at launch
 };
 
 // The scene, as the device functions see it: staged in shared memory (the
@@ -148,15 +177,16 @@ struct Tables {
   int T, S, n_shadow;
 };
 
-// ... or, in the grouped tier, the spheres staged and the rest in global
-// memory (trace.cuh's layouts; geo and shadow above are not read).
+// ... or, in the grouped tier, the spheres and the four box tables staged,
+// the geometry and attributes in global memory (trace.cuh's layouts; geo and
+// shadow above are not read).
 struct GroupedTables : Tables {
-  const float4* ggeo;
-  const float4* aabb;
-  const float4* sup;
-  const float4* sgeo;
-  const float4* saabb;
-  const float4* ssup;
+  const float4* ggeo;   // global
+  const float4* aabb;   // shared
+  const float4* sup;    // shared
+  const float4* sgeo;   // global
+  const float4* saabb;  // shared
+  const float4* ssup;   // shared
   int n_super, n_shadow_super;
 };
 
@@ -368,24 +398,13 @@ __device__ __noinline__ V3 vndf_direction(const Frame& f, float nx, float ny, fl
   return vd;
 }
 
-// Closest hit over all triangles (index order, strictly closer wins, so ties
-// keep the lower index; the grouped tier by the sweep, which finds the same
-// winner), then the spheres; the winner's attributes by index.  A miss reads
-// row 0, as the TPU kernel's clipped fetch does, so that the records dead
-// lanes write are the same; every use is gated by `hit`.
+// After the triangles (t_best, prim), the spheres; the winner's attributes by
+// index.  A miss reads row 0, as the TPU kernel's clipped fetch does, so that
+// the records dead lanes write are the same; every use is gated by `hit`.
 template <bool GROUPED>
-__device__ __noinline__ Surface closest_full(const TablesT<GROUPED>& sc, float ox,
-                                             float oy, float oz, float dx, float dy,
-                                             float dz) {
-  float t_best = BIG;
-  int prim = -1;
-  if constexpr (GROUPED) {
-    closest_grouped(sc.ggeo, sc.aabb, sc.sup, sc.n_super, sc.T, ox, oy, oz, dx, dy, dz,
-                    RAY_TMIN, RAY_TMAX, &t_best, &prim);
-  } else {
-    closest_triangle(sc.geo, sc.T, ox, oy, oz, dx, dy, dz, RAY_TMIN, RAY_TMAX, &t_best,
-                     &prim);
-  }
+__device__ __forceinline__ Surface closest_finish(const TablesT<GROUPED>& sc, float ox,
+                                                  float oy, float oz, float dx, float dy,
+                                                  float dz, float t_best, int prim) {
   for (int k = 0; k < sc.S; ++k) {
     float t1, t2;
     const bool pos = sphere_roots(sc.sph + SPH_ROWS * k, ox, oy, oz, dx, dy, dz,
@@ -419,26 +438,54 @@ __device__ __noinline__ Surface closest_full(const TablesT<GROUPED>& sc, float o
   return h;
 }
 
-// No occluder strictly short of t_max: any hit in (RAY_TMIN, t_max) over the
-// occluder list (the grouped tier: over the dense culled shadow table by the
-// sweep), spheres always tested.
-template <bool GROUPED>
-__device__ __noinline__ bool light_reachable(const TablesT<GROUPED>& sc, float ox,
-                                             float oy, float oz, float dx, float dy,
-                                             float dz, float t_max) {
-  if constexpr (GROUPED) {
-    if (occluded_grouped(sc.sgeo, sc.saabb, sc.ssup, sc.n_shadow_super, sc.n_shadow, ox,
-                         oy, oz, dx, dy, dz, RAY_TMIN, t_max)) {
-      return false;
-    }
+// Closest hit over all triangles (index order, strictly closer wins, so ties
+// keep the lower index), then the spheres.
+__device__ __noinline__ Surface closest_full(const Tables& sc, float ox, float oy,
+                                             float oz, float dx, float dy, float dz) {
+  float t_best = BIG;
+  int prim = -1;
+  closest_triangle(sc.geo, sc.T, ox, oy, oz, dx, dy, dz, RAY_TMIN, RAY_TMAX, &t_best,
+                   &prim);
+  return closest_finish<false>(sc, ox, oy, oz, dx, dy, dz, t_best, prim);
+}
+
+// The same by the warp-cooperative sweep (WIDE: its form for more than
+// WIDE_SUPERS supers), which finds the same winner; a lane with `live` false
+// takes part in the warp's votes and tests no triangle.
+template <bool WIDE>
+__device__ __noinline__ Surface closest_full_grouped(const GroupedTables& sc, float ox,
+                                                     float oy, float oz, float dx,
+                                                     float dy, float dz, bool live) {
+  float t_best = BIG;
+  int prim = -1;
+  if constexpr (WIDE) {
+    closest_grouped_wide(sc.ggeo, sc.aabb, sc.sup, sc.n_super, sc.T, live, ox, oy, oz, dx,
+                         dy, dz, RAY_TMIN, RAY_TMAX, &t_best, &prim);
   } else {
-    for (int k = 0; k < sc.n_shadow; ++k) {
-      const float4* g = reinterpret_cast<const float4*>(sc.shadow + GEO_ROWS * k);
-      float den, tt, u, v;
-      triangle_plane(g[0], g[1], g[2], ox, oy, oz, dx, dy, dz, &den, &tt, &u, &v);
-      if (triangle_inside(den, tt, u, v, RAY_TMIN, t_max)) return false;
-    }
+    closest_grouped_warp(sc.ggeo, sc.aabb, sc.sup, sc.n_super, sc.T, live, ox, oy, oz, dx,
+                         dy, dz, RAY_TMIN, RAY_TMAX, &t_best, &prim);
   }
+  return closest_finish<true>(sc, ox, oy, oz, dx, dy, dz, t_best, prim);
+}
+
+// The closest hit of either tier; `live` and WIDE are read by the grouped
+// tier only.
+template <bool GROUPED, bool WIDE>
+__device__ __forceinline__ Surface closest_hit(const TablesT<GROUPED>& sc, float ox,
+                                               float oy, float oz, float dx, float dy,
+                                               float dz, bool live) {
+  if constexpr (GROUPED) {
+    return closest_full_grouped<WIDE>(sc, ox, oy, oz, dx, dy, dz, live);
+  } else {
+    return closest_full(sc, ox, oy, oz, dx, dy, dz);
+  }
+}
+
+// No sphere strictly short of t_max: no root in (RAY_TMIN, t_max).
+template <bool GROUPED>
+__device__ __forceinline__ bool spheres_clear(const TablesT<GROUPED>& sc, float ox,
+                                              float oy, float oz, float dx, float dy,
+                                              float dz, float t_max) {
   for (int k = 0; k < sc.S; ++k) {
     float t1, t2;
     const bool pos = sphere_roots(sc.sph + SPH_ROWS * k, ox, oy, oz, dx, dy, dz,
@@ -450,10 +497,39 @@ __device__ __noinline__ bool light_reachable(const TablesT<GROUPED>& sc, float o
   return true;
 }
 
+// No occluder strictly short of t_max: any hit in (RAY_TMIN, t_max) over the
+// occluder list, spheres always tested.
+__device__ __noinline__ bool light_reachable(const Tables& sc, float ox, float oy,
+                                             float oz, float dx, float dy, float dz,
+                                             float t_max) {
+  for (int k = 0; k < sc.n_shadow; ++k) {
+    const float4* g = reinterpret_cast<const float4*>(sc.shadow + GEO_ROWS * k);
+    float den, tt, u, v;
+    triangle_plane(g[0], g[1], g[2], ox, oy, oz, dx, dy, dz, &den, &tt, &u, &v);
+    if (triangle_inside(den, tt, u, v, RAY_TMIN, t_max)) return false;
+  }
+  return spheres_clear<false>(sc, ox, oy, oz, dx, dy, dz, t_max);
+}
+
+// The same over the dense culled shadow table by the warp-cooperative sweep;
+// a lane with `live` false takes part in the warp's votes and is not reached.
+__device__ __noinline__ bool light_reachable_grouped(const GroupedTables& sc, float ox,
+                                                     float oy, float oz, float dx,
+                                                     float dy, float dz, float t_max,
+                                                     bool live) {
+  const bool occ = occluded_grouped_warp(sc.sgeo, sc.saabb, sc.ssup, sc.n_shadow_super,
+                                         sc.n_shadow, live, ox, oy, oz, dx, dy, dz,
+                                         RAY_TMIN, t_max);
+  if (occ || !live) return false;
+  return spheres_clear<true>(sc, ox, oy, oz, dx, dy, dz, t_max);
+}
+
 // calculateDirectLightSamplingContribution (shaders.metal:519-541), in the
 // occlusion form of the light probe.  Returns the contribution (zero unless
 // `active` and the light sample is reachable) and, through *reach, the probe's
-// decision.  With NEED_REACH false an inactive lane returns without probing.
+// decision.  With NEED_REACH false an inactive lane does not probe: in the
+// static tier it returns at once, in the grouped tier it takes part in the
+// warp's sweep with no live ray.  `live`: the lane's pixel is in the range.
 template <bool NEED_REACH, bool GROUPED>
 __device__ __forceinline__ V3 direct_light(const TablesT<GROUPED>& sc, const Light& L,
                                            float px, float py, float pz, float nx,
@@ -461,11 +537,11 @@ __device__ __forceinline__ V3 direct_light(const TablesT<GROUPED>& sc, const Lig
                                            float inz, float dfr, float dfg, float dfb,
                                            float met, float rgh, float u0, float u1,
                                            bool active, bool use_heuristic,
-                                           float s_per_f, bool* reach) {
+                                           float s_per_f, bool live, bool* reach) {
   V3 out;
   out.x = 0.0f; out.y = 0.0f; out.z = 0.0f;
   *reach = false;
-  if (!NEED_REACH && !active) return out;
+  if (!GROUPED && !NEED_REACH && !active) return out;
   const float ox = px + nx * 1e-4f;
   const float oy = py + ny * 1e-4f;
   const float oz = pz + nz * 1e-4f;
@@ -479,8 +555,13 @@ __device__ __forceinline__ V3 direct_light(const TablesT<GROUPED>& sc, const Lig
   // Plain division, not a reciprocal multiply: sample 0 of the Halton table
   // is the light rectangle's corner, and the probe sits on its edge.
   const float ldx = tox / dist, ldy = toy / dist, ldz = toz / dist;
-  *reach = light_reachable<GROUPED>(sc, ox, oy, oz, ldx, ldy, ldz,
-                                    dist * (float)(1.0 - 1e-4));
+  if constexpr (GROUPED) {
+    *reach = light_reachable_grouped(sc, ox, oy, oz, ldx, ldy, ldz,
+                                     dist * (float)(1.0 - 1e-4),
+                                     live && (NEED_REACH || active));
+  } else {
+    *reach = light_reachable(sc, ox, oy, oz, ldx, ldy, ldz, dist * (float)(1.0 - 1e-4));
+  }
   if (!(active && *reach)) return out;
   const float pdf_l = square_light_pdf(L, px, py, pz, ldx, ldy, ldz);
   const float vx = -inx, vy = -iny, vz = -inz;
@@ -501,8 +582,9 @@ __device__ __forceinline__ V3 direct_light(const TablesT<GROUPED>& sc, const Lig
 // Shared body of the cosine and VNDF strategies (shaders.metal:562-623):
 // trace the sampled ray; on the light add the weighted light term, on
 // geometry one unweighted light sample at the bounce point.  Also returns the
-// decisions for the record: the winner and the secondary probe's bit.
-template <bool EMIT, bool GROUPED>
+// decisions for the record: the winner and the secondary probe's bit.  `live`:
+// the lane's pixel is in the range (and, without EMIT, on a surface).
+template <bool EMIT, bool GROUPED, bool WIDE>
 __device__ __forceinline__ V3 bounce_strategy(const TablesT<GROUPED>& sc, const Light& L,
                                               float px, float py, float pz, float nx,
                                               float ny, float nz, float inx, float iny,
@@ -510,12 +592,12 @@ __device__ __forceinline__ V3 bounce_strategy(const TablesT<GROUPED>& sc, const 
                                               float dfb, float met, float rgh,
                                               bool active, float sdx, float sdy,
                                               float sdz, float pdf_self, float w,
-                                              float su0, float su1, int* prim2,
-                                              bool* sec_reach) {
+                                              float su0, float su1, bool live,
+                                              int* prim2, bool* sec_reach) {
   const float ox = px + nx * 1e-4f;
   const float oy = py + ny * 1e-4f;
   const float oz = pz + nz * 1e-4f;
-  const Surface h = closest_full<GROUPED>(sc, ox, oy, oz, sdx, sdy, sdz);
+  const Surface h = closest_hit<GROUPED, WIDE>(sc, ox, oy, oz, sdx, sdy, sdz, live);
   *prim2 = h.prim;
   const bool hit_light = active && h.hit && h.isem;
   const bool hit_geo = active && h.hit && !h.isem;
@@ -526,7 +608,7 @@ __device__ __forceinline__ V3 bounce_strategy(const TablesT<GROUPED>& sc, const 
   const V3 sec = direct_light<EMIT, GROUPED>(sc, L, bpx, bpy, bpz, h.nx, h.ny, h.nz,
                                              sdx, sdy, sdz, h.dfr, h.dfg, h.dfb, h.met,
                                              h.rgh, su0, su1, hit_geo, false, 1.0f,
-                                             sec_reach);
+                                             live, sec_reach);
   V3 out;
   out.x = 0.0f; out.y = 0.0f; out.z = 0.0f;
   if (!(hit_light || hit_geo)) return out;
@@ -547,65 +629,25 @@ __device__ __forceinline__ V3 bounce_strategy(const TablesT<GROUPED>& sc, const 
   return out;
 }
 
-template <bool EMIT, bool GROUPED>
-__global__ void __launch_bounds__(BLOCK_THREADS) mis_kernel(const MisParams p) {
-  const int T = p.num_tris;
-  const int S = p.num_spheres;
-  const int P = T + S;
-  const int s_per = p.s_per;
-  // The grouped tier stages only the sample table and the spheres.
-  extern __shared__ float4 smem4[];
-  float* s_geo = reinterpret_cast<float*>(smem4);                    // [T][12]
-  float* s_shadow = s_geo + (GROUPED ? 0 : GEO_ROWS * T);            // [n_shadow][12]
-  float* s_attr = s_shadow + (GROUPED ? 0 : GEO_ROWS * p.n_shadow);  // [T + S][12]
-  float* s_tab = s_attr + (GROUPED ? 0 : ATTR_ROWS * P);             // [s_per][16]
-  float* s_sph = s_tab + TAB_ROWS * s_per;                           // [S][4]
-
-  if (!GROUPED) {
-    for (int k = threadIdx.x; k < GEO_ROWS * T; k += blockDim.x) {
-      const int t = k / GEO_ROWS, r = k - t * GEO_ROWS;
-      s_geo[k] = p.tri[r * T + t];
-    }
-    for (int k = threadIdx.x; k < GEO_ROWS * p.n_shadow; k += blockDim.x) {
-      const int j = k / GEO_ROWS, r = k - j * GEO_ROWS;
-      s_shadow[k] = p.tri[r * T + p.shadow_idx[j]];
-    }
-    for (int k = threadIdx.x; k < ATTR_ROWS * P; k += blockDim.x) {
-      const int q = k / ATTR_ROWS, r = k - q * ATTR_ROWS;
-      s_attr[k] = p.atab[r * P + q];
-    }
-  }
-  for (int k = threadIdx.x; k < TAB_ROWS * s_per; k += blockDim.x) {
-    const int s = k / TAB_ROWS, r = k - s * TAB_ROWS;
-    s_tab[k] = p.tab[r * s_per + s];
-  }
-  for (int k = threadIdx.x; k < SPH_ROWS * S; k += blockDim.x) {
-    const int s = k / SPH_ROWS, r = k - s * SPH_ROWS;
-    s_sph[k] = p.sph[r * S + s];
-  }
-  __syncthreads();
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n_local) return;
-
-  TablesT<GROUPED> sc;
-  sc.geo = s_geo; sc.shadow = s_shadow; sc.sph = s_sph;
-  sc.attr = GROUPED ? p.atab : s_attr;
-  sc.T = T; sc.S = S; sc.n_shadow = p.n_shadow;
-  if constexpr (GROUPED) {
-    sc.ggeo = p.geo; sc.aabb = p.aabb; sc.sup = p.sup;
-    sc.sgeo = p.sgeo; sc.saabb = p.saabb; sc.ssup = p.ssup;
-    sc.n_super = p.n_super; sc.n_shadow_super = p.n_shadow_super;
-  }
-
+__device__ __forceinline__ Light load_light(const float* l) {
   Light L;
-  L.cx = p.light[0]; L.cy = p.light[1]; L.cz = p.light[2];
-  L.er = p.light[3]; L.eg = p.light[4]; L.eb = p.light[5];
-  L.w = p.light[6]; L.d = p.light[7];
-  L.nx = p.light[8]; L.ny = p.light[9]; L.nz = p.light[10];
-  L.tx = p.light[11]; L.ty = p.light[12]; L.tz = p.light[13];
-  L.bx = p.light[14]; L.by = p.light[15]; L.bz = p.light[16];
+  L.cx = l[0]; L.cy = l[1]; L.cz = l[2];
+  L.er = l[3]; L.eg = l[4]; L.eb = l[5];
+  L.w = l[6]; L.d = l[7];
+  L.nx = l[8]; L.ny = l[9]; L.nz = l[10];
+  L.tx = l[11]; L.ty = l[12]; L.tz = l[13];
+  L.bx = l[14]; L.by = l[15]; L.bz = l[16];
+  return L;
+}
 
+// One pixel i (global id rid_base + i): its camera rays and their samples,
+// the records and the hdr sum.  `in_range` false (the grouped tier's lanes
+// past the range, run on pixel n_local - 1): traverse nothing, store nothing.
+template <bool EMIT, bool GROUPED, bool WIDE>
+__device__ __forceinline__ void mis_pixel(const MisParams& p, const TablesT<GROUPED>& sc,
+                                          const Light& L, const float* s_tab, int i,
+                                          bool in_range) {
+  const int s_per = p.s_per;
   const int W = p.width;
   const size_t n_local = (size_t)p.n_local;
   const int rid = p.rid_base + i;  // global pixel id
@@ -637,11 +679,19 @@ __global__ void __launch_bounds__(BLOCK_THREADS) mis_kernel(const MisParams p) {
     const V3 d = normalize3(s * uhx + t * vhx - wvx, s * uhy + t * vhy - wvy,
                             s * uhz + t * vhz - wvz);
 
-    const Surface h = closest_full<GROUPED>(sc, posx, posy, posz, d.x, d.y, d.z);
-    if (EMIT) p.cam_rec[(size_t)cr * n_local + i] = h.hit ? h.prim + 1 : 0;
+    const Surface h =
+        closest_hit<GROUPED, WIDE>(sc, posx, posy, posz, d.x, d.y, d.z, in_range);
+    if (EMIT && in_range) p.cam_rec[(size_t)cr * n_local + i] = h.hit ? h.prim + 1 : 0;
     if (h.hit && h.isem) { acc_r += L.er; acc_g += L.eg; acc_b += L.eb; }
     const bool surf = h.hit && !h.isem;
-    if (!EMIT && !surf) continue;
+    if constexpr (GROUPED) {
+      // The warp's sweeps take every lane: the samples are skipped only
+      // where no lane of the warp is on a surface.
+      if (!EMIT && !__any_sync(grt::FULL_WARP, surf)) continue;
+    } else {
+      if (!EMIT && !surf) continue;
+    }
+    const bool live = in_range && (EMIT || surf);
 
     // NOT normal-offset (shaders.metal:497); t clamped on dead lanes.
     const float t_safe = surf ? h.t : 0.0f;
@@ -663,10 +713,9 @@ __global__ void __launch_bounds__(BLOCK_THREADS) mis_kernel(const MisParams p) {
 
       // Strategy 1: the light rectangle.
       bool reach1;
-      const V3 s1 = direct_light<EMIT, GROUPED>(sc, L, p_x, p_y, p_z, nhx, nhy, nhz,
-                                                d.x, d.y, d.z, h.dfr, h.dfg, h.dfb,
-                                                h.met, h.rgh, ta.x, ta.y, surf, true,
-                                                s_per_f, &reach1);
+      const V3 s1 = direct_light<EMIT, GROUPED>(
+          sc, L, p_x, p_y, p_z, nhx, nhy, nhz, d.x, d.y, d.z, h.dfr, h.dfg, h.dfb, h.met,
+          h.rgh, ta.x, ta.y, surf, true, s_per_f, in_range, &reach1);
 
       // Strategy 2: the cosine lobe.
       const V3 cd = cosine_direction(fr, nhx, nhy, nhz, tc.z, tc.w, td.x);
@@ -676,9 +725,9 @@ __global__ void __launch_bounds__(BLOCK_THREADS) mis_kernel(const MisParams p) {
       const float w_c = power_heuristic_3(pdf_c, pdf_l, pdf_v, s_per_f);
       int prim_c;
       bool reach2;
-      const V3 s2 = bounce_strategy<EMIT, GROUPED>(
+      const V3 s2 = bounce_strategy<EMIT, GROUPED, WIDE>(
           sc, L, p_x, p_y, p_z, nhx, nhy, nhz, d.x, d.y, d.z, h.dfr, h.dfg, h.dfb, h.met,
-          h.rgh, surf, cd.x, cd.y, cd.z, pdf_c, w_c, tb.x, tb.y, &prim_c, &reach2);
+          h.rgh, surf, cd.x, cd.y, cd.z, pdf_c, w_c, tb.x, tb.y, live, &prim_c, &reach2);
 
       // Strategy 3: the visible-normal lobe.
       const V3 vd = vndf_direction(fr, nhx, nhy, nhz, d.x, d.y, d.z, td.y, td.z, td.w);
@@ -689,11 +738,11 @@ __global__ void __launch_bounds__(BLOCK_THREADS) mis_kernel(const MisParams p) {
       const float w_v = power_heuristic_3(pdf_v2, pdf_l2, pdf_c2, s_per_f);
       int prim_v;
       bool reach3;
-      const V3 s3 = bounce_strategy<EMIT, GROUPED>(
+      const V3 s3 = bounce_strategy<EMIT, GROUPED, WIDE>(
           sc, L, p_x, p_y, p_z, nhx, nhy, nhz, d.x, d.y, d.z, h.dfr, h.dfg, h.dfb, h.met,
-          h.rgh, surf, vdx, vdy, vdz, pdf_v2, w_v, tc.x, tc.y, &prim_v, &reach3);
+          h.rgh, surf, vdx, vdy, vdz, pdf_v2, w_v, tc.x, tc.y, live, &prim_v, &reach3);
 
-      if (EMIT) {
+      if (EMIT && in_range) {
         p.samp_rec[((size_t)cr * s_per + n) * n_local + i] =
             (reach1 ? 1 : 0) | (reach2 ? 2 : 0) | (reach3 ? 4 : 0)
             | ((prim_c + 1) << REC_SHIFT_C) | ((prim_v + 1) << REC_SHIFT_V);
@@ -709,22 +758,161 @@ __global__ void __launch_bounds__(BLOCK_THREADS) mis_kernel(const MisParams p) {
     }
   }
 
-  p.hdr[i] = acc_r;
-  p.hdr[n_local + i] = acc_g;
-  p.hdr[2 * n_local + i] = acc_b;
+  if (in_range) {
+    p.hdr[i] = acc_r;
+    p.hdr[n_local + i] = acc_g;
+    p.hdr[2 * n_local + i] = acc_b;
+  }
+}
+
+// The static tier: one thread per pixel, blocks of BLOCK_THREADS, the scene
+// and sample tables staged per block.  The grouped tier: a persistent grid of
+// GROUPED_THREADS-thread blocks (one per SM: the block's shared memory holds
+// the tables once for its twelve warps), whose warps take 32-pixel tiles
+// from a counter (*tiles_taken, 0 at launch) until the range is done, so that
+// no SM idles at the end while another works through a slow block.  WIDE
+// (grouped tier only): the closest-hit sweep for more than WIDE_SUPERS supers.
+template <bool EMIT, bool GROUPED, bool WIDE>
+__global__ void __launch_bounds__(GROUPED ? GROUPED_THREADS : BLOCK_THREADS)
+    mis_kernel(const MisParams p) {
+  const int T = p.num_tris;
+  const int S = p.num_spheres;
+  const int P = T + S;
+  const int s_per = p.s_per;
+  // The grouped tier stages the sample table, the spheres and the box tables.
+  extern __shared__ float4 smem4[];
+  float* s_geo = reinterpret_cast<float*>(smem4);                    // [T][12]
+  float* s_shadow = s_geo + (GROUPED ? 0 : GEO_ROWS * T);            // [n_shadow][12]
+  float* s_attr = s_shadow + (GROUPED ? 0 : GEO_ROWS * p.n_shadow);  // [T + S][12]
+  float* s_tab = s_attr + (GROUPED ? 0 : ATTR_ROWS * P);             // [s_per][16]
+  float* s_sph = s_tab + TAB_ROWS * s_per;                           // [S][4]
+
+  if (!GROUPED) {
+    for (int k = threadIdx.x; k < GEO_ROWS * T; k += blockDim.x) {
+      const int t = k / GEO_ROWS, r = k - t * GEO_ROWS;
+      s_geo[k] = p.tri[r * T + t];
+    }
+    for (int k = threadIdx.x; k < GEO_ROWS * p.n_shadow; k += blockDim.x) {
+      const int j = k / GEO_ROWS, r = k - j * GEO_ROWS;
+      s_shadow[k] = p.tri[r * T + p.shadow_idx[j]];
+    }
+    for (int k = threadIdx.x; k < ATTR_ROWS * P; k += blockDim.x) {
+      const int q = k / ATTR_ROWS, r = k - q * ATTR_ROWS;
+      s_attr[k] = p.atab[r * P + q];
+    }
+  }
+  for (int k = threadIdx.x; k < TAB_ROWS * s_per; k += blockDim.x) {
+    const int s = k / TAB_ROWS, r = k - s * TAB_ROWS;
+    s_tab[k] = p.tab[r * s_per + s];
+  }
+  for (int k = threadIdx.x; k < SPH_ROWS * S; k += blockDim.x) {
+    const int s = k / SPH_ROWS, r = k - s * SPH_ROWS;
+    s_sph[k] = p.sph[r * S + s];
+  }
+
+  if constexpr (GROUPED) {
+    // [2 n_super] supers, [16 n_super] groups, the same for the shadow sweep
+    // (box rows are two float4).
+    float4* s_sup = reinterpret_cast<float4*>(s_sph + SPH_ROWS * S);
+    float4* s_aabb = s_sup + 2 * p.n_super;
+    float4* s_ssup = s_aabb + 2 * SUPER * p.n_super;
+    float4* s_saabb = s_ssup + 2 * p.n_shadow_super;
+    for (int k = threadIdx.x; k < 2 * p.n_super; k += blockDim.x) {
+      grt::cp_async16(s_sup + k, p.sup + k);
+    }
+    for (int k = threadIdx.x; k < 2 * SUPER * p.n_super; k += blockDim.x) {
+      grt::cp_async16(s_aabb + k, p.aabb + k);
+    }
+    for (int k = threadIdx.x; k < 2 * p.n_shadow_super; k += blockDim.x) {
+      grt::cp_async16(s_ssup + k, p.ssup + k);
+    }
+    for (int k = threadIdx.x; k < 2 * SUPER * p.n_shadow_super; k += blockDim.x) {
+      grt::cp_async16(s_saabb + k, p.saabb + k);
+    }
+    grt::cp_async_wait_all();
+    __syncthreads();
+
+    const int lane = threadIdx.x & 31;
+    GroupedTables sc;
+    sc.geo = s_geo; sc.shadow = s_shadow; sc.sph = s_sph; sc.attr = p.atab;
+    sc.T = T; sc.S = S; sc.n_shadow = p.n_shadow;
+    sc.ggeo = p.geo; sc.aabb = s_aabb; sc.sup = s_sup;
+    sc.sgeo = p.sgeo; sc.saabb = s_saabb; sc.ssup = s_ssup;
+    sc.n_super = p.n_super; sc.n_shadow_super = p.n_shadow_super;
+    const Light L = load_light(p.light);
+    const int tiles = (p.n_local + 31) / 32;
+    for (;;) {
+      int tile = 0;
+      if (lane == 0) tile = atomicAdd(p.tiles_taken, 1);
+      tile = __shfl_sync(grt::FULL_WARP, tile, 0);
+      if (tile >= tiles) break;
+      const int i = tile * 32 + lane;
+      const bool in_range = i < p.n_local;
+      mis_pixel<EMIT, true, WIDE>(p, sc, L, s_tab, in_range ? i : p.n_local - 1,
+                                  in_range);
+    }
+  } else {
+    __syncthreads();
+
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= p.n_local) return;
+
+    Tables sc;
+    sc.geo = s_geo; sc.shadow = s_shadow; sc.sph = s_sph; sc.attr = s_attr;
+    sc.T = T; sc.S = S; sc.n_shadow = p.n_shadow;
+    const Light L = load_light(p.light);
+    mis_pixel<EMIT, false, false>(p, sc, L, s_tab, i, true);
+  }
+}
+
+// Shared memory of the grouped tier: the sample table and the spheres
+// (floats), the four box tables (float4).
+size_t grouped_smem(int s_per, int num_spheres, int n_super, int n_shadow_super) {
+  return sizeof(float) * ((size_t)TAB_ROWS * s_per + (size_t)SPH_ROWS * num_spheres)
+         + sizeof(float4) * 2 * (1 + SUPER) * ((size_t)n_super + n_shadow_super);
+}
+
+// Blocks of the grouped tier the current device holds on one SM with `smem`
+// bytes of shared memory (after opting in to them); 0 where the query fails.
+template <bool EMIT, bool WIDE>
+int grouped_blocks_per_sm(size_t smem) {
+  int per_sm = 0;
+  if (cudaFuncSetAttribute(mis_kernel<EMIT, true, WIDE>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
+          != cudaSuccess
+      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, mis_kernel<EMIT, true, WIDE>, GROUPED_THREADS, smem)
+             != cudaSuccess) {
+    return 0;
+  }
+  return per_sm;
 }
 
 // Opts in to shared memory beyond the 48 KiB every launch may have (a long
 // sample table: more than about 2,000 samples at 36 triangles), then launches.
-template <bool EMIT, bool GROUPED>
+// The grouped tier's grid: the blocks the card holds at once, at most one per
+// GROUPED_WARPS 32-pixel tiles.
+template <bool EMIT, bool GROUPED, bool WIDE>
 cudaError_t launch_mis(const MisParams& p, size_t smem, cudaStream_t st) {
-  if (smem > 48 * 1024) {
+  int grid = (p.n_local + BLOCK_THREADS - 1) / BLOCK_THREADS;
+  int threads = BLOCK_THREADS;
+  if constexpr (GROUPED) {
+    int dev = 0, sms = 0;
+    const int per_sm = grouped_blocks_per_sm<EMIT, WIDE>(smem);
+    if (per_sm <= 0 || cudaGetDevice(&dev) != cudaSuccess
+        || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+      return cudaErrorInvalidConfiguration;
+    }
+    const int wanted = ((p.n_local + 31) / 32 + GROUPED_WARPS - 1) / GROUPED_WARPS;
+    grid = sms * per_sm < wanted ? sms * per_sm : wanted;
+    threads = GROUPED_THREADS;
+  } else if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        mis_kernel<EMIT, GROUPED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        mis_kernel<EMIT, GROUPED, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const int grid = (p.n_local + BLOCK_THREADS - 1) / BLOCK_THREADS;
-  mis_kernel<EMIT, GROUPED><<<grid, BLOCK_THREADS, smem, st>>>(p);
+  mis_kernel<EMIT, GROUPED, WIDE><<<grid, threads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -732,17 +920,37 @@ cudaError_t launch_mis(const MisParams& p, size_t smem, cudaStream_t st) {
 
 extern "C" {
 
+// Shared memory bytes of the grouped tier (ops/cuda_mis.grouped_smem_bytes
+// mirrors it).
+int grt_mis_grouped_smem(int s_per, int num_spheres, int n_super, int n_shadow_super) {
+  return (int)grouped_smem(s_per, num_spheres, n_super, n_shadow_super);
+}
+
+// Blocks of the grouped tier one SM of the current device holds at this
+// shape, records on (emit_records != 0) or off; 0 where the query fails.
+int grt_mis_grouped_blocks_per_sm(int emit_records, int s_per, int num_spheres,
+                                  int n_super, int n_shadow_super) {
+  const size_t smem = grouped_smem(s_per, num_spheres, n_super, n_shadow_super);
+  if (n_super > grt::WIDE_SUPERS) {
+    return emit_records ? grouped_blocks_per_sm<true, true>(smem)
+                        : grouped_blocks_per_sm<false, true>(smem);
+  }
+  return emit_records ? grouped_blocks_per_sm<true, false>(smem)
+                      : grouped_blocks_per_sm<false, false>(smem);
+}
+
 // Launches mis_kernel on `stream`; returns cudaGetLastError() as an int.
 // grouped != 0 takes the grouped tier: atab is then the transposed [T + S][12]
 // table, geo / aabb / sup and sgeo / saabb / ssup the two sweeps' tables with
-// n_super and n_shadow_super supers, and shadow_idx is not read.
+// n_super and n_shadow_super supers, tiles_taken one int32 that is 0, and
+// shadow_idx is not read.
 int grt_mis_trace(const float* cam, const float* light, const float* tri,
                   const float* sph, const float* atab, const float* tab,
                   const int32_t* shadow_idx, float* hdr, int32_t* cam_rec,
                   int32_t* samp_rec, const float* geo, const float* aabb,
                   const float* sup, const float* sgeo, const float* saabb,
-                  const float* ssup, int n_local, int rid_base, int width,
-                  int height, int camera_rays, int s_per, int num_tris,
+                  const float* ssup, int32_t* tiles_taken, int n_local, int rid_base,
+                  int width, int height, int camera_rays, int s_per, int num_tris,
                   int num_spheres, int n_shadow, int emit_records, int n_super,
                   int n_shadow_super, int grouped, void* stream) {
   MisParams p;
@@ -754,6 +962,7 @@ int grt_mis_trace(const float* cam, const float* light, const float* tri,
   p.sgeo = reinterpret_cast<const float4*>(sgeo);
   p.saabb = reinterpret_cast<const float4*>(saabb);
   p.ssup = reinterpret_cast<const float4*>(ssup);
+  p.tiles_taken = tiles_taken;
   p.n_local = n_local; p.rid_base = rid_base; p.width = width; p.height = height;
   p.camera_rays = camera_rays; p.s_per = s_per; p.num_tris = num_tris;
   p.num_spheres = num_spheres; p.n_shadow = n_shadow;
@@ -764,24 +973,27 @@ int grt_mis_trace(const float* cam, const float* light, const float* tri,
     return (int)cudaErrorInvalidValue;
   }
   if (grouped && (geo == nullptr || aabb == nullptr || sup == nullptr || sgeo == nullptr
-                  || saabb == nullptr || ssup == nullptr || n_super <= 0
-                  || n_shadow_super <= 0)) {
+                  || saabb == nullptr || ssup == nullptr || tiles_taken == nullptr
+                  || n_super <= 0 || n_shadow_super <= 0)) {
     return (int)cudaErrorInvalidValue;
   }
-  size_t smem = sizeof(float) * ((size_t)TAB_ROWS * s_per + (size_t)SPH_ROWS * num_spheres);
-  if (!grouped) {
-    smem += sizeof(float) * ((size_t)GEO_ROWS * (num_tris + n_shadow)
-                             + (size_t)ATTR_ROWS * (num_tris + num_spheres));
-  }
+  size_t smem = grouped ? grouped_smem(s_per, num_spheres, n_super, n_shadow_super)
+                        : sizeof(float) * ((size_t)TAB_ROWS * s_per
+                                           + (size_t)SPH_ROWS * num_spheres
+                                           + (size_t)GEO_ROWS * (num_tris + n_shadow)
+                                           + (size_t)ATTR_ROWS * (num_tris + num_spheres));
   if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
-  if (grouped) {
-    err = emit_records ? launch_mis<true, true>(p, smem, st)
-                       : launch_mis<false, true>(p, smem, st);
+  if (grouped && n_super > grt::WIDE_SUPERS) {
+    err = emit_records ? launch_mis<true, true, true>(p, smem, st)
+                       : launch_mis<false, true, true>(p, smem, st);
+  } else if (grouped) {
+    err = emit_records ? launch_mis<true, true, false>(p, smem, st)
+                       : launch_mis<false, true, false>(p, smem, st);
   } else {
-    err = emit_records ? launch_mis<true, false>(p, smem, st)
-                       : launch_mis<false, false>(p, smem, st);
+    err = emit_records ? launch_mis<true, false, false>(p, smem, st)
+                       : launch_mis<false, false, false>(p, smem, st);
   }
   return (int)err;
 }

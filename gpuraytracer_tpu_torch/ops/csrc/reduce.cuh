@@ -10,7 +10,8 @@
 // then summed in index order into one partial per block, and
 // reduce_partials_kernel sums the partials in block order in float64.  The
 // grouped backwards keep one table per warp in global memory instead, on a
-// persistent grid that persistent_blocks sizes.
+// persistent grid that persistent_blocks sizes; mis_bwd_grouped_kernel
+// scatters by warp_scatter_peers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,6 +45,30 @@ __device__ __forceinline__ void warp_scatter_rows(unsigned rem, bool act, int ke
       if (lane == leader) table[k * NCOL + c] += v;
     }
   }
+}
+
+// The grouped backward's scatter: adds row[0 .. NCOL) of every lane with
+// `act` to table[key * NCOL ...] without shuffles.  __match_any_sync groups
+// the lanes by key; the lowest lane of a group sums the group's rows in lane
+// order, reading the other lanes' rows from shared memory (`row` is this
+// lane's, lane l's lies at row + (l - lane) * stride), and adds the sum once;
+// a lane alone with its key adds its own row.  The leaders of a warp's groups
+// run side by side.  Every lane of the warp must call it after writing its
+// row; the caller orders the adds before the next scatter (__syncwarp).
+template <int NCOL>
+__device__ __forceinline__ void warp_scatter_peers(bool act, int key, const float* row,
+                                                   int stride, float* table, int lane) {
+  const unsigned peers = __match_any_sync(FULL_MASK, act ? key : -1);
+  __syncwarp();  // the rows are written
+  if (!act || lane != __ffs(peers) - 1) return;
+  float sum[NCOL];
+  for (int c = 0; c < NCOL; ++c) sum[c] = row[c];
+  for (unsigned m = peers & (peers - 1u); m != 0u; m &= m - 1u) {
+    const float* r = row + (__ffs(m) - 1 - lane) * stride;
+    for (int c = 0; c < NCOL; ++c) sum[c] += r[c];
+  }
+  float* dst = table + key * NCOL;
+  for (int c = 0; c < NCOL; ++c) dst[c] += sum[c];
 }
 
 // Sums the per-block partials [blocks, count] into out [count], in block

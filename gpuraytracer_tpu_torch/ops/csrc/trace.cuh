@@ -1,7 +1,8 @@
 // Ray-primitive tests shared by the port's trace kernels (sm_90a):
 // path_kernel (path_kernels.cu), mis_kernel (mis_kernels.cu) and silh_kernel
 // (soft_kernels.cu); the grouped sweep (closest_grouped, occluded_grouped)
-// serves the grouped tiers of path_kernel and mis_kernel.
+// serves path_kernel's grouped tier, its warp-cooperative form
+// (closest_grouped_warp, occluded_grouped_warp) mis_kernel's.
 //
 // One definition, in the operation order of the plain versions
 // (intersect.triangle_candidates / sphere_candidates), so that the kernels
@@ -117,12 +118,11 @@ __device__ __forceinline__ float safe_inv(float d) {
   return fabsf(d) < 1e-30f ? 1e30f : 1.0f / d;
 }
 
-// Whether the ray's segment [0, t_far] meets the box (pallas_path.
+// Whether the ray's segment [0, t_far] meets the box lo, hi (pallas_path.
 // _slab_interval and its test, in that order).
-__device__ __forceinline__ bool slab_reach(const float4* __restrict__ box, float ox,
-                                           float oy, float oz, float ivx, float ivy,
-                                           float ivz, float t_far) {
-  const float4 lo = __ldg(box), hi = __ldg(box + 1);
+__device__ __forceinline__ bool slab_hit(float4 lo, float4 hi, float ox, float oy,
+                                         float oz, float ivx, float ivy, float ivz,
+                                         float t_far) {
   const float t0x = (lo.x - ox) * ivx;
   const float t1x = (hi.x - ox) * ivx;
   const float t0y = (lo.y - oy) * ivy;
@@ -133,6 +133,13 @@ __device__ __forceinline__ bool slab_reach(const float4* __restrict__ box, float
                            fmaxf(fminf(t0z, t1z), 0.0f));
   const float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
   return tmin <= fminf(tmax, t_far);
+}
+
+// slab_hit of a box table row in global memory, through the read-only path.
+__device__ __forceinline__ bool slab_reach(const float4* __restrict__ box, float ox,
+                                           float oy, float oz, float ivx, float ivy,
+                                           float ivz, float t_far) {
+  return slab_hit(__ldg(box), __ldg(box + 1), ox, oy, oz, ivx, ivy, ivz, t_far);
 }
 
 // Closest triangle hit in (t_min, t_max) over T triangles by the grouped
@@ -193,6 +200,186 @@ __device__ __forceinline__ bool occluded_grouped(
     }
   }
   return false;
+}
+
+// ---------------------------------------------------------------------------
+// The warp-cooperative grouped sweep (mis_kernel's grouped tier)
+// ---------------------------------------------------------------------------
+// The same decisions as closest_grouped / occluded_grouped, lane by lane, with
+// the box tables in shared memory.  Per super, in index order: each lane tests
+// the super's box against its own far limit and, where it reaches it, the
+// eight group boxes against the same limit, into a mask (the warp skips a
+// super that no lane reaches, by a vote); then it walks the mask's groups in
+// index order, each lane its own, so that lanes in different groups run side
+// by side rather than in turn, and tests their triangles through the
+// read-only path.  The far limit only falls while a lane tests triangles and
+// slab_hit is monotone in the far limit, so a group that the lane reaches
+// later in the super is in its mask; where the far limit has moved since the
+// mask was made, the lane tests the box again.  So the lane's box tests that
+// decide, its triangle tests, their order and their arithmetic are those of
+// closest_grouped.  Every lane of the warp calls these functions at the same
+// point of its program (the votes take the full mask); a lane with `live`
+// false takes part in the votes and tests nothing.
+
+constexpr unsigned FULL_WARP = 0xffffffffu;
+
+__device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Bit g set where the segment [0, t_far] meets group box sg * SUPER + g.
+__device__ __forceinline__ unsigned group_mask(const float4* aabb, int sg, float ox,
+                                               float oy, float oz, float ivx, float ivy,
+                                               float ivz, float t_far) {
+  unsigned m = 0u;
+  for (int g = 0; g < SUPER; ++g) {
+    const float4* b = aabb + 2 * (sg * SUPER + g);
+    if (slab_hit(b[0], b[1], ox, oy, oz, ivx, ivy, ivz, t_far)) m |= 1u << g;
+  }
+  return m;
+}
+
+// closest_grouped with the box tables `aabb`, `sup` in shared memory; geo
+// stays in global memory.
+__device__ __forceinline__ void closest_grouped_warp(
+    const float4* __restrict__ geo, const float4* aabb, const float4* sup, int n_super,
+    int T, bool live, float ox, float oy, float oz, float dx, float dy, float dz,
+    float t_min, float t_max, float* t_best, int* prim) {
+  const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
+  for (int sg = 0; sg < n_super; ++sg) {
+    const float far = fminf(*t_best * FAR_SCALE + FAR_SLACK, t_max);
+    const bool reach = live && slab_hit(sup[2 * sg], sup[2 * sg + 1], ox, oy, oz, ivx,
+                                        ivy, ivz, far);
+    if (__ballot_sync(FULL_WARP, reach) == 0u) continue;
+    const float t_seen = *t_best;
+    const unsigned mine = reach ? group_mask(aabb, sg, ox, oy, oz, ivx, ivy, ivz, far) : 0u;
+    for (unsigned m = mine; m != 0u; m &= m - 1u) {
+      const int g = __ffs(m) - 1;
+      // The lane's own test of this group with its t_best of this moment;
+      // the mask's test stands where t_best has not moved since.
+      const float4* b = aabb + 2 * (sg * SUPER + g);
+      if (*t_best != t_seen
+          && !slab_hit(b[0], b[1], ox, oy, oz, ivx, ivy, ivz,
+                       fminf(*t_best * FAR_SCALE + FAR_SLACK, t_max))) {
+        continue;
+      }
+      const int base = (sg * SUPER + g) * GROUP;
+      const int top = min(GROUP, T - base);
+      const float4* s = geo + (size_t)base * 3;
+#pragma unroll 1
+      for (int j = 0; j < top; ++j) {
+        float den, tt, u, v;
+        triangle_plane(__ldg(s + 3 * j), __ldg(s + 3 * j + 1), __ldg(s + 3 * j + 2), ox, oy,
+                       oz, dx, dy, dz, &den, &tt, &u, &v);
+        const bool closer = triangle_inside(den, tt, u, v, t_min, t_max)
+                            && (tt < *t_best);
+        if (closer) { *t_best = tt; *prim = base + j; }
+      }
+    }
+  }
+}
+
+// closest_grouped_warp for scenes of many supers, where a lane reaches few of
+// them: the lane first tests the boxes of up to 32 supers against its far
+// limit of that moment, in a tight loop without votes, then walks the supers
+// it reached, each lane its own, testing a super's box again where its far
+// limit has fallen since; within a super as closest_grouped_warp.  The same
+// decisions; the walks diverge where the lanes' supers differ, so it pays
+// only above WIDE_SUPERS supers.
+constexpr int WIDE_SUPERS = 32;
+
+__device__ __forceinline__ void closest_grouped_wide(
+    const float4* __restrict__ geo, const float4* aabb, const float4* sup, int n_super,
+    int T, bool live, float ox, float oy, float oz, float dx, float dy, float dz,
+    float t_min, float t_max, float* t_best, int* prim) {
+  const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
+  for (int s0 = 0; s0 < n_super; s0 += 32) {
+    const float t_seen = *t_best;
+    const float far = fminf(t_seen * FAR_SCALE + FAR_SLACK, t_max);
+    unsigned sups = 0u;
+    for (int c = 0; c < 32 && s0 + c < n_super; ++c) {
+      const int sg = s0 + c;
+      if (live && slab_hit(sup[2 * sg], sup[2 * sg + 1], ox, oy, oz, ivx, ivy, ivz, far)) {
+        sups |= 1u << c;
+      }
+    }
+    for (unsigned ms = sups; ms != 0u; ms &= ms - 1u) {
+      const int sg = s0 + __ffs(ms) - 1;
+      const float far_now = fminf(*t_best * FAR_SCALE + FAR_SLACK, t_max);
+      if (*t_best != t_seen
+          && !slab_hit(sup[2 * sg], sup[2 * sg + 1], ox, oy, oz, ivx, ivy, ivz, far_now)) {
+        continue;
+      }
+      const float t_arrive = *t_best;
+      const unsigned mine = group_mask(aabb, sg, ox, oy, oz, ivx, ivy, ivz, far_now);
+      for (unsigned m = mine; m != 0u; m &= m - 1u) {
+        const int g = __ffs(m) - 1;
+        const float4* b = aabb + 2 * (sg * SUPER + g);
+        if (*t_best != t_arrive
+            && !slab_hit(b[0], b[1], ox, oy, oz, ivx, ivy, ivz,
+                         fminf(*t_best * FAR_SCALE + FAR_SLACK, t_max))) {
+          continue;
+        }
+        const int base = (sg * SUPER + g) * GROUP;
+        const int top = min(GROUP, T - base);
+        const float4* s = geo + (size_t)base * 3;
+#pragma unroll 1
+        for (int j = 0; j < top; ++j) {
+          float den, tt, u, v;
+          triangle_plane(__ldg(s + 3 * j), __ldg(s + 3 * j + 1), __ldg(s + 3 * j + 2), ox,
+                         oy, oz, dx, dy, dz, &den, &tt, &u, &v);
+          const bool closer = triangle_inside(den, tt, u, v, t_min, t_max)
+                              && (tt < *t_best);
+          if (closer) { *t_best = tt; *prim = base + j; }
+        }
+      }
+    }
+  }
+}
+
+// occluded_grouped with the box tables in shared memory: any hit in (t_min,
+// t_max) over n triangles.  The far limit is fixed, so a lane makes the masks
+// of SHADOW_CHUNK supers at once (32 groups), exactly those it reaches, and
+// walks them; it stops at its first occluder, and the warp leaves the sweep
+// when every lane has stopped.
+constexpr int SHADOW_CHUNK = 8;
+
+__device__ __forceinline__ bool occluded_grouped_warp(
+    const float4* __restrict__ geo, const float4* aabb, const float4* sup, int n_super,
+    int n, bool live, float hx, float hy, float hz, float ldx, float ldy, float ldz,
+    float t_min, float t_max) {
+  const float ivx = safe_inv(ldx), ivy = safe_inv(ldy), ivz = safe_inv(ldz);
+  const float t_seg = t_max * FAR_SCALE + FAR_SLACK;
+  bool open = live;
+  for (int s0 = 0; s0 < n_super; s0 += SHADOW_CHUNK) {
+    if (__ballot_sync(FULL_WARP, open) == 0u) break;
+    unsigned long long mine = 0ull;
+    for (int c = 0; c < SHADOW_CHUNK && s0 + c < n_super; ++c) {
+      const int sg = s0 + c;
+      if (open && slab_hit(sup[2 * sg], sup[2 * sg + 1], hx, hy, hz, ivx, ivy, ivz, t_seg)) {
+        mine |= (unsigned long long)group_mask(aabb, sg, hx, hy, hz, ivx, ivy, ivz, t_seg) << (SUPER * c);
+      }
+    }
+    for (unsigned long long m = mine; m != 0ull && open; m &= m - 1ull) {
+      const int base = (s0 * SUPER + __ffsll((long long)m) - 1) * GROUP;
+      const int top = min(GROUP, n - base);
+      const float4* s = geo + (size_t)base * 3;
+#pragma unroll 1
+      for (int j = 0; j < top; ++j) {
+        float den, tt, u, v;
+        triangle_plane(__ldg(s + 3 * j), __ldg(s + 3 * j + 1), __ldg(s + 3 * j + 2), hx, hy,
+                       hz, ldx, ldy, ldz, &den, &tt, &u, &v);
+        if (triangle_inside(den, tt, u, v, t_min, t_max)) { open = false; break; }
+      }
+    }
+  }
+  return live && !open;
 }
 
 }  // namespace grt

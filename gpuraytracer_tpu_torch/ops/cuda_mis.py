@@ -44,10 +44,10 @@ from ..render import _mis_chunk, _mis_sample_tables, pixel_coords
 from ..types import RenderConfig, Scene
 from ..utils.host import resolve_device
 from . import _build
-from .cuda_path import (GroupedTables, _pack_grouped, _raise_on_launch_error,
-                        _require, camera_vector, closest_grouped,
-                        grouped_launch_tables, grouped_tier, occluded_grouped,
-                        shadow_indices)
+from .cuda_path import (SUPER, GroupedTables, _pack_grouped,
+                        _raise_on_launch_error, _require, camera_vector,
+                        closest_grouped, grouped_launch_tables, grouped_tier,
+                        occluded_grouped, shadow_indices)
 
 # Rows of the packed tables (the JAX package's layout).
 NROWS = 21   # tri: n xyz, c0, s1 xyz, c1, s2 xyz, c2, diffuse rgb, is_em, emissive rgb, metallic, roughness
@@ -77,6 +77,11 @@ _BIG = 1e30
 # table is the part that grows: about 3,500 samples per strategy at 36
 # triangles.
 _SMEM_LIMIT = 227 * 1024
+# The grouped tier (K4g) runs one persistent block of 384 threads per SM. A
+# block stages the sample table, the spheres and the box tables of both
+# sweeps (32 B a box: a super and its SUPER groups). Above WIDE_SUPERS
+# supers its closest-hit sweep takes its wide form (trace.cuh).
+WIDE_SUPERS = 32
 # Sample steps (pixels x camera rays x samples per strategy) whose autograd
 # graph the oracle backward of ``render_mis_cuda`` holds at a time: about
 # 4 KB each at 36 triangles (``chip_smoke.py`` prints it), so some 9 GB.
@@ -576,9 +581,30 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signature declared."""
     lib = _build.load_library("mis_kernels").lib
     if lib.grt_mis_trace.argtypes is None:
-        lib.grt_mis_trace.argtypes = [_PTR] * 16 + [_INT] * 13 + [_PTR]
+        lib.grt_mis_trace.argtypes = [_PTR] * 17 + [_INT] * 13 + [_PTR]
         lib.grt_mis_trace.restype = _INT
+        lib.grt_mis_grouped_smem.argtypes = [_INT] * 4
+        lib.grt_mis_grouped_smem.restype = _INT
+        lib.grt_mis_grouped_blocks_per_sm.argtypes = [_INT] * 5
+        lib.grt_mis_grouped_blocks_per_sm.restype = _INT
     return lib
+
+
+def grouped_smem_bytes(s_per: int, num_spheres: int, n_super: int,
+                       n_shadow_super: int) -> int:
+    """Shared memory of one K4g block (``grouped_smem`` in
+    ``csrc/mis_kernels.cu``): the [s_per][16] sample table, the spheres, the
+    super and group boxes of the closest-hit and the shadow sweep. Raises
+    ValueError past the most one block may use."""
+    smem = (4 * (NTAB_EXT * s_per + SROWS * num_spheres)
+            + 32 * (1 + SUPER) * (n_super + n_shadow_super))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"the grouped MIS kernel needs {smem} B of shared memory ("
+            f"{s_per} samples per strategy, {n_super} + {n_shadow_super} "
+            f"supers of boxes); one block may use at most {_SMEM_LIMIT} B "
+            "(fewer samples per strategy)")
+    return smem
 
 
 def mis_trace_kernel(n_local: int, rid_base: int, packed: PackedMisScene,
@@ -597,16 +623,18 @@ def mis_trace_kernel(n_local: int, rid_base: int, packed: PackedMisScene,
     s_per = config.mis_samples // 3
     grp = packed.grouped
     n_shadow = shadow_idx.shape[0] if grp is None else grp.num_shadow
-    # The static tier stages the scene tables; the grouped tier only the
-    # sample table and the spheres.
-    smem = 4 * (NTAB_EXT * s_per + SROWS * S)
+    # The static tier stages the scene tables; the grouped tier the sample
+    # table, the spheres and the box tables.
     if grp is None:
-        smem += 4 * (12 * (T + n_shadow) + NATTR * (T + S))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"scene and sample tables need {smem} B of shared memory; the "
-            f"kernel stages at most {_SMEM_LIMIT} B (fewer samples per "
-            "strategy or spheres, or the grouped tier: grouped=True)")
+        smem = 4 * (NTAB_EXT * s_per + SROWS * S + 12 * (T + n_shadow)
+                    + NATTR * (T + S))
+        if smem > _SMEM_LIMIT:
+            raise ValueError(
+                f"scene and sample tables need {smem} B of shared memory; "
+                f"the kernel stages at most {_SMEM_LIMIT} B (fewer samples "
+                "per strategy or spheres, or the grouped tier: grouped=True)")
+    else:
+        grouped_smem_bytes(s_per, S, grp.sup.shape[1], grp.shadow_sup.shape[1])
     if n_local < 1 or rid_base < 0 or rid_base + n_local > config.num_pixels:
         raise ValueError(
             f"pixel range [{rid_base}, {rid_base + n_local}) is not inside "
@@ -616,11 +644,13 @@ def mis_trace_kernel(n_local: int, rid_base: int, packed: PackedMisScene,
     atab = _require(packed.atab, "atab", f32, (NATTR, T + S), dev)
     if grp is None:
         idx = _require(shadow_idx, "shadow_idx", i32, (n_shadow,), dev)
-        tables, supers = [None] * 6, (0, 0)
+        tables, supers, taken = [None] * 6, (0, 0), None
     else:
         atab_t = packed.atab.T.contiguous()  # [T + S][12], held to the launch
         atab, idx = atab_t.data_ptr(), None
         tables, supers = grouped_launch_tables(grp, dev)
+        # The persistent grid's tile counter.
+        taken = torch.zeros(1, dtype=i32, device=dev)
     ptrs = [
         _require(packed.cam, "cam", f32, (12,), dev),
         _require(packed.light, "light", f32, (NLIGHT,), dev),
@@ -641,7 +671,8 @@ def mis_trace_kernel(n_local: int, rid_base: int, packed: PackedMisScene,
             rec.camera.data_ptr() if emit_records else None,
             rec.samples.data_ptr() if emit_records else None,
             *[None if t is None else t.data_ptr() for t in tables],
-            n_local, rid_base, config.width, config.height,
+            None if taken is None else taken.data_ptr(), n_local, rid_base,
+            config.width, config.height,
             config.camera_rays, s_per, T, S, n_shadow, int(emit_records),
             *supers, int(grp is not None),
             torch.cuda.current_stream(dev).cuda_stream)

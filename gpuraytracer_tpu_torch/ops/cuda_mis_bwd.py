@@ -42,7 +42,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
 
 import torch
 
@@ -98,6 +97,30 @@ PI_F = smp._f32(math.pi)
 INV_PI_F = smp._f32(1.0 / math.pi)
 _SMEM_LIMIT = 227 * 1024  # bytes of shared memory one block may use on sm_90
 _KERNEL_WARPS = 4         # warps per block of mis_bwd_kernel
+# The grouped tier (K5g) keeps each thread's per-item state in shared memory:
+# cs and d_cs (NCS each), d_light (NLIGHT) and the two lobe winners' rows.
+GROUPED_THREADS = 32 * _KERNEL_WARPS
+
+
+def grouped_state_floats(ndif: int) -> int:
+    """Floats of one K5g thread's state (``State`` in
+    ``csrc/mis_bwd_kernels.cu``)."""
+    return 2 * NCS + NLIGHT + 2 * ndif
+
+
+def grouped_smem_bytes(s_per: int, ndif: int) -> int:
+    """Shared memory of one K5g block (``grouped_smem`` in
+    ``csrc/mis_bwd_kernels.cu``): the [s_per][16] sample table, the camera
+    and light scalars and the threads' state. Raises ValueError past the
+    most one block may use."""
+    smem = 4 * (NTAB_EXT * s_per + NSCAL
+                + GROUPED_THREADS * grouped_state_floats(ndif))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"the grouped MIS backward kernel needs {smem} B of shared memory "
+            f"({s_per} samples per strategy); one block may use at most "
+            f"{_SMEM_LIMIT} B (fewer samples per strategy)")
+    return smem
 
 # Kernel launches since the process started (or since a caller reset them):
 # the wrapper adds one where it launches the kernel and nowhere else.
@@ -1362,6 +1385,10 @@ def _library() -> ctypes.CDLL:
         lib.grt_mis_bwd_blocks.restype = _INT
         lib.grt_mis_bwd_grouped_blocks.argtypes = [_INT] * 5
         lib.grt_mis_bwd_grouped_blocks.restype = _INT
+        lib.grt_mis_bwd_grouped_smem.argtypes = [_INT] * 2
+        lib.grt_mis_bwd_grouped_smem.restype = _INT
+        lib.grt_mis_bwd_grouped_blocks_per_sm.argtypes = [_INT] * 2
+        lib.grt_mis_bwd_grouped_blocks_per_sm.restype = _INT
     return lib
 
 
@@ -1380,15 +1407,17 @@ def mis_bwd_kernel(g: torch.Tensor, records: MisRecords, table: torch.Tensor,
     ndif = table.shape[0]
     s_per = config.mis_samples // 3
     # The static tier stages the parameter table and one table per warp.
-    smem = 4 * (NTAB_EXT * s_per + NSCAL)
-    if not grouped:
-        smem += 4 * (ndif * P + _KERNEL_WARPS * (P * ndif + NSCAL))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"the parameter and sample tables need {smem} B of shared "
-            f"memory; the backward kernel stages at most {_SMEM_LIMIT} B "
-            "(fewer samples per strategy, or the grouped tier: "
-            "grouped=True)")
+    if grouped:
+        grouped_smem_bytes(s_per, ndif)
+    else:
+        smem = 4 * (NTAB_EXT * s_per + NSCAL + ndif * P
+                    + _KERNEL_WARPS * (P * ndif + NSCAL))
+        if smem > _SMEM_LIMIT:
+            raise ValueError(
+                f"the parameter and sample tables need {smem} B of shared "
+                f"memory; the backward kernel stages at most {_SMEM_LIMIT} B "
+                "(fewer samples per strategy, or the grouped tier: "
+                "grouped=True)")
     if n < 1 or rid_base < 0 or rid_base + n > config.num_pixels:
         raise ValueError(
             f"pixel range [{rid_base}, {rid_base + n}) is not inside the "

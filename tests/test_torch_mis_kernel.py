@@ -244,5 +244,6 @@ def test_kernel_source_is_registered_for_the_build():
     assert all((_build.CSRC_DIR / f"{name}.cu").is_file()
                for name in _build.SOURCES)
     text = (_build.CSRC_DIR / "mis_kernels.cu").read_text()
-    assert "mis_kernel<EMIT, GROUPED><<<" in text and "grt_mis_trace" in text
+    assert ("mis_kernel<EMIT, GROUPED, WIDE><<<" in text
+            and "grt_mis_trace" in text)
     assert '#include "trace.cuh"' in text
