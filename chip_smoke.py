@@ -26,9 +26,10 @@ failed check raises, so a run that ends in the ``ok`` line passed them all.
 bound: how far the plain grouped sweep's box and triangle tests per sample
 move between the sample count the ``full`` phase counts them at and the 300
 samples it scales them to (``count_drift``). ``--split`` runs only a
-measurement of where K4g's and K5g's time goes: each rebuilt from a copy of
-the sources with one part taken out (``SPLIT_EDITS``) and timed at paths M
-and N beside the unedited build.
+measurement of where the MIS kernels' time goes: each rebuilt from a copy of
+the sources with one part taken out or changed (``SPLIT_EDITS``) and timed
+beside the unedited build, K4 at paths F-H, K5 at I, K4g and K5g at M and
+N.
 
 Phases
   build   nvcc builds ops/csrc/path_kernels.cu, shade_kernels.cu,
@@ -160,7 +161,10 @@ Phases
           against the plain grouped sweep on the same pixels at 2 camera
           rays x 30 samples, whose box and triangle counts
           estimate its bound; the grouped MIS backward's on the whole
-          frame), and their times.
+          frame), and their times. The MIS rows (K4, K4g, K5, K5g) also
+          give registers, stack, shared memory and blocks per SM, and K5's
+          the share of a warp's lanes open where each of its three strategy
+          calls issues (``k5_lane_shares``).
 
 Tolerances. Draws: bit-equal (the radical inverse spells out each rounding).
 Records: a share of at most 0.5 % of the decisions may differ — the kernel and
@@ -258,6 +262,9 @@ from gpuraytracer_tpu_torch.utils.metrics import mrays_per_s, nominal_rays
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth and the
 # float32 rate outside the tensor cores. The bounds below are stated against
 # these whatever power limit the card runs at; the limit is printed beside.
+# The float32 rate counts a fused multiply-add as two operations; the kernels
+# are built with -fmad=false, so each of their multiplies and adds issues on
+# its own, and their floor is at least twice an operation bound.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
@@ -270,6 +277,15 @@ HDR_ATOL, HDR_RTOL = 2e-5, 1e-4
 # the camera ray per sample and the shading of one bounce (hit point, light
 # sample, accumulate, cosine bounce; a transcendental counted as one).
 OPS_TRI_CLOSEST, OPS_TRI_SHADOW = 49, 46
+# The part of a triangle test that the MIS kernel's static tier runs on every
+# test (trace.cuh: den 5, num 6, |den| >= 1e-12 2, the signs of num and den
+# 2, |num| < |den| t_far (1 + 2^-22) 4); the rest of OPS_TRI_CLOSEST or
+# OPS_TRI_SHADOW runs only on a test that passes both conditions. The share
+# that passes is counted by the plain version on every
+# K4_PREFILTER_STRIDE-th pixel (prime, so that the pixels spread over the
+# frame's columns).
+OPS_TRI_PREFILTER = 19
+K4_PREFILTER_STRIDE = 13
 OPS_SPH_CLOSEST, OPS_SPH_SHADOW = 43, 39
 OPS_CAMERA, OPS_SHADE = 30, 130
 # Integer and float operations per Halton digit (multiply-shift divide,
@@ -1062,20 +1078,42 @@ def mis_work(inp: MisInputs, rec: cuda_mis.MisRecords):
     return work
 
 
-def mis_bound(inp: MisInputs, rec: cuda_mis.MisRecords, emit: bool):
-    """(bound_ms, bound_by, counts) of one MIS trace from the records of
-    this frame: the primitive tests its live rays need — a closest hit tests
-    every primitive, a probe that reaches the light every occluder, a
-    blocked probe at least one — and the shading of its live samples
-    (``mis_work``), against the bytes in and out; ``emit`` adds the records'
-    bytes alone."""
+def prefilter_shares(inp: MisInputs):
+    """The shares of the static tier's triangle tests that pass both of its
+    prefilters (``cuda_mis.plane_ahead``, ``plane_within``), counted by the
+    plain version on every K4_PREFILTER_STRIDE-th pixel of the frame at the
+    full camera rays and samples, on live lanes: {"camera": primary rays,
+    "closest": lobe rays, "shadow": light probes that reach the light}."""
+    pix = torch.arange(0, inp.cfg.num_pixels, K4_PREFILTER_STRIDE,
+                       device="cuda")
+    stats = {}
+    inp.plain(pix=pix, stats=stats)
+    return {key: st["passed"] / st["triangles"] for key, st in stats.items()}
+
+
+def mis_bound(inp: MisInputs, rec: cuda_mis.MisRecords, emit: bool,
+              shares: dict):
+    """(bound_ms, bound_by, counts) of one static MIS trace from the
+    records of this frame: the primitive tests its live rays need — a
+    closest hit tests every primitive, a probe that reaches the light every
+    occluder, a blocked probe at least one — and the shading of its live
+    samples (``mis_work``), against the bytes in and out; ``emit`` adds the
+    records' bytes alone. Every triangle test costs OPS_TRI_PREFILTER, and
+    the rest of a whole test only the ``shares`` (``prefilter_shares``) that
+    pass the prefilters, estimates and so named ``est_``; the one test that
+    blocks a probe costs a whole test."""
     cfg, n = inp.cfg, inp.cfg.num_pixels
     t, s, n_shadow = inp.num_tris, inp.packed.num_spheres, len(inp.shadow_idx)
     w = mis_work(inp, rec)
-    ops = ((w["rays"] + 2 * w["live_samples"])
-           * (t * OPS_TRI_CLOSEST + s * OPS_SPH_CLOSEST)
-           + w["probes_reached"] * (n_shadow * OPS_TRI_SHADOW
-                                    + s * OPS_SPH_SHADOW)
+    tests = dict(camera=w["rays"] * t, closest=2 * w["live_samples"] * t,
+                 shadow=w["probes_reached"] * n_shadow)
+    passed = {key: int(tests[key] * shares[key]) for key in tests}
+    ops = (sum(tests.values()) * OPS_TRI_PREFILTER
+           + (passed["camera"] + passed["closest"])
+           * (OPS_TRI_CLOSEST - OPS_TRI_PREFILTER)
+           + passed["shadow"] * (OPS_TRI_SHADOW - OPS_TRI_PREFILTER)
+           + (w["rays"] + 2 * w["live_samples"]) * s * OPS_SPH_CLOSEST
+           + w["probes_reached"] * s * OPS_SPH_SHADOW
            + w["probes_blocked"] * OPS_TRI_SHADOW + w["shading_ops"])
     tables = 4 * sum(x.numel() for x in inp.packed[:6]) + 4 * n_shadow
     nbytes = 12 * n + tables
@@ -1086,7 +1124,10 @@ def mis_bound(inp: MisInputs, rec: cuda_mis.MisRecords, emit: bool):
                   probes_reached=w["probes_reached"],
                   probes_blocked=w["probes_blocked"],
                   traversals=w["rays"] + 2 * w["live_samples"]
-                  + w["probes_reached"] + w["probes_blocked"])
+                  + w["probes_reached"] + w["probes_blocked"],
+                  triangle_tests=sum(tests.values()) + w["probes_blocked"])
+    counts.update({f"est_passed_{key}": v for key, v in passed.items()})
+    counts.update({f"est_pass_share_{key}": v for key, v in shares.items()})
     return bound, by, counts
 
 
@@ -1279,6 +1320,41 @@ def k5_bound(inp: MisBwdInputs):
     return bound, by, counts
 
 
+def k5_lane_shares(inp: MisBwdInputs):
+    """How full K5's warps are in its three strategy calls, from the records
+    it replays. A warp is 32 consecutive pixels of one camera ray; at each
+    sample a strategy's call issues where the gate of any of its lanes is
+    open (the light: the camera ray on a surface and the light sample
+    reached; a lobe: the camera ray on a surface and the lobe ray on the
+    light, or on geometry whose light sample was reached). Per strategy:
+    the open lanes over 32 x the warp-samples in which the call issues
+    (``lane_share_*``), and the share of warp-samples in which it issues
+    (``issue_share_*``)."""
+    rec = inp.records
+    is_em = inp.table[9] > 0.5
+
+    def winner(code, emissive):
+        return (code > 0) & (is_em[(code.long() - 1).clamp_min(0)] == emissive)
+
+    surf = winner(rec.camera, False)[:, None, :]
+    f = mis_fields(rec)
+    gates = dict(
+        light=surf & f["reach1"],
+        cos=surf & (winner(f["cos_prim"], True)
+                    | (winner(f["cos_prim"], False) & f["reach2"])),
+        vndf=surf & (winner(f["vndf_prim"], True)
+                     | (winner(f["vndf_prim"], False) & f["reach3"])))
+    out = {}
+    for name, gate in gates.items():
+        pad = -gate.shape[-1] % 32
+        warps = torch.nn.functional.pad(gate, (0, pad)).unflatten(-1, (-1, 32))
+        issued = int(warps.any(dim=-1).sum())
+        out[f"lane_share_{name}"] = (int(warps.sum()) / (32 * issued)
+                                     if issued else 0.0)
+        out[f"issue_share_{name}"] = issued / warps[..., 0].numel()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -1295,10 +1371,13 @@ def ptxas_resources(log_text: str):
             for kernel in ("silh_kernel", "soft_bwd_kernel"):
                 if kernel in mangled:
                     name = kernel
-            m = re.search(r"mis_kernelILb(\d)ELb(\d)ELb(\d)E", mangled)
+            m = re.search(r"mis_kernelILb(\d)EE", mangled)
             if m:
-                name = (f"mis_kernel<EMIT={m.group(1)}, GROUPED={m.group(2)}, "
-                        f"WIDE={m.group(3)}>")
+                name = f"mis_kernel<EMIT={m.group(1)}>"
+            m = re.search(r"mis_grouped_kernelILb(\d)ELb(\d)EE", mangled)
+            if m:
+                name = (f"mis_grouped_kernel<EMIT={m.group(1)}, "
+                        f"WIDE={m.group(2)}>")
             m = re.search(r"mis_bwd(_grouped)?_kernelILb(\d)E", mangled)
             if m:
                 name = f"mis_bwd{m.group(1) or ''}_kernel<SPH={m.group(2)}>"
@@ -1760,6 +1839,8 @@ def mis_bwd_rows(path_i, resources):
         torch.cuda.empty_cache()
         k_ms = time_ms(inp.kernel)
         bound, by, counts = k5_bound(inp)
+        shares = k5_lane_shares(inp)
+        smem, per_sm = static_bwd_occupancy(inp)
         sph = int(inp.table.shape[0] == cuda_mis_bwd.NDIF_SPH)
         res = resources[f"mis_bwd_kernel<SPH={sph}>"]
         row = dict(
@@ -1773,13 +1854,16 @@ def mis_bwd_rows(path_i, resources):
             plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
             registers=res["registers"], stack_bytes=res["stack_bytes"],
             spill_store_bytes=res["spill_store_bytes"],
-            spill_load_bytes=res["spill_load_bytes"], **counts)
+            spill_load_bytes=res["spill_load_bytes"], smem_bytes=smem,
+            blocks_per_sm=per_sm, **shares, **counts)
         rows.append(row)
         log(f"  {row['name']} @ {row['shape']}: kernel {k_ms[1]:.3f} ms (min "
             f"{k_ms[0]:.3f}, max {k_ms[2]:.3f}), bound {bound:.3f} ms by {by}, "
             f"plain {plain_ms:.1f} ms, launches {row['launches']}, "
-            f"{res['registers']} registers, {res['stack_bytes']} B stack; "
-            f"{counts}")
+            f"{res['registers']} registers, {res['stack_bytes']} B stack, "
+            f"{smem} B shared, {per_sm} blocks per SM; lanes "
+            + ", ".join(f"{k} {v:.4f}" for k, v in shares.items())
+            + f"; {counts}")
         del inp, got, again
         torch.cuda.empty_cache()
     return rows
@@ -2466,10 +2550,11 @@ def shade_rows(launches):
     return rows
 
 
-def mis_rows(launches):
+def mis_rows(launches, resources):
     """The MIS kernel at the shapes of paths F, G and H, as those paths
     launch it, against its plain version on the whole frame: its time and
-    its bound from the records of the same frame."""
+    its bound from the records of the same frame, its registers, stack,
+    shared memory and blocks per SM."""
     rows = []
     # The plain version at two lighter shapes as well: the reference's frame
     # with 1 camera ray and 30 samples, and the small frame at the
@@ -2516,8 +2601,9 @@ def mis_rows(launches):
         flips, err = compare_mis(f"K4 at {label}", hdr_e, rec, hdr_p, rec_p,
                                  inp.packed)
         del hdr_p, rec_p
-        bound, by, counts = mis_bound(inp, rec, emit)
-        other_bound, other_by, _ = mis_bound(inp, rec, not emit)
+        shares = prefilter_shares(inp)
+        bound, by, counts = mis_bound(inp, rec, emit, shares)
+        other_bound, other_by, _ = mis_bound(inp, rec, not emit, shares)
         del rec, hdr_e
         torch.cuda.empty_cache()
         k_ms = time_ms(lambda: inp.kernel(emit=emit))
@@ -2534,17 +2620,26 @@ def mis_rows(launches):
             plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
             mrays_per_s=nominal_rays(cfg) / k_ms[1] / 1e3, **counts)
         other = "records_on" if not emit else "records_off"
-        row.update({f"{other}_ms": other_ms[1],
+        row.update({f"{other}_ms": other_ms[1], f"{other}_ms_min": other_ms[0],
+                    f"{other}_ms_max": other_ms[2],
                     f"{other}_bound_ms": other_bound,
                     f"{other}_bound_by": other_by})
+        res = resources[f"mis_kernel<EMIT={int(emit)}>"]
+        smem, per_sm = static_occupancy(inp, emit)
+        row.update(registers=res["registers"], stack_bytes=res["stack_bytes"],
+                   spill_store_bytes=res["spill_store_bytes"], smem_bytes=smem,
+                   blocks_per_sm=per_sm)
         rows.append(row)
         log(f"  K4 at {label}: {counts}; the other mode (records "
-            f"{'off' if emit else 'on'}) {other_ms[1]:.3f} ms, bound "
-            f"{other_bound:.3f} ms by {other_by}")
+            f"{'off' if emit else 'on'}) {other_ms[1]:.3f} ms (min "
+            f"{other_ms[0]:.3f}, max {other_ms[2]:.3f}), bound "
+            f"{other_bound:.3f} ms by {other_by}; {res['registers']} "
+            f"registers, {res['stack_bytes']} B stack, {smem} B shared, "
+            f"{per_sm} blocks per SM")
     return rows, plain
 
 
-def phase_full(launches, plain_small):
+def phase_full(launches, plain_small, resources):
     log("== full: kernels at the main paths' shapes")
     rows = []
 
@@ -2648,7 +2743,7 @@ def phase_full(launches, plain_small):
         torch.cuda.empty_cache()
 
     rows += shade_rows(launches)
-    k4_rows, mis_plain = mis_rows(launches)
+    k4_rows, mis_plain = mis_rows(launches, resources)
     rows += k4_rows
     for row in rows:
         log(f"  {row['name']} @ {row['shape']}: kernel {row['ms']:.3f} ms "
@@ -3269,7 +3364,7 @@ def mis_grouped_rows(launches, resources):
         h_bound, h_by, _ = mis_grouped_bound(inp, rec, stats, scale_rays,
                                              scale_samples, emit=False)
         wide = int(inp.packed.grouped.sup.shape[1] > cuda_mis.WIDE_SUPERS)
-        res = resources[f"mis_kernel<EMIT=1, GROUPED=1, WIDE={wide}>"]
+        res = resources[f"mis_grouped_kernel<EMIT=1, WIDE={wide}>"]
         smem, per_sm = grouped_occupancy(inp)
         rows.append(dict(
             name=f"mis_kernel[grouped, records, occluder cull, {scene_name}]",
@@ -3335,6 +3430,35 @@ def mis_grouped_rows(launches, resources):
     return rows, seconds
 
 
+def static_occupancy(inp: MisInputs, emit: bool):
+    """K4's shared memory per block at ``inp``'s shape, from the library
+    (held against the wrapper's plan), and the blocks one SM holds."""
+    lib = cuda_mis._library()
+    shape = (inp.cfg.mis_samples // 3, inp.packed.num_spheres, inp.num_tris,
+             len(inp.shadow_idx))
+    smem = lib.grt_mis_static_smem(*shape)
+    check(smem == cuda_mis.static_smem_bytes(*shape),
+          f"K4's shared memory {smem} B is not the wrapper's plan at {shape}")
+    per_sm = lib.grt_mis_static_blocks_per_sm(int(emit), *shape)
+    check(per_sm > 0, "K4's occupancy query failed")
+    return smem, per_sm
+
+
+def static_bwd_occupancy(inp: MisBwdInputs):
+    """K5's shared memory per block (held against the wrapper's plan) and
+    the blocks one SM holds."""
+    lib = cuda_mis_bwd._library()
+    ndif, prims = inp.table.shape
+    sph = int(ndif == cuda_mis_bwd.NDIF_SPH)
+    s_per = inp.cfg.mis_samples // 3
+    smem = lib.grt_mis_bwd_static_smem(s_per, prims, sph)
+    check(smem == cuda_mis_bwd.static_smem_bytes(s_per, prims, ndif),
+          f"K5's shared memory {smem} B is not the wrapper's plan")
+    per_sm = lib.grt_mis_bwd_static_blocks_per_sm(s_per, prims, sph)
+    check(per_sm > 0, "K5's occupancy query failed")
+    return smem, per_sm
+
+
 def grouped_occupancy(inp: MisInputs):
     """K4g's shared memory per block at ``inp``'s shape, from the library
     (held against the wrapper's plan), and the blocks one SM holds."""
@@ -3363,25 +3487,64 @@ def grouped_bwd_occupancy(cfg: RenderConfig, sph: int):
     return smem, per_sm
 
 
-# Where K4g's and K5g's time goes (``--split``): each is rebuilt from a copy
-# of the sources with one part taken out (the results are then wrong: timing
-# only) and timed at the shapes of paths M and N beside the unedited build.
+# Where the MIS kernels' time goes (``--split``): each is rebuilt from a copy
+# of the sources with one part taken out or changed (the results of a part
+# taken out are then wrong: timing only) and timed beside the unedited build:
+# K4 at the shapes of paths F, G and H, K5 at path I's, K4g and K5g at paths
+# M's and N's. {what: (kernel, library, [(file, old text, new text[, times
+# the old text occurs, 1 if not given])])}.
+K4_FILTER_OFF = [
+    ("mis_kernels.cu",
+     "  closest_triangle_filtered(sc.geo, sc.T, ox, oy, oz, dx, dy, dz, RAY_TMIN, "
+     "RAY_TMAX,\n                            &t_best, &prim);",
+     "  grt::closest_triangle(sc.geo, sc.T, ox, oy, oz, dx, dy, dz, RAY_TMIN, "
+     "RAY_TMAX, &t_best,\n                        &prim);"),
+    ("mis_kernels.cu",
+     "  if (any_triangle_filtered(sc.shadow, sc.n_shadow, ox, oy, oz, dx, dy, dz, "
+     "RAY_TMIN,\n                            t_max)) {\n    return false;\n  }",
+     "  for (int k = 0; k < sc.n_shadow; ++k) {\n"
+     "    const float4* g = reinterpret_cast<const float4*>(sc.shadow + GEO_ROWS * k);\n"
+     "    float den, tt, u, v;\n"
+     "    grt::triangle_plane(g[0], g[1], g[2], ox, oy, oz, dx, dy, dz, &den, &tt, &u, &v);\n"
+     "    if (grt::triangle_inside(den, tt, u, v, RAY_TMIN, t_max)) return false;\n  }")]
 SPLIT_EDITS = {
-    "K4g, box tables read from global memory": ("mis_kernels", [(
+    "K4, the triangle tests without the prefilters": ("K4", "mis_kernels", K4_FILTER_OFF),
+    "K4 at ptxas' own occupancy (no minimum of blocks per SM)": ("K4", "mis_kernels", [(
+        "mis_kernels.cu", "__launch_bounds__(BLOCK_THREADS, STATIC_MIN_BLOCKS)",
+        "__launch_bounds__(BLOCK_THREADS)")]),
+    "K5 without the scatter": ("K5", "mis_bwd_kernels", [(
+        "reduce.cuh", "  while (rem != 0u) {\n    const int leader",
+        "  while (false) {\n    const int leader")]),
+    "K5 without the strategies": ("K5", "mis_bwd_kernels", [
+        ("mis_bwd_kernels.cu", "if (surf && (rec & 1)) strategy_light",
+         "if (surf && (rec & 1) && GLOBAL_TABLE) strategy_light"),
+        ("mis_bwd_kernels.cu",
+         "        strategy_cosine<SPH, GLOBAL_TABLE>(",
+         "        if (GLOBAL_TABLE) strategy_cosine<SPH, GLOBAL_TABLE>("),
+        ("mis_bwd_kernels.cu",
+         "        strategy_vndf<SPH, GLOBAL_TABLE>(",
+         "        if (GLOBAL_TABLE) strategy_vndf<SPH, GLOBAL_TABLE>(")]),
+    "K5 at 2 blocks per SM on the box scene": ("K5", "mis_bwd_kernels", [(
+        "mis_bwd_kernels.cu", "__launch_bounds__(BLOCK_THREADS, SPH ? 2 : 3)",
+        "__launch_bounds__(BLOCK_THREADS, 2)")]),
+    "K5 with the sphere terms on every lane": ("K5", "mis_bwd_kernels", [
+        ("mis_bwd_kernels.cu", "if (SPH && (GROUPED || is_sph))",
+         "if (SPH)", 4)]),
+    "K4g, box tables read from global memory": ("K4g", "mis_kernels", [(
         "mis_kernels.cu",
-        "    sc.ggeo = p.geo; sc.aabb = s_aabb; sc.sup = s_sup;\n"
-        "    sc.sgeo = p.sgeo; sc.saabb = s_saabb; sc.ssup = s_ssup;",
-        "    sc.ggeo = p.geo; sc.aabb = p.aabb; sc.sup = p.sup;\n"
-        "    sc.sgeo = p.sgeo; sc.saabb = p.saabb; sc.ssup = p.ssup;")]),
-    "K5g without the table writes": ("mis_bwd_kernels", [(
+        "  sc.ggeo = p.geo; sc.aabb = s_aabb; sc.sup = s_sup;\n"
+        "  sc.sgeo = p.sgeo; sc.saabb = s_saabb; sc.ssup = s_ssup;",
+        "  sc.ggeo = p.geo; sc.aabb = p.aabb; sc.sup = p.sup;\n"
+        "  sc.sgeo = p.sgeo; sc.saabb = p.saabb; sc.ssup = p.ssup;")]),
+    "K5g without the table writes": ("K5g", "mis_bwd_kernels", [(
         "reduce.cuh", "for (int c = 0; c < NCOL; ++c) dst[c] += sum[c];",
         "for (int c = 0; c < NCOL; ++c) if (sum[c] == 1.25e-33f) dst[c] = sum[c];")]),
-    "K5g without the scatter": ("mis_bwd_kernels", [(
+    "K5g without the scatter": ("K5g", "mis_bwd_kernels", [(
         "reduce.cuh",
         "  const unsigned peers = __match_any_sync(FULL_MASK, act ? key : -1);",
         "  if (lane >= 0) return;\n"
         "  const unsigned peers = __match_any_sync(FULL_MASK, act ? key : -1);")]),
-    "K5g without the strategies": ("mis_bwd_kernels", [
+    "K5g without the strategies": ("K5g", "mis_bwd_kernels", [
         ("mis_bwd_kernels.cu", "if (surf && (rec & 1)) strategy_light",
          "if (surf && (rec & 1) && !GLOBAL_TABLE) strategy_light"),
         ("mis_bwd_kernels.cu",
@@ -3394,22 +3557,26 @@ SPLIT_EDITS = {
 
 
 def split_builds():
-    """The SPLIT_EDITS builds, side by side: {what: (library, BuiltLibrary)}."""
+    """The SPLIT_EDITS builds, side by side: {what: (kernel, library,
+    BuiltLibrary)}."""
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_split_"))
 
     def build(item):
-        what, (name, edits) = item
+        what, (kernel, name, edits) = item
         src = work / re.sub(r"\W+", "_", what)
         shutil.copytree(_build.CSRC_DIR, src)
-        for fname, old, new in edits:
+        for fname, old, new, *times in edits:
             text = (src / fname).read_text()
-            check(text.count(old) == 1, f"split {what}: {old!r} not found once")
+            expected = times[0] if times else 1
+            found = text.count(old)
+            check(found == expected, f"split {what}: {old!r} found {found} "
+                  f"times, not {expected}")
             (src / fname).write_text(text.replace(old, new))
         out = src / f"lib{name}.so"
         proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
                                str(src / f"{name}.cu")], capture_output=True, text=True)
         check(proc.returncode == 0, f"split {what}: nvcc failed\n{proc.stderr}")
-        return what, (name, _build.BuiltLibrary(
+        return what, (kernel, name, _build.BuiltLibrary(
             lib=ctypes.CDLL(str(out)), path=out, nvcc=_build.find_nvcc(),
             log=proc.stdout + proc.stderr, seconds=0.0))
 
@@ -3418,30 +3585,45 @@ def split_builds():
 
 
 def split():
-    """K4g and K5g at the shapes of paths M and N, unedited and with each
-    part of SPLIT_EDITS taken out, in turns (unedited first and last)."""
-    cfg = RenderConfig(integrator="mis", **MIS_BENCH)
-    log("== split: K4g and K5g with one part taken out, at paths M and N")
+    """The MIS kernels unedited and with each part of SPLIT_EDITS taken out
+    or changed, in turns (unedited first and last): K4 at F and G (hdr) and
+    H (records + cull), K5 at I (both scenes), K4g and K5g at M and N."""
+    log("== split: the MIS kernels with one part taken out or changed")
     started = time.perf_counter()
     own = {name: _build.load_library(name) for name in ("mis_kernels", "mis_bwd_kernels")}
     variants = split_builds()
     out = {}
+
+    def turns(key, kernel, name, fn):
+        order = ([(f"{kernel} unedited", own[name])]
+                 + [(w, lib) for w, (k, n, lib) in variants.items() if k == kernel]
+                 + [(f"{kernel} unedited, again", own[name])])
+        for what, lib in order:
+            _build._LOADED[name] = lib
+            ms = time_ms(fn, repeats=3)
+            out.setdefault(key, {})[what] = ms
+            log(f"  {key}: {what}: {ms[1]:.3f} ms (min {ms[0]:.3f}, max {ms[2]:.3f})")
+        _build._LOADED[name] = own[name]
+
+    for label, scene_name, size, emit, cull in (
+            ("F", "cornell", MIS_FRAME, False, False),
+            ("G", "cornell-spheres", MIS_FRAME, False, False),
+            ("H", "cornell", MIS_BENCH, True, True)):
+        inp = MisInputs(scene_name, RenderConfig(integrator="mis", **size), cull=cull)
+        turns(f"{label} {scene_name}", "K4", "mis_kernels",
+              lambda: inp.kernel(emit=emit))
+        del inp
+    cfg = RenderConfig(integrator="mis", **MIS_BENCH)
+    for scene_name in ("cornell", "cornell-spheres"):
+        bw = MisBwdInputs(scene_name, cfg)
+        turns(f"I {scene_name}", "K5", "mis_bwd_kernels", bw.kernel)
+        del bw
     for label, scene_name, scene in mis_grouped_path_scenes(cfg.resolution):
         key = f"{label} {scene_name}"
         inp = MisInputs(None, cfg, cull=True, grouped=True, scene=scene)
         bw = MisBwdInputs(None, cfg, grouped=True, scene=scene)
-        runs = [("K4g", "mis_kernels", lambda: inp.kernel(emit=True)),
-                ("K5g", "mis_bwd_kernels", bw.kernel)]
-        for kernel, name, fn in runs:
-            order = ([(f"{kernel} unedited", own[name])]
-                     + [(w, lib) for w, (n, lib) in variants.items() if n == name]
-                     + [(f"{kernel} unedited, again", own[name])])
-            for what, lib in order:
-                _build._LOADED[name] = lib
-                ms = time_ms(fn, repeats=3)
-                out.setdefault(key, {})[what] = ms
-                log(f"  {key}: {what}: {ms[1]:.3f} ms (min {ms[0]:.3f}, max {ms[2]:.3f})")
-            _build._LOADED[name] = own[name]
+        turns(key, "K4g", "mis_kernels", lambda: inp.kernel(emit=True))
+        turns(key, "K5g", "mis_bwd_kernels", bw.kernel)
         del inp, bw
         torch.cuda.empty_cache()
     log(f"  split took {time.perf_counter() - started:.1f} s")
@@ -3573,7 +3755,8 @@ def main() -> int:
             key = f"{label} {scene_name}"
             launches[key], paths_mn[key] = phase_mis_grouped_path(
                 label, scene_name, scene, steps=4 if label == "M" else 2)
-        rows, small_ms, mis_plain = phase_full(launches, plain_small)
+        rows, small_ms, mis_plain = phase_full(launches, plain_small,
+                                               resources)
         rows += mis_bwd_rows(path_i, resources)
         rows += soft_rows(launches["J"], resources)
         rows += k2_at_j_row(launches["J"], path_j, resources)

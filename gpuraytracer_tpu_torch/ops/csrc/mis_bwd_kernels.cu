@@ -52,7 +52,26 @@
 //     per thread over the samples; table cotangents (three sites per sample:
 //     the two lobe winners, and the camera winner after the loop) and the 29
 //     scalars go through reduce.cuh's fixed-order reduction, no float atomics:
-//     two launches on equal inputs give equal bits.
+//     two launches on equal inputs give equal bits;
+//   * the strategies are the time (the kernel without them: 1.6 ms of 99 at
+//     path I), long dependent chains with IEEE divides and square roots, so
+//     the box scene's kernel takes 3 blocks of 128 per SM (12 warps, 168
+//     registers and a few bytes of spills, against ptxas' own 232 registers
+//     and 2 blocks): 11 % faster.  With spheres the kernel keeps 2 blocks
+//     (244 registers): at 3 its spills cost what the warps gain;
+//   * the sphere's quadratic and normal, forward and reverse, run in the bounce
+//     body only where the recorded winner is a sphere (SPH; the grouped tier
+//     keeps running them on every lane): on a triangle winner their values
+//     are selected away and their cotangents are zeros, so the outputs do not
+//     change (5 % faster with spheres).
+//   Tried and dropped (PERF.md): the grouped tier's scatter
+//   (warp_scatter_peers, 11 % slower here: a warp's 32 neighbouring pixels
+//   share few winners, and one leader summing 32 rows in lane order loses to
+//   the butterfly); FMA contraction (16-18 % faster, but outside
+//   compare_k5's limits of the plain version); 4 blocks per SM (33-43 %
+//   slower).  A strategy's call issues for the warp where any lane's gate is
+//   open; 77-90 % of the lanes are open where it issues (chip_smoke.py's
+//   lane_share_*), so dealing tasks out to full warps was not built.
 //
 // The grouped tier runs the same per-(pixel, camera ray) body (mis_bwd_item)
 // with two changes, because its tables do not fit a block's shared memory
@@ -68,7 +87,7 @@
 //     dense [P][ndif] + 29 table in global memory that it zeroes, walks the
 //     32-item tiles w, w + 4G, w + 8G, ... in that order (tile t: camera ray
 //     t / ceil(n / 32), its 32 pixels from (t mod ceil(n / 32)) * 32) and adds
-//     to through warp_scatter_rows, a __syncwarp after each scatter;
+//     to through warp_scatter_peers (below), a __syncwarp after each scatter;
 //     reduce_partials_kernel then sums the 4G tables in float64 in table
 //     order.  No float atomics: two launches on equal inputs give equal bits.
 //     The tables cost 4G (P ndif + 29) floats written twice and read once
@@ -676,8 +695,10 @@ __device__ __noinline__ void bounce_fwd_rev(const float* cs, const float* L,
   bool is_sph = false, posd = false, t1_ok = false;
   float oc[3] = {0.0f, 0.0f, 0.0f}, rad = 0.0f, a_q = 1.0f, b_q = 0.0f, c_q = 0.0f,
         sq = 1.0f, t1 = 0.0f, t2q = 0.0f;
-  if (SPH) {
-    is_sph = at2[14] > 0.5f;
+  // The static tier skips the sphere's terms on a triangle winner (see the
+  // note at the top); here and below they keep their initial values.
+  if (SPH) is_sph = at2[14] > 0.5f;
+  if (SPH && (GROUPED || is_sph)) {
     for (int c = 0; c < 3; ++c) oc[c] = off[c] - at2[10 + c];
     rad = at2[13];
     a_q = sd[0] * sd[0] + sd[1] * sd[1] + sd[2] * sd[2];
@@ -700,7 +721,7 @@ __device__ __noinline__ void bounce_fwd_rev(const float* cs, const float* L,
   for (int c = 0; c < 3; ++c) { bp[c] = off[c] + sd[c] * t2s; n2[c] = n2t[c]; }
   bool sel_n = false;
   float nv[3] = {0.0f, 0.0f, 0.0f}, qn = 0.0f, inv_n = 0.0f;
-  if (SPH) {
+  if (SPH && (GROUPED || is_sph)) {
     sel_n = hit_geo && is_sph;
     for (int c = 0; c < 3; ++c) nv[c] = bp[c] - at2[10 + c];
     qn = nv[0] * nv[0] + nv[1] * nv[1] + nv[2] * nv[2];
@@ -738,7 +759,7 @@ __device__ __noinline__ void bounce_fwd_rev(const float* cs, const float* L,
   d_at2[7] = d_at2[7] + d_met2;
   d_at2[8] = d_at2[8] + d_rgh2;
   float d_n2t[3];
-  if (SPH) {
+  if (SPH && (GROUPED || is_sph)) {
     float d_n2s[3];
     for (int c = 0; c < 3; ++c) {
       d_n2t[c] = sel(!sel_n, d_n2[c]);
@@ -759,7 +780,7 @@ __device__ __noinline__ void bounce_fwd_rev(const float* cs, const float* L,
   for (int c = 0; c < 3; ++c) d_sd[c] = d_sd[c] + t2s * d_bp[c];
   const float d_t2 = sel(hit_geo, d_t2s);
   float d_t2p = d_t2;
-  if (SPH) {
+  if (SPH && (GROUPED || is_sph)) {
     const float d_tsph = sel(is_sph, d_t2);
     d_t2p = sel(!is_sph, d_t2);
     const float d_t1 = sel(t1_ok, d_tsph);
@@ -1350,8 +1371,10 @@ __device__ __forceinline__ void mis_bwd_item(const BwdParams& p, const float* ta
   for (int q = 0; q < NLIGHT; ++q) ds[NCAM + q] = d_L[q];
 }
 
+// 3 blocks per SM for the box scene, 2 with spheres (see the note at the top).
 template <bool SPH>
-__global__ void __launch_bounds__(BLOCK_THREADS) mis_bwd_kernel(const BwdParams p) {
+__global__ void __launch_bounds__(BLOCK_THREADS, SPH ? 2 : 3)
+    mis_bwd_kernel(const BwdParams p) {
   constexpr int NDIF = SPH ? 15 : 10;
   extern __shared__ float smem[];
   const int P = p.num_prims;
@@ -1453,6 +1476,15 @@ mis_bwd_grouped_kernel(const BwdParams p) {
   }
 }
 
+// Shared memory of the static kernel: the parameter table, the sample table,
+// camera and light, and the warps' tables and scalars.
+size_t static_smem(int s_per, int num_prims, bool has_spheres) {
+  const int ndif = has_spheres ? 15 : 10;
+  return sizeof(float) * ((size_t)ndif * num_prims + (size_t)TAB_ROWS * s_per + NSCAL
+                          + (size_t)WARPS * ((size_t)num_prims * ndif + NSCAL));
+}
+
+
 // Shared memory of the grouped kernel: the sample table, camera and light,
 // and the threads' per-item state.
 size_t grouped_smem(int s_per, bool has_spheres) {
@@ -1486,6 +1518,20 @@ int grt_mis_bwd_grouped_blocks(int n_local, int camera_rays, int s_per, int num_
                                               BLOCK_THREADS, smem, tiles, row);
 }
 
+// Shared memory bytes of the static kernel (ops/cuda_mis_bwd.
+// static_smem_bytes mirrors it).
+int grt_mis_bwd_static_smem(int s_per, int num_prims, int has_spheres) {
+  return (int)static_smem(s_per, num_prims, has_spheres != 0);
+}
+
+// Blocks of the static kernel one SM of the current device holds at that
+// shared memory; 0 where the query fails.
+int grt_mis_bwd_static_blocks_per_sm(int s_per, int num_prims, int has_spheres) {
+  const size_t smem = static_smem(s_per, num_prims, has_spheres != 0);
+  return has_spheres ? grt::blocks_per_sm(mis_bwd_kernel<true>, BLOCK_THREADS, smem)
+                     : grt::blocks_per_sm(mis_bwd_kernel<false>, BLOCK_THREADS, smem);
+}
+
 // Shared memory bytes of the grouped kernel (ops/cuda_mis_bwd.
 // grouped_smem_bytes mirrors it).
 int grt_mis_bwd_grouped_smem(int s_per, int has_spheres) {
@@ -1496,17 +1542,9 @@ int grt_mis_bwd_grouped_smem(int s_per, int has_spheres) {
 // shared memory; 0 where the query fails.
 int grt_mis_bwd_grouped_blocks_per_sm(int s_per, int has_spheres) {
   const size_t smem = grouped_smem(s_per, has_spheres != 0);
-  int per_sm = 0;
-  const cudaError_t err =
-      has_spheres ? grt::allow_smem(mis_bwd_grouped_kernel<true>, smem)
-                  : grt::allow_smem(mis_bwd_grouped_kernel<false>, smem);
-  if (err != cudaSuccess) return 0;
-  const cudaError_t occ =
-      has_spheres ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                        &per_sm, mis_bwd_grouped_kernel<true>, BLOCK_THREADS, smem)
-                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                        &per_sm, mis_bwd_grouped_kernel<false>, BLOCK_THREADS, smem);
-  return occ == cudaSuccess ? per_sm : 0;
+  return has_spheres
+             ? grt::blocks_per_sm(mis_bwd_grouped_kernel<true>, BLOCK_THREADS, smem)
+             : grt::blocks_per_sm(mis_bwd_grouped_kernel<false>, BLOCK_THREADS, smem);
 }
 
 // Launches mis_bwd_kernel (grouped == 0: table [ndif, P], partials
@@ -1550,9 +1588,7 @@ int grt_mis_bwd(const float* g, const int32_t* cam_rec, const int32_t* samp_rec,
     grt::launch_reduce_partials(partials, blocks * WARPS, count, out, st);
     return (int)cudaGetLastError();
   }
-  const size_t smem = sizeof(float) * ((size_t)ndif * num_prims + (size_t)TAB_ROWS * s_per
-                                       + NSCAL + (size_t)WARPS * num_prims * ndif
-                                       + (size_t)WARPS * NSCAL);
+  const size_t smem = static_smem(s_per, num_prims, has_spheres != 0);
   if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   const cudaError_t err = has_spheres ? grt::allow_smem(mis_bwd_kernel<true>, smem)
                                       : grt::allow_smem(mis_bwd_kernel<false>, smem);

@@ -10,10 +10,10 @@
 // Halton sample is exactly the light rectangle's corner.
 //
 // ---------------------------------------------------------------------------
-// mis_kernel   replaces  gpuraytracer_tpu/ops/pallas_mis.py:_mis_kernel
-//              static tier (GROUPED = false: at most 64 triangles, plus
-//              analytic spheres) and grouped tier (GROUPED = true: any
-//              number of triangles below the record encoding's limit)
+// mis_kernel<EMIT>  replaces  gpuraytracer_tpu/ops/pallas_mis.py:_mis_kernel,
+//              static tier (at most 64 triangles, plus analytic spheres)
+// mis_grouped_kernel<EMIT, WIDE>  replaces  its grouped tier (any number of
+//              triangles below the record encoding's limit)
 // ---------------------------------------------------------------------------
 // Per pixel: `camera_rays` hash-jittered primary rays; per primary ray that
 // lands on a surface, s_per samples of three strategies — the light rectangle,
@@ -55,10 +55,30 @@
 // not computed: a primary ray that misses or lands on the light skips its
 // samples, a blocked light sample skips its BRDF, a lobe ray that leaves the
 // scene skips its secondary probe.  With EMIT every lane runs every traversal,
-// because records are defined for every (camera ray, sample, pixel).  The
-// per-primitive dot products of the fixed secondary origin, which the TPU
-// kernel hoists out of its sample loop, are recomputed per test here: keeping
-// 3 * T of them per thread costs more registers than the multiplies they save.
+// because records are defined for every (camera ray, sample, pixel).
+//
+// The static tier's triangle tests (closest_triangle_filtered and
+// any_triangle_filtered in trace.cuh) take the IEEE divide, the barycentrics
+// and the interval test only where two exact conditions on the plane's
+// numerator and denominator hold: the hit lies ahead of the origin (their
+// signs agree), and not beyond the bound (t_max for a probe, the nearest hit
+// so far for a closest hit; a multiply with a proven margin in place of the
+// divide).  trace.cuh states the proof: the skipped tests are tests that
+// fail, so the decisions and the images are the same bits.  From a point
+// inside the box, about half of the planes lie behind a ray and most of the
+// rest beyond its hit or its light sample, so most tests stop after eleven
+// operations; a warp's lanes (neighbouring pixels, one sample's draws) mostly
+// skip together.  The static kernel takes at least STATIC_MIN_BLOCKS = 6
+// blocks of 128 threads per SM (80 registers, against ptxas' own 128 and 4
+// blocks): more warps hide the divides' and the calls' latency better than
+// the spills (about 140 B a thread) cost.  Tried and dropped (PERF.md): the
+// sign condition alone, or in the probes as well without the bound (slower
+// at 4 blocks per SM, mixed at 6); a warp vote around it; the per-primitive
+// dot products of the shared secondary origin, which the TPU kernel hoists
+// out of its sample loop, in shared memory lane-minor (55 KB a block, 3
+// blocks per SM: 18 % slower at F); a persistent grid with a tile counter
+// (no gain with records off, 7-14 % slower with records on); 4, 5, 7 and 8
+// blocks per SM.
 //
 // The grouped tier (the TPU kernel's grouped=True branch, pallas_mis.py:
 // closest_tris_grouped :328, fetch_grouped :374, occluded_grouped :404;
@@ -114,20 +134,20 @@
 
 #include <type_traits>
 
+#include "occupancy.cuh"
 #include "trace.cuh"
 
 namespace {
 
+using grt::any_triangle_filtered;
 using grt::closest_grouped_warp;
 using grt::closest_grouped_wide;
-using grt::closest_triangle;
+using grt::closest_triangle_filtered;
 using grt::GEO_ROWS;
 using grt::occluded_grouped_warp;
 using grt::SPH_ROWS;
 using grt::sphere_roots;
 using grt::SUPER;
-using grt::triangle_inside;
-using grt::triangle_plane;
 
 constexpr float BIG = 1e30f;
 constexpr float RAY_TMIN = 1e-3f;
@@ -140,6 +160,7 @@ constexpr int TAB_ROWS = 16;   // ten draws and six derived direction scalars pe
 constexpr int REC_SHIFT_C = 3;
 constexpr int REC_SHIFT_V = 17;
 constexpr int BLOCK_THREADS = 128;
+constexpr int STATIC_MIN_BLOCKS = 6;  // the static tier's blocks per SM: 80 registers
 constexpr int GROUPED_THREADS = 384;  // the grouped tier: one persistent block per SM
 constexpr int GROUPED_WARPS = GROUPED_THREADS / 32;
 constexpr size_t MAX_SMEM_BYTES = 227 * 1024;  // one block's most on sm_90
@@ -444,8 +465,8 @@ __device__ __noinline__ Surface closest_full(const Tables& sc, float ox, float o
                                              float oz, float dx, float dy, float dz) {
   float t_best = BIG;
   int prim = -1;
-  closest_triangle(sc.geo, sc.T, ox, oy, oz, dx, dy, dz, RAY_TMIN, RAY_TMAX, &t_best,
-                   &prim);
+  closest_triangle_filtered(sc.geo, sc.T, ox, oy, oz, dx, dy, dz, RAY_TMIN, RAY_TMAX,
+                            &t_best, &prim);
   return closest_finish<false>(sc, ox, oy, oz, dx, dy, dz, t_best, prim);
 }
 
@@ -502,11 +523,9 @@ __device__ __forceinline__ bool spheres_clear(const TablesT<GROUPED>& sc, float 
 __device__ __noinline__ bool light_reachable(const Tables& sc, float ox, float oy,
                                              float oz, float dx, float dy, float dz,
                                              float t_max) {
-  for (int k = 0; k < sc.n_shadow; ++k) {
-    const float4* g = reinterpret_cast<const float4*>(sc.shadow + GEO_ROWS * k);
-    float den, tt, u, v;
-    triangle_plane(g[0], g[1], g[2], ox, oy, oz, dx, dy, dz, &den, &tt, &u, &v);
-    if (triangle_inside(den, tt, u, v, RAY_TMIN, t_max)) return false;
+  if (any_triangle_filtered(sc.shadow, sc.n_shadow, ox, oy, oz, dx, dy, dz, RAY_TMIN,
+                            t_max)) {
+    return false;
   }
   return spheres_clear<false>(sc, ox, oy, oz, dx, dy, dz, t_max);
 }
@@ -765,41 +784,33 @@ __device__ __forceinline__ void mis_pixel(const MisParams& p, const TablesT<GROU
   }
 }
 
-// The static tier: one thread per pixel, blocks of BLOCK_THREADS, the scene
-// and sample tables staged per block.  The grouped tier: a persistent grid of
-// GROUPED_THREADS-thread blocks (one per SM: the block's shared memory holds
-// the tables once for its twelve warps), whose warps take 32-pixel tiles
-// from a counter (*tiles_taken, 0 at launch) until the range is done, so that
-// no SM idles at the end while another works through a slow block.  WIDE
-// (grouped tier only): the closest-hit sweep for more than WIDE_SUPERS supers.
-template <bool EMIT, bool GROUPED, bool WIDE>
-__global__ void __launch_bounds__(GROUPED ? GROUPED_THREADS : BLOCK_THREADS)
+// The static tier (K4): one thread per pixel, blocks of BLOCK_THREADS, at
+// least STATIC_MIN_BLOCKS of them per SM (ptxas then gives a thread at most
+// 80 registers), the scene and sample tables staged per block.
+template <bool EMIT>
+__global__ void __launch_bounds__(BLOCK_THREADS, STATIC_MIN_BLOCKS)
     mis_kernel(const MisParams p) {
   const int T = p.num_tris;
   const int S = p.num_spheres;
   const int P = T + S;
   const int s_per = p.s_per;
-  // The grouped tier stages the sample table, the spheres and the box tables.
   extern __shared__ float4 smem4[];
-  float* s_geo = reinterpret_cast<float*>(smem4);                    // [T][12]
-  float* s_shadow = s_geo + (GROUPED ? 0 : GEO_ROWS * T);            // [n_shadow][12]
-  float* s_attr = s_shadow + (GROUPED ? 0 : GEO_ROWS * p.n_shadow);  // [T + S][12]
-  float* s_tab = s_attr + (GROUPED ? 0 : ATTR_ROWS * P);             // [s_per][16]
-  float* s_sph = s_tab + TAB_ROWS * s_per;                           // [S][4]
-
-  if (!GROUPED) {
-    for (int k = threadIdx.x; k < GEO_ROWS * T; k += blockDim.x) {
-      const int t = k / GEO_ROWS, r = k - t * GEO_ROWS;
-      s_geo[k] = p.tri[r * T + t];
-    }
-    for (int k = threadIdx.x; k < GEO_ROWS * p.n_shadow; k += blockDim.x) {
-      const int j = k / GEO_ROWS, r = k - j * GEO_ROWS;
-      s_shadow[k] = p.tri[r * T + p.shadow_idx[j]];
-    }
-    for (int k = threadIdx.x; k < ATTR_ROWS * P; k += blockDim.x) {
-      const int q = k / ATTR_ROWS, r = k - q * ATTR_ROWS;
-      s_attr[k] = p.atab[r * P + q];
-    }
+  float* s_geo = reinterpret_cast<float*>(smem4);    // [T][12]
+  float* s_shadow = s_geo + GEO_ROWS * T;            // [n_shadow][12]
+  float* s_attr = s_shadow + GEO_ROWS * p.n_shadow;  // [T + S][12]
+  float* s_tab = s_attr + ATTR_ROWS * P;             // [s_per][16]
+  float* s_sph = s_tab + TAB_ROWS * s_per;           // [S][4]
+  for (int k = threadIdx.x; k < GEO_ROWS * T; k += blockDim.x) {
+    const int t = k / GEO_ROWS, r = k - t * GEO_ROWS;
+    s_geo[k] = p.tri[r * T + t];
+  }
+  for (int k = threadIdx.x; k < GEO_ROWS * p.n_shadow; k += blockDim.x) {
+    const int j = k / GEO_ROWS, r = k - j * GEO_ROWS;
+    s_shadow[k] = p.tri[r * T + p.shadow_idx[j]];
+  }
+  for (int k = threadIdx.x; k < ATTR_ROWS * P; k += blockDim.x) {
+    const int q = k / ATTR_ROWS, r = k - q * ATTR_ROWS;
+    s_attr[k] = p.atab[r * P + q];
   }
   for (int k = threadIdx.x; k < TAB_ROWS * s_per; k += blockDim.x) {
     const int s = k / TAB_ROWS, r = k - s * TAB_ROWS;
@@ -809,60 +820,91 @@ __global__ void __launch_bounds__(GROUPED ? GROUPED_THREADS : BLOCK_THREADS)
     const int s = k / SPH_ROWS, r = k - s * SPH_ROWS;
     s_sph[k] = p.sph[r * S + s];
   }
+  __syncthreads();
 
-  if constexpr (GROUPED) {
-    // [2 n_super] supers, [16 n_super] groups, the same for the shadow sweep
-    // (box rows are two float4).
-    float4* s_sup = reinterpret_cast<float4*>(s_sph + SPH_ROWS * S);
-    float4* s_aabb = s_sup + 2 * p.n_super;
-    float4* s_ssup = s_aabb + 2 * SUPER * p.n_super;
-    float4* s_saabb = s_ssup + 2 * p.n_shadow_super;
-    for (int k = threadIdx.x; k < 2 * p.n_super; k += blockDim.x) {
-      grt::cp_async16(s_sup + k, p.sup + k);
-    }
-    for (int k = threadIdx.x; k < 2 * SUPER * p.n_super; k += blockDim.x) {
-      grt::cp_async16(s_aabb + k, p.aabb + k);
-    }
-    for (int k = threadIdx.x; k < 2 * p.n_shadow_super; k += blockDim.x) {
-      grt::cp_async16(s_ssup + k, p.ssup + k);
-    }
-    for (int k = threadIdx.x; k < 2 * SUPER * p.n_shadow_super; k += blockDim.x) {
-      grt::cp_async16(s_saabb + k, p.saabb + k);
-    }
-    grt::cp_async_wait_all();
-    __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.n_local) return;
 
-    const int lane = threadIdx.x & 31;
-    GroupedTables sc;
-    sc.geo = s_geo; sc.shadow = s_shadow; sc.sph = s_sph; sc.attr = p.atab;
-    sc.T = T; sc.S = S; sc.n_shadow = p.n_shadow;
-    sc.ggeo = p.geo; sc.aabb = s_aabb; sc.sup = s_sup;
-    sc.sgeo = p.sgeo; sc.saabb = s_saabb; sc.ssup = s_ssup;
-    sc.n_super = p.n_super; sc.n_shadow_super = p.n_shadow_super;
-    const Light L = load_light(p.light);
-    const int tiles = (p.n_local + 31) / 32;
-    for (;;) {
-      int tile = 0;
-      if (lane == 0) tile = atomicAdd(p.tiles_taken, 1);
-      tile = __shfl_sync(grt::FULL_WARP, tile, 0);
-      if (tile >= tiles) break;
-      const int i = tile * 32 + lane;
-      const bool in_range = i < p.n_local;
-      mis_pixel<EMIT, true, WIDE>(p, sc, L, s_tab, in_range ? i : p.n_local - 1,
-                                  in_range);
-    }
-  } else {
-    __syncthreads();
+  Tables sc;
+  sc.geo = s_geo; sc.shadow = s_shadow; sc.sph = s_sph; sc.attr = s_attr;
+  sc.T = T; sc.S = S; sc.n_shadow = p.n_shadow;
+  const Light L = load_light(p.light);
+  mis_pixel<EMIT, false, false>(p, sc, L, s_tab, i, true);
+}
 
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= p.n_local) return;
-
-    Tables sc;
-    sc.geo = s_geo; sc.shadow = s_shadow; sc.sph = s_sph; sc.attr = s_attr;
-    sc.T = T; sc.S = S; sc.n_shadow = p.n_shadow;
-    const Light L = load_light(p.light);
-    mis_pixel<EMIT, false, false>(p, sc, L, s_tab, i, true);
+// The grouped tier (K4g): a persistent grid of GROUPED_THREADS-thread blocks
+// (one per SM: the block's shared memory holds the tables once for its twelve
+// warps), whose warps take 32-pixel tiles from a counter (*tiles_taken, 0 at
+// launch) until the range is done, so that no SM idles at the end while
+// another works through a slow block.  WIDE: the closest-hit sweep for more
+// than WIDE_SUPERS supers.
+template <bool EMIT, bool WIDE>
+__global__ void __launch_bounds__(GROUPED_THREADS) mis_grouped_kernel(const MisParams p) {
+  const int T = p.num_tris;
+  const int S = p.num_spheres;
+  const int s_per = p.s_per;
+  // The sample table, the spheres and the box tables are staged; the
+  // geometry and the attributes stay in global memory (sc.geo and sc.shadow
+  // are not read).
+  extern __shared__ float4 smem4[];
+  float* s_tab = reinterpret_cast<float*>(smem4);  // [s_per][16]
+  float* s_sph = s_tab + TAB_ROWS * s_per;         // [S][4]
+  for (int k = threadIdx.x; k < TAB_ROWS * s_per; k += blockDim.x) {
+    const int s = k / TAB_ROWS, r = k - s * TAB_ROWS;
+    s_tab[k] = p.tab[r * s_per + s];
   }
+  for (int k = threadIdx.x; k < SPH_ROWS * S; k += blockDim.x) {
+    const int s = k / SPH_ROWS, r = k - s * SPH_ROWS;
+    s_sph[k] = p.sph[r * S + s];
+  }
+
+  // [2 n_super] supers, [16 n_super] groups, the same for the shadow sweep
+  // (box rows are two float4).
+  float4* s_sup = reinterpret_cast<float4*>(s_sph + SPH_ROWS * S);
+  float4* s_aabb = s_sup + 2 * p.n_super;
+  float4* s_ssup = s_aabb + 2 * SUPER * p.n_super;
+  float4* s_saabb = s_ssup + 2 * p.n_shadow_super;
+  for (int k = threadIdx.x; k < 2 * p.n_super; k += blockDim.x) {
+    grt::cp_async16(s_sup + k, p.sup + k);
+  }
+  for (int k = threadIdx.x; k < 2 * SUPER * p.n_super; k += blockDim.x) {
+    grt::cp_async16(s_aabb + k, p.aabb + k);
+  }
+  for (int k = threadIdx.x; k < 2 * p.n_shadow_super; k += blockDim.x) {
+    grt::cp_async16(s_ssup + k, p.ssup + k);
+  }
+  for (int k = threadIdx.x; k < 2 * SUPER * p.n_shadow_super; k += blockDim.x) {
+    grt::cp_async16(s_saabb + k, p.saabb + k);
+  }
+  grt::cp_async_wait_all();
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  GroupedTables sc;
+  sc.geo = s_tab; sc.shadow = s_tab; sc.sph = s_sph; sc.attr = p.atab;
+  sc.T = T; sc.S = S; sc.n_shadow = p.n_shadow;
+  sc.ggeo = p.geo; sc.aabb = s_aabb; sc.sup = s_sup;
+  sc.sgeo = p.sgeo; sc.saabb = s_saabb; sc.ssup = s_ssup;
+  sc.n_super = p.n_super; sc.n_shadow_super = p.n_shadow_super;
+  const Light L = load_light(p.light);
+  const int tiles = (p.n_local + 31) / 32;
+  for (;;) {
+    int tile = 0;
+    if (lane == 0) tile = atomicAdd(p.tiles_taken, 1);
+    tile = __shfl_sync(grt::FULL_WARP, tile, 0);
+    if (tile >= tiles) break;
+    const int i = tile * 32 + lane;
+    const bool in_range = i < p.n_local;
+    mis_pixel<EMIT, true, WIDE>(p, sc, L, s_tab, in_range ? i : p.n_local - 1, in_range);
+  }
+}
+
+// Shared memory of the static tier: the triangles, the shadow list, the
+// attributes, the sample table and the spheres (floats).
+size_t static_smem(int s_per, int num_spheres, int num_tris, int n_shadow) {
+  return sizeof(float) * ((size_t)TAB_ROWS * s_per + (size_t)SPH_ROWS * num_spheres
+                          + (size_t)GEO_ROWS * (num_tris + n_shadow)
+                          + (size_t)ATTR_ROWS * (num_tris + num_spheres));
 }
 
 // Shared memory of the grouped tier: the sample table and the spheres
@@ -872,20 +914,27 @@ size_t grouped_smem(int s_per, int num_spheres, int n_super, int n_shadow_super)
          + sizeof(float4) * 2 * (1 + SUPER) * ((size_t)n_super + n_shadow_super);
 }
 
-// Blocks of the grouped tier the current device holds on one SM with `smem`
-// bytes of shared memory (after opting in to them); 0 where the query fails.
-template <bool EMIT, bool WIDE>
-int grouped_blocks_per_sm(size_t smem) {
-  int per_sm = 0;
-  if (cudaFuncSetAttribute(mis_kernel<EMIT, true, WIDE>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
-          != cudaSuccess
-      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, mis_kernel<EMIT, true, WIDE>, GROUPED_THREADS, smem)
-             != cudaSuccess) {
-    return 0;
+// The kernel of a tier: mis_kernel<EMIT> (static) or mis_grouped_kernel<EMIT,
+// WIDE>.
+using MisKernel = void (*)(const MisParams);
+
+template <bool EMIT, bool GROUPED, bool WIDE>
+MisKernel kernel_of() {
+  if constexpr (GROUPED) {
+    return mis_grouped_kernel<EMIT, WIDE>;
+  } else {
+    return mis_kernel<EMIT>;
   }
-  return per_sm;
+}
+
+// Blocks of a tier's kernel the current device holds on one SM with `smem`
+// bytes of shared memory (grt::blocks_per_sm: it opts in above 48 KiB, and
+// launch_mis opts in again for each launch above 48 KiB); 0 where the query
+// fails.
+template <bool EMIT, bool GROUPED, bool WIDE>
+int blocks_per_sm(size_t smem) {
+  return grt::blocks_per_sm(kernel_of<EMIT, GROUPED, WIDE>(),
+                            GROUPED ? GROUPED_THREADS : BLOCK_THREADS, smem);
 }
 
 // Opts in to shared memory beyond the 48 KiB every launch may have (a long
@@ -894,11 +943,12 @@ int grouped_blocks_per_sm(size_t smem) {
 // GROUPED_WARPS 32-pixel tiles.
 template <bool EMIT, bool GROUPED, bool WIDE>
 cudaError_t launch_mis(const MisParams& p, size_t smem, cudaStream_t st) {
+  const MisKernel kernel = kernel_of<EMIT, GROUPED, WIDE>();
   int grid = (p.n_local + BLOCK_THREADS - 1) / BLOCK_THREADS;
   int threads = BLOCK_THREADS;
   if constexpr (GROUPED) {
     int dev = 0, sms = 0;
-    const int per_sm = grouped_blocks_per_sm<EMIT, WIDE>(smem);
+    const int per_sm = blocks_per_sm<EMIT, true, WIDE>(smem);
     if (per_sm <= 0 || cudaGetDevice(&dev) != cudaSuccess
         || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
       return cudaErrorInvalidConfiguration;
@@ -906,13 +956,11 @@ cudaError_t launch_mis(const MisParams& p, size_t smem, cudaStream_t st) {
     const int wanted = ((p.n_local + 31) / 32 + GROUPED_WARPS - 1) / GROUPED_WARPS;
     grid = sms * per_sm < wanted ? sms * per_sm : wanted;
     threads = GROUPED_THREADS;
-  } else if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mis_kernel<EMIT, GROUPED, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  } else {
+    const cudaError_t err = grt::allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
   }
-  mis_kernel<EMIT, GROUPED, WIDE><<<grid, threads, smem, st>>>(p);
+  kernel<<<grid, threads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -932,11 +980,26 @@ int grt_mis_grouped_blocks_per_sm(int emit_records, int s_per, int num_spheres,
                                   int n_super, int n_shadow_super) {
   const size_t smem = grouped_smem(s_per, num_spheres, n_super, n_shadow_super);
   if (n_super > grt::WIDE_SUPERS) {
-    return emit_records ? grouped_blocks_per_sm<true, true>(smem)
-                        : grouped_blocks_per_sm<false, true>(smem);
+    return emit_records ? blocks_per_sm<true, true, true>(smem)
+                        : blocks_per_sm<false, true, true>(smem);
   }
-  return emit_records ? grouped_blocks_per_sm<true, false>(smem)
-                      : grouped_blocks_per_sm<false, false>(smem);
+  return emit_records ? blocks_per_sm<true, true, false>(smem)
+                      : blocks_per_sm<false, true, false>(smem);
+}
+
+// Shared memory bytes of the static tier (ops/cuda_mis.static_smem_bytes
+// mirrors it).
+int grt_mis_static_smem(int s_per, int num_spheres, int num_tris, int n_shadow) {
+  return (int)static_smem(s_per, num_spheres, num_tris, n_shadow);
+}
+
+// Blocks of the static tier one SM of the current device holds at this
+// shape, records on (emit_records != 0) or off; 0 where the query fails.
+int grt_mis_static_blocks_per_sm(int emit_records, int s_per, int num_spheres, int num_tris,
+                                 int n_shadow) {
+  const size_t smem = static_smem(s_per, num_spheres, num_tris, n_shadow);
+  return emit_records ? blocks_per_sm<true, false, false>(smem)
+                      : blocks_per_sm<false, false, false>(smem);
 }
 
 // Launches mis_kernel on `stream`; returns cudaGetLastError() as an int.
@@ -977,11 +1040,8 @@ int grt_mis_trace(const float* cam, const float* light, const float* tri,
                   || n_super <= 0 || n_shadow_super <= 0)) {
     return (int)cudaErrorInvalidValue;
   }
-  size_t smem = grouped ? grouped_smem(s_per, num_spheres, n_super, n_shadow_super)
-                        : sizeof(float) * ((size_t)TAB_ROWS * s_per
-                                           + (size_t)SPH_ROWS * num_spheres
-                                           + (size_t)GEO_ROWS * (num_tris + n_shadow)
-                                           + (size_t)ATTR_ROWS * (num_tris + num_spheres));
+  const size_t smem = grouped ? grouped_smem(s_per, num_spheres, n_super, n_shadow_super)
+                              : static_smem(s_per, num_spheres, num_tris, n_shadow);
   if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;

@@ -16,6 +16,8 @@
 
 #include <cuda_runtime.h>
 
+#include "occupancy.cuh"
+
 namespace grt {
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
@@ -102,15 +104,6 @@ inline void launch_reduce_partials(const float* partials, int blocks, int count,
       partials, blocks, count, out);
 }
 
-// Opts a kernel in to dynamic shared memory beyond the 48 KiB every launch
-// may have.
-template <class Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
 // Blocks of a grouped backward's persistent grid on the current device, for
 // blocks of `threads` threads with `smem` bytes of dynamic shared memory: the
 // blocks the card holds at once, at most one per threads / 32 of the `tiles`
@@ -119,12 +112,11 @@ inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
 template <class Kernel>
 inline int persistent_blocks(Kernel kernel, int threads, size_t smem, int tiles,
                              size_t row_floats) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (allow_smem(kernel, smem) != cudaSuccess || cudaGetDevice(&dev) != cudaSuccess
+  int dev = 0, sms = 0;
+  const int per_sm = blocks_per_sm(kernel, threads, smem);
+  if (per_sm <= 0 || cudaGetDevice(&dev) != cudaSuccess
       || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess
-      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)
-             != cudaSuccess
-      || sms * per_sm <= 0) {
+      || sms <= 0) {
     return 0;
   }
   const int warps = threads / 32;

@@ -1,8 +1,10 @@
 // Ray-primitive tests shared by the port's trace kernels (sm_90a):
-// path_kernel (path_kernels.cu), mis_kernel (mis_kernels.cu) and silh_kernel
-// (soft_kernels.cu); the grouped sweep (closest_grouped, occluded_grouped)
-// serves path_kernel's grouped tier, its warp-cooperative form
-// (closest_grouped_warp, occluded_grouped_warp) mis_kernel's.
+// path_kernel (path_kernels.cu), mis_kernel and mis_grouped_kernel
+// (mis_kernels.cu) and silh_kernel (soft_kernels.cu); the prefiltered loops
+// (closest_triangle_filtered, any_triangle_filtered) serve mis_kernel, the
+// grouped sweep (closest_grouped, occluded_grouped) path_kernel's grouped
+// tier, its warp-cooperative form (closest_grouped_warp,
+// occluded_grouped_warp) mis_grouped_kernel.
 //
 // One definition, in the operation order of the plain versions
 // (intersect.triangle_candidates / sphere_candidates), so that the kernels
@@ -73,6 +75,99 @@ __device__ __forceinline__ void closest_triangle(const float* s_geo, int T, floa
     const bool closer = triangle_inside(den, tt, u, v, t_min, t_max) && (tt < *t_best);
     if (closer) { *t_best = tt; *prim = k; }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The same tests with exact prefilters before the divide (mis_kernel, the
+// static tier)
+// ---------------------------------------------------------------------------
+// A test passes only where |den| >= 1e-12 and tt = num / den lies in
+// (t_min, t_far): t_far is t_max for a probe, and for a closest hit the nearer
+// of t_max and the nearest hit so far.  Two conditions on num and den are
+// necessary for that, and the loops below take the divide, the barycentrics
+// and the interval test only where both hold; where they hold, they run
+// triangle_plane's and triangle_inside's arithmetic in the same order.  So
+// the decisions are the same bits.  They take t_min >= 1e-3 (the MIS kernel's
+// RAY_TMIN), closest_triangle_filtered also t_max >= 1e-3, so that every
+// bound is at least 1e-3.
+//
+// plane_ahead: the IEEE quotient is NaN where num or den is NaN, +-0 where num
+// is +-0 and den is not, and otherwise carries the sign of num xor that of
+// den (subnormals included).  A quotient above t_min >= 0 is positive, so
+// num is nonzero, not NaN and of den's sign, and |den| >= 1e-12 leaves den
+// nonzero and not NaN.
+//
+// plane_within: with a = |num|, b = |den| and a bound t >= 1e-3 (a probe's
+// t_max may be smaller: it takes max(t_max, 1e-3), which only filters less),
+// p = b t rounded is at least b t (1 - 2^-24) (b t >= 1e-15 cannot underflow;
+// where it overflows, p is inf and the condition holds), and m = p (1 +
+// 2^-22) rounded is at least b t (1 - 2^-24)^2 (1 + 2^-22) > b t.  Where
+// a >= m, a / b > t, so tt, the quotient rounded, is at least t (t is a
+// float): tt < t fails, and with it the test.
+constexpr float WITHIN_MARGIN = 1.0f + 0x1p-22f;
+
+__device__ __forceinline__ bool plane_ahead(float den, float num) {
+  return fabsf(den) >= 1e-12f && (den > 0.0f ? num > 0.0f : num < 0.0f);
+}
+
+__device__ __forceinline__ bool plane_within(float den, float num, float t_far) {
+  return fabsf(num) < (fabsf(den) * t_far) * WITHIN_MARGIN;
+}
+
+// tt and the barycentrics of one triangle test that passed both prefilters:
+// triangle_plane's expressions after its den and num.
+__device__ __forceinline__ void plane_hit(float4 p1, float4 p2, float ox, float oy,
+                                          float oz, float dx, float dy, float dz,
+                                          float den, float num, float* tt, float* u,
+                                          float* v) {
+  *tt = num / den;
+  *u = (ox * p1.x + oy * p1.y + oz * p1.z) + *tt * (dx * p1.x + dy * p1.y + dz * p1.z)
+       - p1.w;
+  *v = (ox * p2.x + oy * p2.y + oz * p2.z) + *tt * (dx * p2.x + dy * p2.y + dz * p2.z)
+       - p2.w;
+}
+
+// closest_triangle with the prefilters: the same winner and t_best.
+__device__ __forceinline__ void closest_triangle_filtered(const float* s_geo, int T,
+                                                          float ox, float oy, float oz,
+                                                          float dx, float dy, float dz,
+                                                          float t_min, float t_max,
+                                                          float* t_best, int* prim) {
+  float t_far = fminf(*t_best, t_max);
+  for (int k = 0; k < T; ++k) {
+    const float4* g = reinterpret_cast<const float4*>(s_geo + GEO_ROWS * k);
+    const float4 pn = g[0];
+    const float den = dx * pn.x + dy * pn.y + dz * pn.z;
+    const float num = pn.w - (ox * pn.x + oy * pn.y + oz * pn.z);
+    if (!plane_ahead(den, num) || !plane_within(den, num, t_far)) continue;
+    float tt, u, v;
+    plane_hit(g[1], g[2], ox, oy, oz, dx, dy, dz, den, num, &tt, &u, &v);
+    if (triangle_inside(den, tt, u, v, t_min, t_max) && (tt < *t_best)) {
+      *t_best = tt;
+      *prim = k;
+      t_far = tt;
+    }
+  }
+}
+
+// Whether any of n staged triangles is hit in (t_min, t_max), with the
+// prefilters; stops at the first hit.
+__device__ __forceinline__ bool any_triangle_filtered(const float* s_tri, int n, float ox,
+                                                      float oy, float oz, float dx,
+                                                      float dy, float dz, float t_min,
+                                                      float t_max) {
+  const float t_far = fmaxf(t_max, 1e-3f);
+  for (int k = 0; k < n; ++k) {
+    const float4* g = reinterpret_cast<const float4*>(s_tri + GEO_ROWS * k);
+    const float4 pn = g[0];
+    const float den = dx * pn.x + dy * pn.y + dz * pn.z;
+    const float num = pn.w - (ox * pn.x + oy * pn.y + oz * pn.z);
+    if (!plane_ahead(den, num) || !plane_within(den, num, t_far)) continue;
+    float tt, u, v;
+    plane_hit(g[1], g[2], ox, oy, oz, dx, dy, dz, den, num, &tt, &u, &v);
+    if (triangle_inside(den, tt, u, v, t_min, t_max)) return true;
+  }
+  return false;
 }
 
 // Shadow probe: any hit in (0, t_max) over n staged triangles and S spheres.
@@ -203,7 +298,7 @@ __device__ __forceinline__ bool occluded_grouped(
 }
 
 // ---------------------------------------------------------------------------
-// The warp-cooperative grouped sweep (mis_kernel's grouped tier)
+// The warp-cooperative grouped sweep (mis_grouped_kernel)
 // ---------------------------------------------------------------------------
 // The same decisions as closest_grouped / occluded_grouped, lane by lane, with
 // the box tables in shared memory.  Per super, in index order: each lane tests

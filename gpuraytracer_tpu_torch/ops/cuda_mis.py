@@ -228,7 +228,11 @@ def render_mis_plain(n_local: int, rid_base, packed: PackedMisScene,
     sample of pixels from anywhere in the frame). ``stats``: a dict that the
     grouped sweep adds its rays, box tests and triangle tests to, under
     "camera" (primary rays), "closest" (the lobe rays) and "shadow" (the
-    light probes): live lanes, and with the suffix "_all" all lanes."""
+    light probes): live lanes, and with the suffix "_all" all lanes. Without
+    the grouped tables it counts, under the same keys, the triangle tests of
+    live lanes ("triangles") and those of them that pass both of the static
+    kernel's prefilters (``plane_ahead``, ``plane_within``: "passed"), a
+    probe's only where it reaches the light. The counts change no result."""
     def rid(s):
         return (rid_base + s if isinstance(rid_base, int)
                 else rid_base[s:s + config.pixel_chunk])
@@ -265,7 +269,7 @@ def _plain_chunk(n_local, rid_base, packed, shadow_idx, config, emit_records,
     if grp is None:
         geo_all = geo(tri)
         geo_shadow = geo(tri[:, shadow_idx.long()])
-    elif stats is not None:
+    if stats is not None:
         for key in ("camera", "closest", "shadow"):
             stats.setdefault(key, {})
     sph_center = packed.sph[0:3].T[:S]
@@ -360,11 +364,36 @@ def _plain_chunk(n_local, rid_base, packed, shadow_idx, config, emit_records,
     def sweep_stats(key):
         return None if stats is None else stats[key]
 
+    def count_prefilter(key, rows, ox, oy, oz, dx, dy, dz, t_far, lanes):
+        """Adds to stats[key] the triangle tests of the lanes ``lanes`` (all
+        where None) and those that pass both prefilters, each test bounded
+        by ``t_far`` [n, T]; den and num in trace.cuh's order."""
+        nrm, c0 = rows[0], rows[1]
+        den = (dx[:, None] * nrm[:, 0] + dy[:, None] * nrm[:, 1]
+               + dz[:, None] * nrm[:, 2])
+        num = c0 - (ox[:, None] * nrm[:, 0] + oy[:, None] * nrm[:, 1]
+                    + oz[:, None] * nrm[:, 2])
+        passed = plane_ahead(den, num) & plane_within(den, num, t_far)
+        if lanes is not None:
+            passed = passed & lanes[:, None]
+        n_lanes = len(ox) if lanes is None else int(lanes.sum())
+        st = stats[key]
+        st["triangles"] = st.get("triangles", 0) + n_lanes * nrm.shape[0]
+        st["passed"] = st.get("passed", 0) + int(passed.sum())
+
     def closest_full(ox, oy, oz, dx, dy, dz, live, key):
         o, d = vec(ox, oy, oz), vec(dx, dy, dz)
         if grp is None:
             t_all, valid = triangle_candidates(*geo_all, o, d, RAY_TMIN,
                                                RAY_TMAX)
+            if stats is not None:
+                # A test's bound: RAY_TMAX, or the nearest hit before it.
+                before = torch.cummin(torch.where(valid, t_all, _BIG),
+                                      dim=-1).values
+                t_far = torch.cat([torch.full_like(t_all[:, :1], RAY_TMAX),
+                                   before[:, :-1].clamp_max(RAY_TMAX)], dim=-1)
+                count_prefilter(key, geo_all, ox, oy, oz, dx, dy, dz, t_far,
+                                live)
             if S:
                 t_s, valid_s = sphere_candidates(sph_center, sph_radius, o, d,
                                                  RAY_TMIN, RAY_TMAX)
@@ -411,6 +440,11 @@ def _plain_chunk(n_local, rid_base, packed, shadow_idx, config, emit_records,
             _, blocked_s = sphere_candidates(sph_center, sph_radius, o, d,
                                              RAY_TMIN, t_max)
             occ = occ | blocked_s.any(dim=-1)
+        if grp is None and stats is not None:
+            t_far = torch.clamp_min(t_max, RAY_TMIN)[:, None].expand(
+                -1, geo_shadow[1].shape[0])
+            count_prefilter("shadow", geo_shadow, ox, oy, oz, dx, dy, dz,
+                            t_far, live & ~occ)
         return ~occ
 
     def direct_light(p_x, p_y, p_z, nx, ny, nz, inx, iny, inz, df, met, rgh,
@@ -573,6 +607,30 @@ def _plain_chunk(n_local, rid_base, packed, shadow_idx, config, emit_records,
 # The kernel
 # ---------------------------------------------------------------------------
 
+# plane_within's margin, 1 + 2^-22 (``WITHIN_MARGIN`` in ``csrc/trace.cuh``).
+WITHIN_MARGIN = 1.0 + 2.0 ** -22
+
+
+def plane_ahead(den: torch.Tensor, num: torch.Tensor) -> torch.Tensor:
+    """K4's first prefilter (``csrc/trace.cuh:plane_ahead``), element-wise on
+    float32 tensors of a triangle test's plane denominator and numerator:
+    False only where the test cannot pass for any t_min >= 0 (|den| below
+    1e-12, num zero or NaN, or the signs of num and den differ)."""
+    return (den.abs() >= 1e-12) & torch.where(den > 0, num > 0, num < 0)
+
+
+def plane_within(den: torch.Tensor, num: torch.Tensor,
+                 t_far: torch.Tensor) -> torch.Tensor:
+    """K4's second prefilter (``csrc/trace.cuh:plane_within``), element-wise
+    on float32 tensors: False only where num / den, rounded, is at least
+    t_far (t_far >= 1e-3), so that a test bounded above by t_far fails.
+    Neither prefilter is on any path of the port: the kernel skips the
+    divide, the barycentrics and the interval test where either is False,
+    and the tests hold both against the exact test."""
+    margin = torch.tensor(WITHIN_MARGIN, dtype=torch.float32)
+    return num.abs() < (den.abs() * t_far) * margin
+
+
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 
@@ -587,7 +645,27 @@ def _library() -> ctypes.CDLL:
         lib.grt_mis_grouped_smem.restype = _INT
         lib.grt_mis_grouped_blocks_per_sm.argtypes = [_INT] * 5
         lib.grt_mis_grouped_blocks_per_sm.restype = _INT
+        lib.grt_mis_static_smem.argtypes = [_INT] * 4
+        lib.grt_mis_static_smem.restype = _INT
+        lib.grt_mis_static_blocks_per_sm.argtypes = [_INT] * 5
+        lib.grt_mis_static_blocks_per_sm.restype = _INT
     return lib
+
+
+def static_smem_bytes(s_per: int, num_spheres: int, num_tris: int,
+                      n_shadow: int) -> int:
+    """Shared memory of one K4 block (``static_smem`` in
+    ``csrc/mis_kernels.cu``): the triangles, the shadow list, the attribute
+    rows, the [s_per][16] sample table and the spheres. Raises ValueError
+    past the most one block may use."""
+    smem = 4 * (NTAB_EXT * s_per + SROWS * num_spheres
+                + 12 * (num_tris + n_shadow) + NATTR * (num_tris + num_spheres))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"scene and sample tables need {smem} B of shared memory; "
+            f"the kernel stages at most {_SMEM_LIMIT} B (fewer samples "
+            "per strategy or spheres, or the grouped tier: grouped=True)")
+    return smem
 
 
 def grouped_smem_bytes(s_per: int, num_spheres: int, n_super: int,
@@ -626,13 +704,7 @@ def mis_trace_kernel(n_local: int, rid_base: int, packed: PackedMisScene,
     # The static tier stages the scene tables; the grouped tier the sample
     # table, the spheres and the box tables.
     if grp is None:
-        smem = 4 * (NTAB_EXT * s_per + SROWS * S + 12 * (T + n_shadow)
-                    + NATTR * (T + S))
-        if smem > _SMEM_LIMIT:
-            raise ValueError(
-                f"scene and sample tables need {smem} B of shared memory; "
-                f"the kernel stages at most {_SMEM_LIMIT} B (fewer samples "
-                "per strategy or spheres, or the grouped tier: grouped=True)")
+        static_smem_bytes(s_per, S, T, n_shadow)
     else:
         grouped_smem_bytes(s_per, S, grp.sup.shape[1], grp.shadow_sup.shape[1])
     if n_local < 1 or rid_base < 0 or rid_base + n_local > config.num_pixels:

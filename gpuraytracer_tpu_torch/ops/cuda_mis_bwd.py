@@ -122,6 +122,24 @@ def grouped_smem_bytes(s_per: int, ndif: int) -> int:
             f"{_SMEM_LIMIT} B (fewer samples per strategy)")
     return smem
 
+
+def static_smem_bytes(s_per: int, num_prims: int, ndif: int) -> int:
+    """Shared memory of one K5 block (``static_smem`` in
+    ``csrc/mis_bwd_kernels.cu``): the [P][ndif] parameter table, the
+    [s_per][16] sample table, the camera and light scalars, and one
+    [P][ndif] table and 29 scalars per warp. Raises ValueError past the most
+    one block may use."""
+    smem = 4 * (ndif * num_prims + NTAB_EXT * s_per + NSCAL
+                + _KERNEL_WARPS * (num_prims * ndif + NSCAL))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"the parameter and sample tables need {smem} B of shared "
+            f"memory; the backward kernel stages at most {_SMEM_LIMIT} B "
+            "(fewer samples per strategy, or the grouped tier: "
+            "grouped=True)")
+    return smem
+
+
 # Kernel launches since the process started (or since a caller reset them):
 # the wrapper adds one where it launches the kernel and nowhere else.
 LAUNCHES = {"mis_bwd_kernel": 0, "mis_bwd_grouped_kernel": 0}
@@ -1389,6 +1407,10 @@ def _library() -> ctypes.CDLL:
         lib.grt_mis_bwd_grouped_smem.restype = _INT
         lib.grt_mis_bwd_grouped_blocks_per_sm.argtypes = [_INT] * 2
         lib.grt_mis_bwd_grouped_blocks_per_sm.restype = _INT
+        lib.grt_mis_bwd_static_smem.argtypes = [_INT] * 3
+        lib.grt_mis_bwd_static_smem.restype = _INT
+        lib.grt_mis_bwd_static_blocks_per_sm.argtypes = [_INT] * 3
+        lib.grt_mis_bwd_static_blocks_per_sm.restype = _INT
     return lib
 
 
@@ -1406,18 +1428,10 @@ def mis_bwd_kernel(g: torch.Tensor, records: MisRecords, table: torch.Tensor,
                                      stab, config, dev)
     ndif = table.shape[0]
     s_per = config.mis_samples // 3
-    # The static tier stages the parameter table and one table per warp.
     if grouped:
         grouped_smem_bytes(s_per, ndif)
     else:
-        smem = 4 * (NTAB_EXT * s_per + NSCAL + ndif * P
-                    + _KERNEL_WARPS * (P * ndif + NSCAL))
-        if smem > _SMEM_LIMIT:
-            raise ValueError(
-                f"the parameter and sample tables need {smem} B of shared "
-                f"memory; the backward kernel stages at most {_SMEM_LIMIT} B "
-                "(fewer samples per strategy, or the grouped tier: "
-                "grouped=True)")
+        static_smem_bytes(s_per, P, ndif)
     if n < 1 or rid_base < 0 or rid_base + n > config.num_pixels:
         raise ValueError(
             f"pixel range [{rid_base}, {rid_base + n}) is not inside the "

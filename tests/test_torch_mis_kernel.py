@@ -244,6 +244,10 @@ def test_kernel_source_is_registered_for_the_build():
     assert all((_build.CSRC_DIR / f"{name}.cu").is_file()
                for name in _build.SOURCES)
     text = (_build.CSRC_DIR / "mis_kernels.cu").read_text()
-    assert ("mis_kernel<EMIT, GROUPED, WIDE><<<" in text
+    # launch_mis launches the tier's kernel: mis_kernel<EMIT> (static) or
+    # mis_grouped_kernel<EMIT, WIDE>.
+    assert ("kernel<<<grid, threads, smem, st>>>(p)" in text
+            and "return mis_kernel<EMIT>;" in text
+            and "return mis_grouped_kernel<EMIT, WIDE>;" in text
             and "grt_mis_trace" in text)
     assert '#include "trace.cuh"' in text
