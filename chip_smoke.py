@@ -22,14 +22,16 @@ kernels, and prints
 It needs a card: without one it exits non-zero and prints no result. Every
 failed check raises, so a run that ends in the ``ok`` line passed them all.
 
-``--count-drift`` runs only a measurement for the grouped MIS kernel's
-bound: how far the plain grouped sweep's box and triangle tests per sample
-move between the sample count the ``full`` phase counts them at and the 300
-samples it scales them to (``count_drift``). ``--split`` runs only a
-measurement of where the MIS kernels' time goes: each rebuilt from a copy of
-the sources with one part taken out or changed (``SPLIT_EDITS``) and timed
-beside the unedited build, K4 at paths F-H, K5 at I, K4g and K5g at M and
-N.
+``--count-drift`` runs only a measurement for two bounds: how far the plain
+grouped sweep's box and triangle tests per sample move between the sample
+count the ``full`` phase counts them at and the 300 samples it scales them
+to (the grouped MIS kernel's), and how far K2's prefilter pass shares at
+paths A and B move between the SHARE_SPP samples they are counted at and
+the frame's 400 (``count_drift``). ``--split`` runs only a measurement of
+where the trace and MIS kernels' time goes: each rebuilt from a copy of the
+sources with one part taken out or changed (``SPLIT_EDITS``) and timed
+beside the unedited build, K2 at paths A-C, K2g at K and L, K4 at F-H, K5
+at I, K4g and K5g at M and N.
 
 Phases
   build   nvcc builds ops/csrc/path_kernels.cu, shade_kernels.cu,
@@ -153,6 +155,10 @@ Phases
           ``torch.profiler``; the seconds of the phase, the paths and their
           rows are printed.
   full    the kernels at the shapes of A to N against their plain versions
+          (K2 also at E's: records, draws read, the cull inverse_render
+          makes; its rows and K2g's carry bounds that charge a triangle test
+          the prefilter's operations and the rest only where it passes, the
+          pass shares counted by the plain versions)
           (the MIS kernels' on the whole frame, records and all; the grouped
           trace's on the whole frame at K, on every 128th pixel at L; the
           grouped MIS kernel's timed launch against the brute-force plain
@@ -247,7 +253,9 @@ import torch
 from gpuraytracer_tpu_torch import cli, image
 from gpuraytracer_tpu_torch.grad import inverse
 from gpuraytracer_tpu_torch.grad.diff_render import render_direct_soft
-from gpuraytracer_tpu_torch.intersect import potential_occluders
+from gpuraytracer_tpu_torch.intersect import (RAY_TMAX, RAY_TMIN,
+                                              potential_occluders,
+                                              sphere_candidates)
 from gpuraytracer_tpu_torch.ops import (_build, cuda_mis, cuda_mis_bwd,
                                         cuda_path, cuda_shade, cuda_soft,
                                         decoupled)
@@ -255,7 +263,8 @@ from gpuraytracer_tpu_torch.render import pixel_rng_offsets, render_mis
 from gpuraytracer_tpu_torch.sampling import PRIMES
 from gpuraytracer_tpu_torch.scene import (cornell_box, cornell_box_glossy,
                                           cornell_box_tessellated,
-                                          cornell_box_with_spheres)
+                                          cornell_box_with_spheres,
+                                          make_spheres)
 from gpuraytracer_tpu_torch.types import RenderConfig
 from gpuraytracer_tpu_torch.utils.metrics import mrays_per_s, nominal_rays
 
@@ -277,15 +286,19 @@ HDR_ATOL, HDR_RTOL = 2e-5, 1e-4
 # the camera ray per sample and the shading of one bounce (hit point, light
 # sample, accumulate, cosine bounce; a transcendental counted as one).
 OPS_TRI_CLOSEST, OPS_TRI_SHADOW = 49, 46
-# The part of a triangle test that the MIS kernel's static tier runs on every
-# test (trace.cuh: den 5, num 6, |den| >= 1e-12 2, the signs of num and den
-# 2, |num| < |den| t_far (1 + 2^-22) 4); the rest of OPS_TRI_CLOSEST or
-# OPS_TRI_SHADOW runs only on a test that passes both conditions. The share
-# that passes is counted by the plain version on every
-# K4_PREFILTER_STRIDE-th pixel (prime, so that the pixels spread over the
-# frame's columns).
+# The part of a triangle test that the static tiers (K2, K4) and K2g's group
+# loops run on every test (trace.cuh: den 5, num 6, |den| >= 1e-12 2, the
+# signs of num and den 2, |num| < |den| t_far (1 + 2^-22) 4); the rest of
+# OPS_TRI_CLOSEST or OPS_TRI_SHADOW runs only on a test that passes both
+# conditions. For the static tiers the share that passes is counted by the
+# plain version on every PREFILTER_STRIDE-th pixel (prime, so that the pixels
+# spread over the frame's columns), K2's at no more than SHARE_SPP samples
+# per pixel (a share, not a count: ``--count-drift`` measures how far it
+# moves at the 400 of paths A and B); K2g's plain sweep counts its passes
+# beside its tests.
 OPS_TRI_PREFILTER = 19
-K4_PREFILTER_STRIDE = 13
+PREFILTER_STRIDE = 13
+SHARE_SPP = 16
 OPS_SPH_CLOSEST, OPS_SPH_SHADOW = 43, 39
 OPS_CAMERA, OPS_SHADE = 30, 130
 # Integer and float operations per Halton digit (multiply-shift divide,
@@ -395,6 +408,7 @@ OPS_K7_BG_HIT, OPS_K7_BG_SURF, OPS_K7_BG_REV = 15, 12, 47
 # and the 252-triangle walls with the two analytic spheres of
 # cornell_box_with_spheres added (tests/test_mis_grouped.py:69-77).
 PATH_SOURCE = "gpuraytracer_tpu_torch/ops/csrc/path_kernels.cu"
+K2_REPLACES = "gpuraytracer_tpu/ops/pallas_path.py:316"
 K2G_REPLACES = "gpuraytracer_tpu/ops/pallas_path.py:532"
 K3G_REPLACES = "gpuraytracer_tpu/ops/pallas_shade.py:174"
 TESS_SMALL = dict(wall_subdiv=3, sphere_subdiv=1)
@@ -406,6 +420,20 @@ def tess_with_spheres(resolution, tess_kw=TESS_SMALL):
     tess = cornell_box_tessellated(resolution=resolution, **tess_kw)
     return dataclasses.replace(
         tess, spheres=cornell_box_with_spheres(resolution=resolution).spheres)
+
+
+def tess_with_hidden_emitter(resolution):
+    """tess_with_spheres and a third, emissive sphere above the ceiling,
+    behind the light panel as the camera sees it: a camera ray that ends at
+    the panel would meet it next (at 128 x 96, every pixel center whose ray
+    ends at the panel does)."""
+    scene = tess_with_spheres(resolution)
+    hidden = make_spheres(centers=[(0.0, 3.6, -3.0)], radii=[1.0], materials=[
+        dict(diffuse=(0.5, 0.5, 0.5), emissive=(0.0, 40.0, 0.0))])
+    spheres = dataclasses.replace(scene.spheres, **{
+        f.name: torch.cat([getattr(scene.spheres, f.name), getattr(hidden, f.name)])
+        for f in dataclasses.fields(hidden)})
+    return dataclasses.replace(scene, spheres=spheres)
 
 
 GROUPED_SCENES = {
@@ -542,13 +570,15 @@ class TraceInputs:
     occluder cull then lives in the shadow table."""
 
     def __init__(self, scene_name: str, cfg: RenderConfig, cull: bool,
-                 device="cuda", grouped=False, scene=None):
+                 device="cuda", grouped=False, scene=None, sphere_slack=0.0):
         dev = torch.device(device)
         self.cfg = cfg
         self.scene = (ALL_SCENES[scene_name](resolution=cfg.resolution)
                       if scene is None else scene)
         self.num_tris = self.scene.triangles.num_triangles
-        self.occluders = potential_occluders(self.scene, cfg) if cull else None
+        self.occluders = (potential_occluders(self.scene, cfg,
+                                              sphere_slack=sphere_slack)
+                          if cull else None)
         self.grouped = grouped
         self.packed = cuda_path._pack_inputs(self.scene.to(dev), cfg, grouped,
                                              self.occluders)
@@ -855,18 +885,56 @@ def check_same_decisions(what, rec_a, rec_b, packed):
           f"{what}: shadow bits differ on shaded lanes")
 
 
-def trace_bound(inp: TraceInputs, closest_iters, shade_iters, emit,
-                reads_draws):
-    """(bound_ms, bound_by) of one trace: the primitive tests and shading
-    that this frame's paths need, against the bytes in and out."""
+def k2_prefilter_shares(inp: TraceInputs, spp=SHARE_SPP):
+    """The shares of K2's triangle tests that pass both of its prefilters
+    (``cuda_path.plane_ahead``, ``plane_within``), counted by the plain
+    version on every PREFILTER_STRIDE-th pixel of the frame at the full
+    bounces and at most ``spp`` samples per pixel: {"closest": closest hits,
+    "shadow": shadow probes that reach the light}, on live lanes, and with
+    the suffix "_all" on every lane (records on: dead lanes run on)."""
+    pix = torch.arange(0, inp.cfg.num_pixels, PREFILTER_STRIDE,
+                       device=inp.offsets.device)
+    stats = {}
+    cuda_path.render_path_plain(
+        inp.offsets[pix], pix, inp.packed, inp.shadow_idx, None,
+        inp.cfg.replace(pixel_chunk=pix.numel(), spp=min(inp.cfg.spp, spp)),
+        False, stats)
+    return {f"{loop}{key}": st["passed" + key] / max(st["triangles" + key], 1)
+            for loop, st in stats.items() for key in ("", "_all")}
+
+
+def trace_bound(inp: TraceInputs, rec, shares, emit, reads_draws):
+    """(bound_ms, bound_by, counts) of one K2 trace, from the records of
+    this frame: the primitive tests and shading its lanes need (live lanes
+    in hdr mode, every lane with records on, where dead lanes run on) — a
+    closest hit tests every primitive, a probe that reaches the light every
+    occluder and sphere, a blocked probe at least one whole triangle test —
+    against the bytes in and out. Every other triangle test costs
+    OPS_TRI_PREFILTER, and the rest of a whole test only the ``shares``
+    (``k2_prefilter_shares``) that pass the prefilters, estimates and so
+    named ``est_``. ``whole_tests_bound_ms``: the same with every test whole
+    and every probe testing every occluder, as if no test were prefiltered."""
     cfg, n = inp.cfg, inp.cfg.num_pixels
     t, s, n_shadow = inp.num_tris, inp.packed.num_spheres, len(inp.shadow_idx)
-    ops = (closest_iters * (t * OPS_TRI_CLOSEST + s * OPS_SPH_CLOSEST)
-           + shade_iters * (n_shadow * OPS_TRI_SHADOW + s * OPS_SPH_SHADOW
-                            + OPS_SHADE)
-           + cfg.spp * n * OPS_CAMERA)
-    if not reads_draws:  # the draws are radical-inversed in the loop
-        ops += halton_ops(cfg, n)
+    alive, shaded = live_lanes(rec, inp.packed)
+    if emit:
+        alive = shaded = torch.ones_like(alive)
+    occ = (rec & cuda_path.OCC_BIT) != 0
+    closest = int(alive.sum())
+    reached, blocked = int((shaded & ~occ).sum()), int((shaded & occ).sum())
+    key = "_all" if emit else ""
+    tests = dict(closest=closest * t, shadow=reached * n_shadow)
+    passed = {k: int(v * shares[k + key]) for k, v in tests.items()}
+    rest = (closest * s * OPS_SPH_CLOSEST + (reached + blocked) * OPS_SHADE
+            + cfg.spp * n * OPS_CAMERA
+            + (0 if reads_draws else halton_ops(cfg, n)))
+    ops = (sum(tests.values()) * OPS_TRI_PREFILTER
+           + passed["closest"] * (OPS_TRI_CLOSEST - OPS_TRI_PREFILTER)
+           + passed["shadow"] * (OPS_TRI_SHADOW - OPS_TRI_PREFILTER)
+           + blocked * OPS_TRI_SHADOW + reached * s * OPS_SPH_SHADOW + rest)
+    whole_ops = (closest * t * OPS_TRI_CLOSEST
+                 + (reached + blocked) * (n_shadow * OPS_TRI_SHADOW
+                                          + s * OPS_SPH_SHADOW) + rest)
     tables = 4 * (inp.packed.tri.numel() + inp.packed.sph.numel()
                   + inp.packed.atab.numel() + 18 + n_shadow)
     nbytes = 4 * n + 12 * n + tables
@@ -874,7 +942,46 @@ def trace_bound(inp: TraceInputs, closest_iters, shade_iters, emit,
         nbytes += 4 * cfg.spp * cfg.bounces * n
     if reads_draws:
         nbytes += 4 * (4 * cfg.bounces + 2) * cfg.spp * n
-    return roofline(nbytes, ops)
+    bound, by = roofline(nbytes, ops)
+    counts = dict(closest_iterations=closest, probes_reached=reached,
+                  probes_blocked=blocked,
+                  triangle_tests=sum(tests.values()) + blocked,
+                  operations=int(ops),
+                  whole_tests_bound_ms=roofline(nbytes, whole_ops)[0])
+    counts.update({f"est_passed_{k}": v for k, v in passed.items()})
+    counts.update({f"est_pass_share_{k}": shares[k + key] for k in tests})
+    return bound, by, counts
+
+
+def path_occupancy(inp: TraceInputs, emit: bool, reads_draws: bool):
+    """K2's or K2g's shared memory per block at ``inp``'s shape, from the
+    library (held against the wrapper's plan), and the blocks one SM holds
+    in this mode."""
+    lib = cuda_path._library()
+    s, grp = inp.packed.num_spheres, inp.packed.grouped
+    if grp is None:
+        shape = (inp.num_tris, len(inp.shadow_idx), s)
+        smem, plan = (lib.grt_path_static_smem(*shape),
+                      cuda_path.static_smem_bytes(*shape))
+        supers = (0, 0)
+    else:
+        supers = (grp.sup.shape[1], grp.shadow_sup.shape[1])
+        smem, plan = (lib.grt_path_grouped_smem(s, *supers),
+                      cuda_path.grouped_smem_bytes(s, *supers))
+    check(smem == plan, f"trace kernel's shared memory {smem} B is not the "
+          f"wrapper's plan {plan} B")
+    per_sm = lib.grt_path_blocks_per_sm(
+        int(grp is not None), int(emit), int(reads_draws), inp.num_tris,
+        len(inp.shadow_idx), s, *supers)
+    check(per_sm > 0, "the trace kernel's occupancy query failed")
+    return smem, per_sm
+
+
+def resource_fields(res):
+    """A ptxas report as a row's fields."""
+    return dict(registers=res["registers"], stack_bytes=res["stack_bytes"],
+                spill_store_bytes=res["spill_store_bytes"],
+                spill_load_bytes=res["spill_load_bytes"])
 
 
 def shade_bound(sh: ShadeInputs, regenerate: bool):
@@ -1080,11 +1187,11 @@ def mis_work(inp: MisInputs, rec: cuda_mis.MisRecords):
 
 def prefilter_shares(inp: MisInputs):
     """The shares of the static tier's triangle tests that pass both of its
-    prefilters (``cuda_mis.plane_ahead``, ``plane_within``), counted by the
-    plain version on every K4_PREFILTER_STRIDE-th pixel of the frame at the
+    prefilters (``cuda_path.plane_ahead``, ``plane_within``), counted by the
+    plain version on every PREFILTER_STRIDE-th pixel of the frame at the
     full camera rays and samples, on live lanes: {"camera": primary rays,
     "closest": lobe rays, "shadow": light probes that reach the light}."""
-    pix = torch.arange(0, inp.cfg.num_pixels, K4_PREFILTER_STRIDE,
+    pix = torch.arange(0, inp.cfg.num_pixels, PREFILTER_STRIDE,
                        device="cuda")
     stats = {}
     inp.plain(pix=pix, stats=stats)
@@ -1381,10 +1488,15 @@ def ptxas_resources(log_text: str):
             m = re.search(r"mis_bwd(_grouped)?_kernelILb(\d)E", mangled)
             if m:
                 name = f"mis_bwd{m.group(1) or ''}_kernel<SPH={m.group(2)}>"
-            m = re.search(r"path_kernelILb(\d)ELb(\d)ELb(\d)E", mangled)
+            m = re.search(r"path_kernelILb(\d)ELb(\d)EE", mangled)
             if m:
                 name = (f"path_kernel<EMIT={m.group(1)}, "
-                        f"READ_DRAWS={m.group(2)}, GROUPED={m.group(3)}>")
+                        f"READ_DRAWS={m.group(2)}>")
+            m = re.search(r"path_grouped_kernelILb(\d)ELb(\d)ELb(\d)EE",
+                          mangled)
+            if m:
+                name = (f"path_grouped_kernel<EMIT={m.group(1)}, "
+                        f"READ_DRAWS={m.group(2)}, WIDE={m.group(3)}>")
             m = re.search(r"shade_bwd(_grouped)?_kernelILb(\d)ELb(\d)E",
                           mangled)
             if m:
@@ -1427,8 +1539,9 @@ def phase_build():
         log(f"  ptxas: {name}: {res['registers']} registers, "
             f"{res['stack_bytes']} B stack, {res['spill_store_bytes']} B "
             f"spill stores, {res['spill_load_bytes']} B spill loads")
-    check(len(resources) == 30, "ptxas did not report the draws kernel, the "
-          "six trace-kernel instantiations (static and grouped), the eight "
+    check(len(resources) == 33, "ptxas did not report the draws kernel, the "
+          "three static trace-kernel instantiations, the six grouped ones "
+          "(with and without the wide sweep), the eight "
           "backward-kernel instantiations (static and grouped), the three "
           "reductions, the six MIS-kernel instantiations (static, grouped, "
           "grouped with the wide sweep), the four MIS-backward "
@@ -2679,18 +2792,21 @@ def phase_full(launches, plain_small, resources):
     k_ms = time_ms(lambda: inp.kernel(draws_k, emit=True))
     p_ms = time_ms(lambda: inp.plain(draws_p, emit=True, whole_frame=True),
                    repeats=2, warmup=0)
-    total = cfg.spp * cfg.bounces * n
-    bound, by = trace_bound(inp, total, total, emit=True, reads_draws=True)
+    bound, by, counts = trace_bound(inp, rec_k, k2_prefilter_shares(inp),
+                                    emit=True, reads_draws=True)
+    smem, per_sm = path_occupancy(inp, True, True)
     rows.append(dict(
         name="path_kernel[emit_records, draws read, occluder cull]",
-        route="cuda",
-        source="gpuraytracer_tpu_torch/ops/csrc/path_kernels.cu",
-        replaces="gpuraytracer_tpu/ops/pallas_path.py:316",
+        route="cuda", source=PATH_SOURCE, replaces=K2_REPLACES,
         shape="C: 512x512 x 16 spp x 3 bounces, 36 triangles",
-        launches=launches["C"]["path_kernel"], max_abs_err=err,
-        flip_share=flips, ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2],
-        plain_ms=p_ms[1], bound_ms=bound, bound_by=by, library_ms=None,
-        mrays_per_s=mrays_per_s(cfg, k_ms[1] / 1e3)))
+        launches=launches["C"]["path_kernel"], launches_per_step=1,
+        max_abs_err=err, flip_share=flips, ms=k_ms[1], ms_min=k_ms[0],
+        ms_max=k_ms[2], plain_ms=p_ms[1], bound_ms=bound, bound_by=by,
+        library_ms=None, mrays_per_s=mrays_per_s(cfg, k_ms[1] / 1e3),
+        smem_bytes=smem, blocks_per_sm=per_sm,
+        **resource_fields(resources["path_kernel<EMIT=1, READ_DRAWS=1>"]),
+        **counts))
+    log(f"  K2 at C: {counts}")
     del draws_k, draws_p, hdr_p, rec_p, rec_k
 
     # ---- paths A and B: hdr mode at the reference's frame
@@ -2710,37 +2826,68 @@ def phase_full(launches, plain_small, resources):
         plain_s = time.perf_counter() - start
         flips, err = compare_trace(f"K2 at {label} hdr/records_only", hdr_r,
                                    rec_r, hdr_p, rec_p, inp.packed)
-        alive, shaded = live_lanes(rec_r, inp.packed)
-        closest, shade = int(alive.sum()), int(shaded.sum())
-        del alive, shaded
         del rec_p, hdr_p
+        shares = k2_prefilter_shares(inp)
+        bound, by, counts = trace_bound(inp, rec_r, shares, emit=False,
+                                        reads_draws=False)
+        # With records on, dead lanes run on masked: every iteration counts.
+        r_bound, r_by, r_counts = trace_bound(inp, rec_r, shares, emit=True,
+                                              reads_draws=False)
+        del rec_r, hdr_r
+        torch.cuda.empty_cache()
         k_ms = time_ms(lambda: inp.kernel())
         r_ms = time_ms(lambda: inp.kernel(emit=True), repeats=3)
-        bound, by = trace_bound(inp, closest, shade, emit=False,
-                                reads_draws=False)
-        total = cfg.spp * cfg.bounces * cfg.num_pixels
-        # With records on, dead lanes run on masked: every iteration counts.
-        r_bound, r_by = trace_bound(inp, total, total, emit=True,
-                                    reads_draws=False)
-        log(f"  K2 at {label}: live closest-hit iterations {closest} and "
-            f"shaded {shade} of {total}; records_only mode "
-            f"{r_ms[1]:.1f} ms, bound {r_bound:.3f} ms by {r_by}")
+        smem, per_sm = path_occupancy(inp, False, False)
+        log(f"  K2 at {label}: {counts}; records_only mode {r_ms[1]:.1f} ms, "
+            f"bound {r_bound:.3f} ms by {r_by} ({r_counts})")
         rows.append(dict(
             name=f"path_kernel[hdr, {scene_name}]", route="cuda",
-            source="gpuraytracer_tpu_torch/ops/csrc/path_kernels.cu",
-            replaces="gpuraytracer_tpu/ops/pallas_path.py:316",
+            source=PATH_SOURCE, replaces=K2_REPLACES,
             shape=f"{label}: 800x600 x 400 spp x 3 bounces, "
                   f"{inp.num_tris} triangles, "
                   f"{inp.packed.num_spheres} spheres",
-            launches=launches[label]["path_kernel"], max_abs_err=err,
-            flip_share=flips, ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2],
-            plain_ms=1e3 * plain_s, bound_ms=bound, bound_by=by,
-            library_ms=None, records_only_ms=r_ms[1],
+            launches=launches[label]["path_kernel"], launches_per_frame=1,
+            max_abs_err=err, flip_share=flips, ms=k_ms[1], ms_min=k_ms[0],
+            ms_max=k_ms[2], plain_ms=1e3 * plain_s, bound_ms=bound,
+            bound_by=by, library_ms=None, records_only_ms=r_ms[1],
             records_only_bound_ms=r_bound, records_only_bound_by=r_by,
-            live_closest_iterations=closest, live_shaded_iterations=shade,
-            mrays_per_s=mrays_per_s(cfg, k_ms[1] / 1e3)))
-        del rec_r, hdr_r
-        torch.cuda.empty_cache()
+            mrays_per_s=mrays_per_s(cfg, k_ms[1] / 1e3), smem_bytes=smem,
+            blocks_per_sm=per_sm,
+            **resource_fields(resources["path_kernel<EMIT=0, READ_DRAWS=0>"]),
+            **counts))
+
+    # ---- path E's trace: records + draws read + the cull inverse_render
+    # makes (sphere_slack 0.5), one launch per step
+    cfg = RenderConfig(pixel_chunk=65536, **INVERSE)
+    inp = TraceInputs("cornell-spheres", cfg, cull=True, sphere_slack=0.5)
+    draws_k = cuda_path.pregen_draws_kernel(inp.offsets_i32, cfg)
+    hdr_k, rec_k = inp.kernel(draws_k, emit=True)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    hdr_p, rec_p = inp.plain(draws_k, emit=True, whole_frame=True)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - start)
+    flips, err = compare_trace("K2 at E emit+draws+cull", hdr_k, rec_k, hdr_p,
+                               rec_p, inp.packed)
+    k_ms = time_ms(lambda: inp.kernel(draws_k, emit=True))
+    bound, by, counts = trace_bound(inp, rec_k, k2_prefilter_shares(inp),
+                                    emit=True, reads_draws=True)
+    smem, per_sm = path_occupancy(inp, True, True)
+    rows.append(dict(
+        name="path_kernel[emit_records, draws read, occluder cull, "
+             "cornell-spheres]", route="cuda", source=PATH_SOURCE,
+        replaces=K2_REPLACES,
+        shape=f"E: {cfg.width}x{cfg.height} x {cfg.spp} spp x {cfg.bounces} "
+              f"bounces, {inp.num_tris} triangles, "
+              f"{inp.packed.num_spheres} spheres",
+        launches=launches["E"]["path_kernel"], launches_per_step=1,
+        max_abs_err=err, flip_share=flips, ms=k_ms[1], ms_min=k_ms[0],
+        ms_max=k_ms[2], plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=None, smem_bytes=smem, blocks_per_sm=per_sm,
+        **resource_fields(resources["path_kernel<EMIT=1, READ_DRAWS=1>"]),
+        **counts))
+    log(f"  K2 at E: {counts}")
+    del inp, draws_k, hdr_k, rec_k, hdr_p, rec_p
 
     rows += shade_rows(launches)
     k4_rows, mis_plain = mis_rows(launches, resources)
@@ -2764,13 +2911,16 @@ def grouped_trace_bound(inp: TraceInputs, rec, stats, scale, emit,
     triangle tests that the plain sweep counted (``stats`` of
     ``render_path_plain``) on a part of the frame, times ``scale`` (every
     lane with records on, where dead lanes run on; live lanes in hdr mode),
-    and the spheres, shading and camera rays of this frame's records,
-    against the bytes in and out."""
+    each triangle test at OPS_TRI_PREFILTER and the rest of a whole test
+    only for those that pass both prefilters ("passed"), and the spheres,
+    shading and camera rays of this frame's records, against the bytes in
+    and out. ``whole_tests_bound_ms``: the same with every triangle test
+    whole, as if no test were prefiltered."""
     cfg, n = inp.cfg, inp.cfg.num_pixels
     key = (lambda k: k + "_all") if emit else (lambda k: k)
     counts = {f"{loop}_{k}": scale * stats[loop][key(k)]
               for loop in ("closest", "shadow")
-              for k in ("rays", "boxes", "triangles")}
+              for k in ("rays", "boxes", "triangles", "passed")}
     alive, shaded = live_lanes(rec, inp.packed)
     closest = rec.numel() if emit else int(alive.sum())
     shade = rec.numel() if emit else int(shaded.sum())
@@ -2779,13 +2929,17 @@ def grouped_trace_bound(inp: TraceInputs, rec, stats, scale, emit,
            + counts["shadow_boxes"] * OPS_BOX_SHADOW
            + (counts["closest_rays"] + counts["shadow_rays"]) * OPS_SWEEP_RAY
            + counts["shadow_rays"] * OPS_SHADOW_RAY
-           + counts["closest_triangles"] * OPS_TRI_CLOSEST
-           + counts["shadow_triangles"] * OPS_TRI_SHADOW
            + closest * s * OPS_SPH_CLOSEST
            + shade * (s * OPS_SPH_SHADOW + OPS_SHADE)
            + cfg.spp * n * OPS_CAMERA)
     if not reads_draws:
         ops += halton_ops(cfg, n)
+    whole_ops = (ops + counts["closest_triangles"] * OPS_TRI_CLOSEST
+                 + counts["shadow_triangles"] * OPS_TRI_SHADOW)
+    ops += ((counts["closest_triangles"] + counts["shadow_triangles"])
+            * OPS_TRI_PREFILTER
+            + counts["closest_passed"] * (OPS_TRI_CLOSEST - OPS_TRI_PREFILTER)
+            + counts["shadow_passed"] * (OPS_TRI_SHADOW - OPS_TRI_PREFILTER))
     grp = inp.packed.grouped
     tables = sum(t.numel() for t in grp[:6]) + inp.packed.atab.numel() \
         + inp.packed.sph.numel() + 18
@@ -2796,7 +2950,8 @@ def grouped_trace_bound(inp: TraceInputs, rec, stats, scale, emit,
         nbytes += 4 * (4 * cfg.bounces + 2) * cfg.spp * n
     bound, by = roofline(nbytes, int(ops))
     counts.update(closest_iterations=closest, shaded_iterations=shade,
-                  operations=int(ops))
+                  operations=int(ops),
+                  whole_tests_bound_ms=roofline(nbytes, int(whole_ops))[0])
     return bound, by, counts
 
 
@@ -2851,6 +3006,42 @@ def phase_grouped():
             compare_grads(f"K3g {tag} regenerated vs read", k_regen, k_read,
                           MODES_ATOL, MODES_RTOL, MODES_RTOL)
             check_glue(f"grouped {tag}", sh)
+
+    # hdr mode on lanes whose paths end while others of their warp go on:
+    # an emissive sphere behind the light panel, on the unchanged ray, must
+    # not take the place of the panel's emission on a later bounce.
+    inp = TraceInputs(None, cfg, cull=False, grouped=True,
+                      scene=tess_with_hidden_emitter(cfg.resolution))
+    hdr_h, _ = inp.kernel()
+    hdr_r, rec_r = inp.kernel(emit=True)
+    hdr_p, rec_p = inp.plain(emit=True)
+    check(torch.equal(hdr_h, hdr_r), "K2g behind the panel: hdr mode and "
+          "records_only mode give different images")
+    compare_trace("K2g behind the panel hdr/records_only", hdr_r, rec_r,
+                  hdr_p, rec_p, inp.packed)
+    # The case occurs: camera rays that end at the panel (bounce 0) and
+    # meet the hidden sphere further on, in warps whose other lanes go on.
+    prim = (rec_r[:, 0] & (cuda_path.OCC_BIT - 1)).long() - 1
+    ends = ((prim >= 0) & (prim < inp.num_tris)
+            & (inp.packed.atab[9, prim.clamp_min(0)] > 0.5)).any(dim=0)
+    cam = cuda_path.camera_vector(inp.scene.camera, cfg).to(ends.device)
+    pix = torch.arange(cfg.num_pixels, device=ends.device)
+    sx = ((pix % cfg.width).float() + 0.5) / cfg.width * 2.0 - 1.0
+    sy = -(((pix // cfg.width).float() + 0.5) / cfg.height * 2.0 - 1.0)
+    d = sx[:, None] * cam[3:6] + sy[:, None] * cam[6:9] - cam[9:12]
+    d = d / d.norm(dim=-1, keepdim=True)
+    sph = inp.scene.spheres.to(ends.device)
+    _, meets = sphere_candidates(sph.center[-1:], sph.radius[-1:],
+                                 cam[0:3].expand_as(d), d, RAY_TMIN, RAY_TMAX)
+    witness = ends & meets[:, 0]
+    mixed = int((witness.view(-1, 32).any(dim=1)
+                 & ~ends.view(-1, 32).all(dim=1)).sum())
+    check(mixed > 0, "K2g behind the panel: no warp holds the case")
+    log(f"  K2g behind the panel: {int(witness.sum())} pixels end at the "
+        f"panel with the emissive sphere behind it, in {mixed} warps whose "
+        "other lanes go on; hdr mode equals records_only and the plain "
+        "version")
+    del inp
 
     # Forced onto the static tier's scenes: K2g's records are K2's.
     for scene_name in SCENES:
@@ -3028,24 +3219,32 @@ def grouped_rows(launches, resources):
                                                 n / sampled, True, True)
         h_bound, h_by, h_counts = grouped_trace_bound(
             inp, rec_k, stats, n / sampled, False, False)
-        res = resources["path_kernel<EMIT=1, READ_DRAWS=1, GROUPED=1>"]
+        wide = int(inp.packed.grouped.sup.shape[1] > cuda_path.WIDE_SUPERS)
+        smem, per_sm = path_occupancy(inp, True, True)
+        _, h_per_sm = path_occupancy(inp, False, False)
+        h_res = resources[f"path_grouped_kernel<EMIT=0, READ_DRAWS=0, "
+                          f"WIDE={wide}>"]
         rows.append(dict(
-            name="path_kernel[grouped, emit_records, draws read, occluder "
+            name="path_grouped_kernel[emit_records, draws read, occluder "
                  "cull]", route="cuda", source=PATH_SOURCE,
             replaces=K2G_REPLACES, shape=shape,
             launches=launches[label]["path_kernel_grouped"],
-            max_abs_err=err, flip_share=flips, ms=k_ms[1], ms_min=k_ms[0],
-            ms_max=k_ms[2], plain_ms=plain_ms, plain_pixels=sampled,
-            bound_ms=bound, bound_by=by, library_ms=None,
-            hdr_ms=h_ms[1], hdr_bound_ms=h_bound, hdr_bound_by=h_by,
-            hdr_operations=h_counts["operations"],
-            mrays_per_s=mrays_per_s(cfg, k_ms[1] / 1e3),
-            registers=res["registers"], stack_bytes=res["stack_bytes"],
-            spill_store_bytes=res["spill_store_bytes"],
-            spill_load_bytes=res["spill_load_bytes"], **counts))
+            launches_per_step=1, max_abs_err=err, flip_share=flips,
+            ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2], plain_ms=plain_ms,
+            plain_pixels=sampled, bound_ms=bound, bound_by=by,
+            library_ms=None, hdr_ms=h_ms[1], hdr_bound_ms=h_bound,
+            hdr_bound_by=h_by, hdr_operations=h_counts["operations"],
+            hdr_registers=h_res["registers"],
+            hdr_stack_bytes=h_res["stack_bytes"], hdr_blocks_per_sm=h_per_sm,
+            mrays_per_s=mrays_per_s(cfg, k_ms[1] / 1e3), smem_bytes=smem,
+            blocks_per_sm=per_sm, wide_sweep=bool(wide),
+            **resource_fields(resources[
+                f"path_grouped_kernel<EMIT=1, READ_DRAWS=1, WIDE={wide}>"]),
+            **counts))
         log(f"  K2g at {label}: plain sweep on {sampled} pixels "
             f"{plain_ms:.0f} ms; {counts}; hdr mode {h_ms[1]:.3f} ms, bound "
-            f"{h_bound:.3f} ms by {h_by} ({h_counts})")
+            f"{h_bound:.3f} ms by {h_by} ({h_counts}); {smem} B shared, "
+            f"{per_sm} blocks per SM ({h_per_sm} in hdr mode)")
         del hdr_k, rec_k, draws, inp
         torch.cuda.empty_cache()
 
@@ -3363,7 +3562,7 @@ def mis_grouped_rows(launches, resources):
                                               scale_samples, emit=True)
         h_bound, h_by, _ = mis_grouped_bound(inp, rec, stats, scale_rays,
                                              scale_samples, emit=False)
-        wide = int(inp.packed.grouped.sup.shape[1] > cuda_mis.WIDE_SUPERS)
+        wide = int(inp.packed.grouped.sup.shape[1] > cuda_path.WIDE_SUPERS)
         res = resources[f"mis_grouped_kernel<EMIT=1, WIDE={wide}>"]
         smem, per_sm = grouped_occupancy(inp)
         rows.append(dict(
@@ -3487,12 +3686,123 @@ def grouped_bwd_occupancy(cfg: RenderConfig, sph: int):
     return smem, per_sm
 
 
-# Where the MIS kernels' time goes (``--split``): each is rebuilt from a copy
-# of the sources with one part taken out or changed (the results of a part
-# taken out are then wrong: timing only) and timed beside the unedited build:
-# K4 at the shapes of paths F, G and H, K5 at path I's, K4g and K5g at paths
-# M's and N's. {what: (kernel, library, [(file, old text, new text[, times
-# the old text occurs, 1 if not given])])}.
+# Where the trace and MIS kernels' time goes (``--split``): each is rebuilt
+# from a copy of the sources with one part taken out or changed (the results
+# of a part taken out are then wrong: timing only) and timed beside the
+# unedited build: K2 at the shapes of paths A, B and C, K2g at K's and L's,
+# K4 at F's, G's and H's, K5 at I's, K4g and K5g at M's and N's. {what:
+# (kernel, library, [(file, old text, new text[, times the old text occurs,
+# 1 if not given])])}.
+K2_MIN_BLOCKS = 9  # path_kernels.cu's STATIC_MIN_BLOCKS
+K2_PROBE_TEXT = ("occ = any_triangle_filtered(sc.shadow, p.n_shadow, hx, hy, hz, "
+                 "ldx, ldy, ldz, 0.0f,\n                                    "
+                 "ldist - 1e-3f);")
+K2_EDITS = {
+    "closest filtered": ("path_kernels.cu", "closest_triangle(sc.geo, T,",
+                         "grt::closest_triangle_filtered(sc.geo, T,"),
+    "probe plain": ("path_kernels.cu", K2_PROBE_TEXT,
+                    "occ = occluded(sc.shadow, p.n_shadow, sc.sph, 0, hx, hy, hz, "
+                    "ldx, ldy, ldz, ldist - 1e-3f);"),
+    "probe exits": ("path_kernels.cu", K2_PROBE_TEXT,
+                    "occ = false;\n"
+                    "        for (int k = 0; k < p.n_shadow; ++k) {\n"
+                    "          const float4* g = reinterpret_cast<const float4*>("
+                    "sc.shadow + GEO_ROWS * k);\n"
+                    "          float den, tt, u, v;\n"
+                    "          grt::triangle_plane(g[0], g[1], g[2], hx, hy, hz, ldx, "
+                    "ldy, ldz, &den, &tt, &u, &v);\n"
+                    "          if (grt::triangle_inside(den, tt, u, v, 0.0f, "
+                    "ldist - 1e-3f)) { occ = true; break; }\n"
+                    "        }"),
+    "own occupancy": ("path_kernels.cu",
+                      "__launch_bounds__(BLOCK_THREADS, STATIC_MIN_BLOCKS)",
+                      "__launch_bounds__(BLOCK_THREADS)"),
+}
+
+
+def k2_blocks(n):
+    return ("path_kernels.cu", f"constexpr int STATIC_MIN_BLOCKS = {K2_MIN_BLOCKS};",
+            f"constexpr int STATIC_MIN_BLOCKS = {n};")
+
+
+def k2g_prefiltered(indent, ray, bound):
+    """A K2g group loop's triangle test with the prefilters before the
+    divide (trace.cuh's plane_ahead, plane_within, plane_hit), skipping the
+    triangle where either fails: the same decisions (``bound`` >= 1e-3)."""
+    o, d = ray
+    pad = " " * indent
+    return (f"{pad}{{\n"
+            f"{pad}  const float4 pn = __ldg(s + 3 * j);\n"
+            f"{pad}  den = {d[0]} * pn.x + {d[1]} * pn.y + {d[2]} * pn.z;\n"
+            f"{pad}  const float num = pn.w - ({o[0]} * pn.x + {o[1]} * pn.y + "
+            f"{o[2]} * pn.z);\n"
+            f"{pad}  if (!plane_ahead(den, num) || !plane_within(den, num, {bound})) "
+            "continue;\n"
+            f"{pad}  plane_hit(__ldg(s + 3 * j + 1), __ldg(s + 3 * j + 2), "
+            f"{', '.join(o)}, {', '.join(d)}, den, num, &tt, &u, &v);\n"
+            f"{pad}}}")
+
+
+CLOSEST_RAY = (("ox", "oy", "oz"), ("dx", "dy", "dz"))
+SHADOW_RAY = (("hx", "hy", "hz"), ("ldx", "ldy", "ldz"))
+K2G_EDITS = {
+    # The three group loops of the warp-cooperative sweeps (trace.cuh) with
+    # the prefilters, K4's: a closest hit bounded by min(t_best, t_max), the
+    # probe by max(t_max, 1e-3).
+    "prefilters": [
+        ("trace.cuh",
+         "        triangle_plane(__ldg(s + 3 * j), __ldg(s + 3 * j + 1), __ldg(s + 3 * j "
+         "+ 2), ox, oy,\n                       oz, dx, dy, dz, &den, &tt, &u, &v);",
+         k2g_prefiltered(8, CLOSEST_RAY, "fminf(*t_best, t_max)")),
+        ("trace.cuh",
+         "          triangle_plane(__ldg(s + 3 * j), __ldg(s + 3 * j + 1), __ldg(s + 3 * "
+         "j + 2), ox,\n                         oy, oz, dx, dy, dz, &den, &tt, &u, &v);",
+         k2g_prefiltered(10, CLOSEST_RAY, "fminf(*t_best, t_max)")),
+        ("trace.cuh",
+         "        triangle_plane(__ldg(s + 3 * j), __ldg(s + 3 * j + 1), __ldg(s + 3 * j "
+         "+ 2), hx, hy,\n                       hz, ldx, ldy, ldz, &den, &tt, &u, &v);",
+         k2g_prefiltered(8, SHADOW_RAY, "fmaxf(t_max, 1e-3f)"))],
+    "own occupancy": ("path_kernels.cu",
+                      "__launch_bounds__(GROUPED_THREADS,\n"
+                      "                                  WIDE ? GROUPED_MIN_BLOCKS_WIDE "
+                      ": GROUPED_MIN_BLOCKS)",
+                      "__launch_bounds__(GROUPED_THREADS)"),
+    "128 threads": ("path_kernels.cu", "constexpr int GROUPED_THREADS = 384;",
+                    "constexpr int GROUPED_THREADS = 128;"),
+    "per-lane closest": (
+        "path_kernels.cu",
+        "      } else if constexpr (WIDE) {\n"
+        "        closest_grouped_wide(p.geo, sc.aabb, sc.sup, p.n_super, T, running, ox, "
+        "oy, oz,\n"
+        "                             dx, dy, dz, RAY_TMIN, RAY_TMAX, &t_best, &prim);\n"
+        "      } else {\n"
+        "        closest_grouped_warp(p.geo, sc.aabb, sc.sup, p.n_super, T, running, ox, "
+        "oy, oz,\n"
+        "                             dx, dy, dz, RAY_TMIN, RAY_TMAX, &t_best, &prim);\n"
+        "      }",
+        "      } else if (running) {\n"
+        "        grt::closest_grouped(p.geo, p.aabb, p.sup, p.n_super, T, ox, oy, "
+        "oz, dx, dy, dz, RAY_TMIN, RAY_TMAX, &t_best, &prim);\n"
+        "      }"),
+    "per-lane probe": (
+        "path_kernels.cu",
+        "occ = occluded_grouped_warp(p.sgeo, sc.saabb, sc.ssup, p.n_shadow_super,\n"
+        "                                    p.n_shadow, running, hx, hy, hz, ldx, ldy, "
+        "ldz, 0.0f,\n"
+        "                                    ldist - 1e-3f);",
+        "occ = running && grt::occluded_grouped(p.sgeo, p.saabb, p.ssup, "
+        "p.n_shadow_super, p.n_shadow, hx, hy, hz, ldx, ldy, ldz, 0.0f, "
+        "ldist - 1e-3f);"),
+}
+
+
+def k2g_blocks(narrow, wide):
+    return [("path_kernels.cu", "constexpr int GROUPED_MIN_BLOCKS = 2;",
+             f"constexpr int GROUPED_MIN_BLOCKS = {narrow};"),
+            ("path_kernels.cu", "constexpr int GROUPED_MIN_BLOCKS_WIDE = 3;",
+             f"constexpr int GROUPED_MIN_BLOCKS_WIDE = {wide};")]
+
+
 K4_FILTER_OFF = [
     ("mis_kernels.cu",
      "  closest_triangle_filtered(sc.geo, sc.T, ox, oy, oz, dx, dy, dz, RAY_TMIN, "
@@ -3508,6 +3818,27 @@ K4_FILTER_OFF = [
      "    grt::triangle_plane(g[0], g[1], g[2], ox, oy, oz, dx, dy, dz, &den, &tt, &u, &v);\n"
      "    if (grt::triangle_inside(den, tt, u, v, RAY_TMIN, t_max)) return false;\n  }")]
 SPLIT_EDITS = {
+    "K2 without the prefilters (every probe tests every occluder)": (
+        "K2", "path_kernels", [K2_EDITS["probe plain"]]),
+    "K2, the probe without the prefilters, to its first occluder": (
+        "K2", "path_kernels", [K2_EDITS["probe exits"]]),
+    "K2, the prefilters in the closest hit as well": (
+        "K2", "path_kernels", [K2_EDITS["closest filtered"]]),
+    "K2 at ptxas' own occupancy (no minimum of blocks per SM)": (
+        "K2", "path_kernels", [K2_EDITS["own occupancy"]]),
+    **{f"K2 at a minimum of {n} blocks per SM": ("K2", "path_kernels", [k2_blocks(n)])
+       for n in (7, 8, 10)},
+    "K2g, the group loops with the prefilters": (
+        "K2g", "path_kernels", K2G_EDITS["prefilters"]),
+    "K2g on the per-lane sweep, box tables read from global memory": (
+        "K2g", "path_kernels", [K2G_EDITS["per-lane closest"],
+                                K2G_EDITS["per-lane probe"]]),
+    "K2g in blocks of 128 threads at ptxas' own occupancy": (
+        "K2g", "path_kernels", [K2G_EDITS["128 threads"], K2G_EDITS["own occupancy"]]),
+    "K2g at ptxas' own occupancy (no minimum of blocks per SM)": (
+        "K2g", "path_kernels", [K2G_EDITS["own occupancy"]]),
+    **{f"K2g at a minimum of {a} / {b} blocks of 384 per SM (narrow / wide sweep)": (
+        "K2g", "path_kernels", k2g_blocks(a, b)) for a, b in ((1, 1), (2, 2), (3, 3))},
     "K4, the triangle tests without the prefilters": ("K4", "mis_kernels", K4_FILTER_OFF),
     "K4 at ptxas' own occupancy (no minimum of blocks per SM)": ("K4", "mis_kernels", [(
         "mis_kernels.cu", "__launch_bounds__(BLOCK_THREADS, STATIC_MIN_BLOCKS)",
@@ -3584,15 +3915,31 @@ def split_builds():
         return dict(pool.map(build, SPLIT_EDITS.items()))
 
 
+# The ptxas names of each kernel's instantiations.
+SPLIT_PTXAS = {"K2": "path_kernel<", "K2g": "path_grouped_kernel<",
+               "K4": "mis_kernel<", "K4g": "mis_grouped_kernel<",
+               "K5": "mis_bwd_kernel<", "K5g": "mis_bwd_grouped_kernel<"}
+
+
 def split():
-    """The MIS kernels unedited and with each part of SPLIT_EDITS taken out
-    or changed, in turns (unedited first and last): K4 at F and G (hdr) and
-    H (records + cull), K5 at I (both scenes), K4g and K5g at M and N."""
-    log("== split: the MIS kernels with one part taken out or changed")
+    """The trace and MIS kernels unedited and with each part of SPLIT_EDITS
+    taken out or changed, in turns (unedited first and last): K2 at A and B
+    (hdr) and C (records + draws + cull), K2g at K and L (records + draws +
+    cull), K4 at F and G (hdr) and H (records + cull), K5 at I (both
+    scenes), K4g and K5g at M and N."""
+    log("== split: the trace and MIS kernels with one part taken out or changed")
     started = time.perf_counter()
-    own = {name: _build.load_library(name) for name in ("mis_kernels", "mis_bwd_kernels")}
+    own = {name: _build.load_library(name)
+           for name in ("path_kernels", "mis_kernels", "mis_bwd_kernels")}
     variants = split_builds()
-    out = {}
+    out = {"ptxas": {}}
+    for what, (kernel, _, lib) in variants.items():
+        res = {name: (r["registers"], r["stack_bytes"], r["spill_store_bytes"])
+               for name, r in ptxas_resources(lib.log).items()
+               if name.startswith(SPLIT_PTXAS[kernel])}
+        out["ptxas"][what] = res
+        log(f"  {what}: registers, stack, spill stores " + ", ".join(
+            f"{name} {r}" for name, r in res.items()))
 
     def turns(key, kernel, name, fn):
         order = ([(f"{kernel} unedited", own[name])]
@@ -3605,6 +3952,24 @@ def split():
             log(f"  {key}: {what}: {ms[1]:.3f} ms (min {ms[0]:.3f}, max {ms[2]:.3f})")
         _build._LOADED[name] = own[name]
 
+    for label, scene_name, size, cull in (("A", "cornell", FRAME, False),
+                                          ("B", "cornell-spheres", FRAME, False),
+                                          ("C", "cornell", BENCH, True)):
+        inp = TraceInputs(scene_name, RenderConfig(**size), cull=cull)
+        draws = (cuda_path.pregen_draws_kernel(inp.offsets_i32, inp.cfg)
+                 if cull else None)
+        turns(f"{label} {scene_name}", "K2", "path_kernels",
+              lambda: inp.kernel(draws, emit=cull))
+        del inp, draws
+    for label, kw in (("K", TESS_K), ("L", TESS_L)):
+        cfg = RenderConfig(**BENCH)
+        inp = TraceInputs(None, cfg, cull=True, grouped=True, scene=(
+            cornell_box_tessellated(resolution=cfg.resolution, **kw)))
+        draws = cuda_path.pregen_draws_kernel(inp.offsets_i32, cfg)
+        turns(f"{label} tess-{inp.num_tris}", "K2g", "path_kernels",
+              lambda: inp.kernel(draws, emit=True))
+        del inp, draws
+        torch.cuda.empty_cache()
     for label, scene_name, size, emit, cull in (
             ("F", "cornell", MIS_FRAME, False, False),
             ("G", "cornell-spheres", MIS_FRAME, False, False),
@@ -3627,6 +3992,30 @@ def split():
         del inp, bw
         torch.cuda.empty_cache()
     log(f"  split took {time.perf_counter() - started:.1f} s")
+    return out
+
+
+def k2_share_drift():
+    """How far K2's prefilter pass shares (``k2_prefilter_shares``) move
+    between the SHARE_SPP samples per pixel the ``full`` phase counts them
+    at and the 400 of paths A and B: {path: {"shares": {spp: shares},
+    "change": relative change per share}}."""
+    cfg = RenderConfig(**FRAME)
+    out = {}
+    for label, scene_name in (("A", "cornell"), ("B", "cornell-spheres")):
+        inp = TraceInputs(scene_name, cfg, cull=False)
+        shares = {}
+        for spp in (SHARE_SPP, cfg.spp):
+            start = time.perf_counter()
+            shares[spp] = k2_prefilter_shares(inp, spp)
+            log(f"  K2 shares at {label} {scene_name}, {spp} spp: "
+                f"{shares[spp]} ({time.perf_counter() - start:.1f} s)")
+        lo, hi = shares[SHARE_SPP], shares[cfg.spp]
+        change = {k: hi[k] / lo[k] - 1.0 for k in lo if lo[k]}
+        log(f"  K2 shares at {label}: change from {SHARE_SPP} to {cfg.spp} "
+            "spp " + ", ".join(f"{k} {v:+.3%}" for k, v in change.items()))
+        out[f"{label} {scene_name}"] = dict(
+            shares={str(k): v for k, v in shares.items()}, change=change)
     return out
 
 
@@ -3669,6 +4058,7 @@ def count_drift():
         out[f"{label} {scene_name}"] = dict(
             pixels=pix.numel(), samples=[chk["mis_samples"], cfg.mis_samples],
             per_sample={str(k): v for k, v in per.items()}, change=change)
+    out["K2 shares"] = k2_share_drift()
     return out
 
 
@@ -3688,21 +4078,22 @@ def k2_at_j_row(launches_j, path_j, resources):
     plain_ms = 1e3 * (time.perf_counter() - start)
     flips, err = compare_trace("K2 at J", hdr_r, rec_r, hdr_p, rec_p,
                                inp.packed)
-    alive, shaded = live_lanes(rec_r, inp.packed)
-    bound, by = trace_bound(inp, int(alive.sum()), int(shaded.sum()),
-                            emit=False, reads_draws=False)
+    bound, by, counts = trace_bound(inp, rec_r, k2_prefilter_shares(inp),
+                                    emit=False, reads_draws=False)
     k_ms = time_ms(lambda: inp.kernel())
-    res = resources["path_kernel<EMIT=0, READ_DRAWS=0, GROUPED=0>"]
+    smem, per_sm = path_occupancy(inp, False, False)
     row = dict(
         name="path_kernel[hdr, direct, cornell-spheres]", route="cuda",
-        source=PATH_SOURCE, replaces="gpuraytracer_tpu/ops/pallas_path.py:316",
+        source=PATH_SOURCE, replaces=K2_REPLACES,
         shape=f"J: {cfg.width}x{cfg.height} x {cfg.spp} spp, direct, "
               f"{inp.num_tris} triangles, {inp.packed.num_spheres} spheres",
-        launches=launches_j["path_kernel"], max_abs_err=err,
-        flip_share=flips, ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2],
-        profiled_ms=path_j["k2_profiled_ms"], plain_ms=plain_ms,
-        bound_ms=bound, bound_by=by, library_ms=None,
-        registers=res["registers"], stack_bytes=res["stack_bytes"])
+        launches=launches_j["path_kernel"], launches_per_step=1,
+        max_abs_err=err, flip_share=flips, ms=k_ms[1], ms_min=k_ms[0],
+        ms_max=k_ms[2], profiled_ms=path_j["k2_profiled_ms"],
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        smem_bytes=smem, blocks_per_sm=per_sm,
+        **resource_fields(resources["path_kernel<EMIT=0, READ_DRAWS=0>"]),
+        **counts)
     log(f"  {row['name']} @ {row['shape']}: kernel {row['ms']:.4f} ms by "
         f"events, {row['profiled_ms']:.4f} ms under the profiler, bound "
         f"{bound:.4f} ms by {by}, plain {plain_ms:.1f} ms")
@@ -3730,37 +4121,50 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    seconds = {}  # wall seconds of each phase
+
+    def timed(name, fn, *args, **kwargs):
+        start = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[name] = time.perf_counter() - start
+        log(f"  ({name} took {seconds[name]:.1f} s)")
+        return out
+
     try:
-        resources, smi = phase_build()
-        plain_small = phase_small()
-        plain_small.update(phase_mis_small())
-        launches = phase_main_path(tmp)
-        launches["D"], step_ms = phase_train()
-        launches["E"], inverse_ms = phase_inverse()
-        mis_launches, mis_frame_ms = phase_mis_path(tmp)
+        resources, smi = timed("build", phase_build)
+        plain_small = timed("small", phase_small)
+        plain_small.update(timed("mis", phase_mis_small))
+        launches = timed("main path", phase_main_path, tmp)
+        launches["D"], step_ms = timed("D", phase_train)
+        launches["E"], inverse_ms = timed("E", phase_inverse)
+        mis_launches, mis_frame_ms = timed("MIS paths", phase_mis_path, tmp)
         launches.update(mis_launches)
-        mis_bwd_small = phase_mis_bwd()
-        path_i = phase_mis_train()
-        mis_grad = phase_mis_grad()
-        soft_small = phase_soft()
-        launches["J"], path_j = phase_soft_train()
-        recovery = phase_soft_recovery()
-        grouped_small = phase_grouped()
-        launches["K"], path_k = phase_grouped_path("K", TESS_K, steps=4)
-        launches["L"], path_l = phase_grouped_path("L", TESS_L, steps=2)
+        mis_bwd_small = timed("mis_bwd", phase_mis_bwd)
+        path_i = timed("I", phase_mis_train)
+        mis_grad = timed("MIS gradients", phase_mis_grad)
+        soft_small = timed("soft", phase_soft)
+        launches["J"], path_j = timed("J", phase_soft_train)
+        recovery = timed("soft recovery", phase_soft_recovery)
+        grouped_small = timed("grouped", phase_grouped)
+        launches["K"], path_k = timed("K", phase_grouped_path, "K", TESS_K,
+                                      steps=4)
+        launches["L"], path_l = timed("L", phase_grouped_path, "L", TESS_L,
+                                      steps=2)
         mis_grouped_small, mis_grouped_s = phase_mis_grouped()
         paths_mn = {}
         for label, scene_name, scene in mis_grouped_path_scenes(
                 (MIS_BENCH["width"], MIS_BENCH["height"])):
             key = f"{label} {scene_name}"
-            launches[key], paths_mn[key] = phase_mis_grouped_path(
-                label, scene_name, scene, steps=4 if label == "M" else 2)
-        rows, small_ms, mis_plain = phase_full(launches, plain_small,
-                                               resources)
-        rows += mis_bwd_rows(path_i, resources)
-        rows += soft_rows(launches["J"], resources)
-        rows += k2_at_j_row(launches["J"], path_j, resources)
-        rows += grouped_rows(launches, resources)
+            launches[key], paths_mn[key] = timed(
+                key, phase_mis_grouped_path, label, scene_name, scene,
+                steps=4 if label == "M" else 2)
+        rows, small_ms, mis_plain = timed("full", phase_full, launches,
+                                          plain_small, resources)
+        rows += timed("K5 rows", mis_bwd_rows, path_i, resources)
+        rows += timed("K6 and K7 rows", soft_rows, launches["J"], resources)
+        rows += timed("K2 at J row", k2_at_j_row, launches["J"], path_j,
+                      resources)
+        rows += timed("K2g and K3g rows", grouped_rows, launches, resources)
         mis_grouped_row_list, mis_grouped_rows_s = mis_grouped_rows(
             launches, resources)
         rows += mis_grouped_row_list
@@ -3791,6 +4195,7 @@ def main() -> int:
                           "paths": sum(v["seconds"]
                                        for v in paths_mn.values()),
                           "rows": mis_grouped_rows_s},
+                      "phase_seconds": seconds,
                       "ptxas": resources}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

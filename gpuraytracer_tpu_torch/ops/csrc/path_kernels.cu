@@ -28,67 +28,98 @@
 // and the digit loop ends when the index is exhausted.
 //
 // ---------------------------------------------------------------------------
-// path_kernel   replaces  gpuraytracer_tpu/ops/pallas_path.py:_path_kernel
-//               static tier (GROUPED = false: at most 64 triangles, plus
-//               analytic spheres) and grouped tier (GROUPED = true: any
-//               number of triangles up to the record encoding's limit)
+// path_kernel          replaces  gpuraytracer_tpu/ops/pallas_path.py:_path_kernel
+//                      static tier (at most 64 triangles, plus analytic spheres)
+// path_grouped_kernel  replaces  its grouped tier (any number of triangles up to
+//                      the record encoding's limit)
 // ---------------------------------------------------------------------------
 // Per pixel: spp samples x `bounces` bounces of camera ray -> closest hit over
 // all triangles (plane + dual basis) and spheres -> emissive replace / NEE with
 // an any-hit shadow probe over the occluder list -> cosine bounce.  Modes:
 // hdr only; EMIT (one int32 record (prim+1) + OCC_BIT*occluded per (sample,
 // bounce, pixel)); READ_DRAWS (the six draw planes come from draws_kernel
-// instead of being radical-inversed in the loop).
+// instead of being radical-inversed in the loop).  Both tiers run the same
+// per-pixel body (trace_pixel), which differs only in its two traversals.
 //
 // Bound on this card: OPERATIONS in hdr mode and records-only mode — per live
-// (sample, bounce, pixel) T closest-hit tests (49 f32 operations each), n_shadow
-// any-hit tests (46 each) and 2*S sphere tests (43 + 39), against a few bytes
-// per pixel of traffic; f32 scalar math, so the yardstick is the card's
-// non-tensor f32 rate.  With EMIT and READ_DRAWS it is the larger of that and
-// the record and draw bytes ((4*bounces+2)*4 B read and 4*bounces B written
-// per sample and pixel).  Design: one thread per pixel with the sample and
-// bounce loops inside the thread and all path state in registers; the scene
-// tables (a few KB) are staged once per block in shared memory, triangle-major
-// so that one triangle is three 16-byte loads that all threads of a warp take
-// from the same address (a broadcast); the winner's attributes are fetched by
-// index; the shadow loop runs over a compacted copy of the occluder list.  In
-// hdr mode a dead path leaves the bounce loop; with EMIT it runs on masked,
-// because records are defined for every (sample, bounce, pixel).
+// (sample, bounce, pixel) T closest-hit tests, n_shadow any-hit tests and
+// 2*S sphere tests, against a few bytes per pixel of traffic; f32 scalar math,
+// so the yardstick is the card's non-tensor f32 rate.  With EMIT and
+// READ_DRAWS it is the larger of that and the record and draw bytes
+// ((4*bounces+2)*4 B read and 4*bounces B written per sample and pixel).
+//
+// The static tier: one thread per pixel with the sample and bounce loops
+// inside the thread and all path state in registers; the scene tables (a few
+// KB) are staged once per block in shared memory, triangle-major so that one
+// triangle is three 16-byte loads that all threads of a warp take from the
+// same address (a broadcast); the winner's attributes are fetched by index.
+// The shadow probe runs over a compacted copy of the occluder list
+// (any_triangle_filtered at t_min = 0): a test takes the divide, the
+// barycentrics and the interval test only where the two exact conditions of
+// trace.cuh hold (the plane lies ahead of the hit point, and nearer than the
+// light sample), and the loop stops at the first occluder; then the spheres.
+// Most occluders of a probe from inside the box lie behind it or beyond the
+// light, and the skipped tests are tests that fail (trace.cuh states the
+// proof), so the bit is the same.  The closest hit tests every triangle to
+// its divide (closest_triangle): with the same prefilters it was slower,
+// since the lanes of a warp, on rays that have bounced, rarely all skip a
+// triangle.  At least STATIC_MIN_BLOCKS blocks of 128 threads per SM (56
+// registers).  PERF.md has the trials.  In hdr mode a dead path leaves the
+// bounce loop; with EMIT it runs on masked, because records are defined for
+// every (sample, bounce, pixel).
 //
 // The grouped tier (the TPU kernel's grouped=True branch, pallas_path.py:
-// 532-590 closest hit, 643-700 shadow probe) keeps all of the above except
-// the scene tables: the geometry (48 B per triangle: 48 KB at 1,002
-// triangles, 614 KB at 12,802) stays in global memory and is read through
-// the read-only path, where L2 holds it; each thread runs the reference's
-// two-level sweep (trace.cuh closest_grouped / occluded_grouped): per super
-// of 128 triangles, then per group of 16, a slab test of the padded box
-// against the ray's far limit, which tightens with the closest hit so far,
-// and the group's triangle tests only where the box is reached.  The work a
-// ray does follows the boxes it reaches, not the triangle count.  A thread
-// skips a box on its own (the TPU skipped it only when no lane of a tile
-// reached it): the decisions are the same, warps diverge.  Bound: OPERATIONS,
-// counted from the box and triangle tests this frame's live lanes execute.
-// The attributes ([T + S][13]) are read from global memory by the winner's
-// index; the spheres stay in shared memory.
+// 532-590 closest hit, 643-700 shadow probe) keeps the body above; its scene
+// tables do not fit a block's shared memory at a thousand triangles.  The
+// geometry (48 B per triangle: 48 KB at 1,002 triangles, 614 KB at 12,802)
+// and the dense occluder-culled shadow table stay in global memory and are
+// read through the read-only path, where L2 holds them; their two-level box
+// tables (32 B a box: 4 KB at 1,002 triangles, 52 KB at 12,802) are staged by
+// cp.async in shared memory with the spheres.  The closest hit and the shadow
+// probe run trace.cuh's warp-cooperative sweep (closest_grouped_warp, above
+// WIDE_SUPERS supers closest_grouped_wide; occluded_grouped_warp at t_min =
+// 0): per super of 128 triangles, then per group of 16, a slab test of the
+// padded box against the ray's far limit, which tightens with the closest hit
+// so far, and the group's triangle tests only where the box is reached, each
+// lane walking the groups it reaches; the same decisions as the loop over
+// every triangle, lane by lane.  The group loops test every triangle to its
+// divide: the lanes of a warp walk different groups, so the prefilters
+// skipped work for a whole warp too rarely to pay.
+// Grid: a persistent grid of GROUPED_THREADS-thread blocks, as many as the
+// card holds at once (2 per SM for the narrow sweep, 3 for the wide one), so
+// that the box tables are staged once per block; its
+// warps take 32-pixel tiles from a counter (*tiles_taken, 0 at launch) until
+// the range is done, so that no SM idles at the end.  The votes take the full
+// warp, so every lane reaches every one: with EMIT every lane in range traces
+// every (sample, bounce) (records are defined there); in hdr mode a lane off
+// a surface stays in the bounce loop, tracing nothing, until no lane of its
+// warp is on one.  The attributes ([T + S][13]) are read from global memory
+// by the winner's index.  Bound: OPERATIONS, counted from the box and triangle
+// tests this frame's lanes execute.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "halton.cuh"
+#include "occupancy.cuh"
 #include "trace.cuh"
 
 namespace {
 
+using grt::any_triangle_filtered;
 using grt::camera_jitter;
-using grt::closest_grouped;
+using grt::closest_grouped_warp;
+using grt::closest_grouped_wide;
 using grt::closest_triangle;
+using grt::FULL_WARP;
 using grt::GEO_ROWS;
 using grt::halton;
 using grt::occluded;
-using grt::occluded_grouped;
+using grt::occluded_grouped_warp;
 using grt::SPH_ROWS;
 using grt::sphere_roots;
+using grt::SUPER;
 
 constexpr int OCC_BIT = 1 << 20;
 constexpr float BIG = 1e30f;
@@ -96,6 +127,15 @@ constexpr float RAY_TMIN = 1e-3f;
 constexpr float RAY_TMAX = 1e3f;
 constexpr int ATTR_ROWS = 13;   // normal, diffuse, emissive, is_emissive, sphere center
 constexpr int BLOCK_THREADS = 128;
+constexpr int STATIC_MIN_BLOCKS = 9;    // the static tier's blocks per SM: 56 registers
+constexpr int GROUPED_THREADS = 384;    // the grouped tier's persistent blocks
+constexpr int GROUPED_WARPS = GROUPED_THREADS / 32;
+// The grouped tier's blocks per SM: 2 (80 registers) for the narrow sweep, 3
+// (56) for the wide one.
+constexpr int GROUPED_MIN_BLOCKS = 2;
+constexpr int GROUPED_MIN_BLOCKS_WIDE = 3;
+constexpr size_t STATIC_SMEM_BYTES = 48 * 1024;  // the static tier stages at most this
+constexpr size_t MAX_SMEM_BYTES = 227 * 1024;    // one block's most on sm_90
 
 __global__ void __launch_bounds__(BLOCK_THREADS)
 draws_kernel(const int32_t* __restrict__ offsets, int n, int spp, int bounces,
@@ -143,54 +183,40 @@ struct PathParams {
   const float* jy;
   float* hdr;                 // [3, n_local]
   int32_t* records;           // [spp, bounces, n_local] (EMIT only)
+  int* tiles_taken;           // grouped: the tile counter, 0 at launch
   int n_local, rid_base, width, height, spp, bounces;
   int num_tris, num_spheres, n_shadow, strat_k;
   int n_super, n_shadow_super;  // grouped: supers of the two sweeps
   float inv_k, half_extent;
 };
 
+// The scene as trace_pixel reads it.  Static tier: [T][12] geometry,
+// [n_shadow][12] occluders, [S][4] spheres and [T + S][13] attributes, all in
+// shared memory.  Grouped tier: the spheres and the four box tables in shared
+// memory, the geometry and the attributes in global memory.
+struct Tables {
+  const float* geo;
+  const float* shadow;
+  const float* sph;
+  const float* attr;
+  const float4* aabb;
+  const float4* sup;
+  const float4* saabb;
+  const float4* ssup;
+};
+
 __device__ __forceinline__ float clamp01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
 }
 
-template <bool EMIT, bool READ_DRAWS, bool GROUPED>
-__global__ void __launch_bounds__(BLOCK_THREADS) path_kernel(const PathParams p) {
-  extern __shared__ float4 smem4[];
+// One pixel's spp x bounces paths; pixel i of the range, whose outputs are
+// written only where in_range (the grouped tier's last tile runs lanes past
+// the range on pixel n_local - 1, which take part in the votes).
+template <bool EMIT, bool READ_DRAWS, bool GROUPED, bool WIDE>
+__device__ __forceinline__ void trace_pixel(const PathParams& p, const Tables& sc, int i,
+                                            bool in_range) {
   const int T = p.num_tris;
   const int S = p.num_spheres;
-  const int P = T + S;
-  // Static tier: [T][12] geometry, [n_shadow][12] occluders, [S][4] spheres,
-  // [T + S][13] attributes.  Grouped tier: the spheres alone.
-  float* s_geo = reinterpret_cast<float*>(smem4);
-  float* s_shadow = s_geo + (GROUPED ? 0 : GEO_ROWS * T);
-  float* s_sph = s_shadow + (GROUPED ? 0 : GEO_ROWS * p.n_shadow);
-  float* s_attr = s_sph + SPH_ROWS * S;
-
-  if (!GROUPED) {
-    for (int k = threadIdx.x; k < GEO_ROWS * T; k += blockDim.x) {
-      const int t = k / GEO_ROWS, r = k - t * GEO_ROWS;
-      s_geo[k] = p.tri[r * T + t];
-    }
-    for (int k = threadIdx.x; k < GEO_ROWS * p.n_shadow; k += blockDim.x) {
-      const int j = k / GEO_ROWS, r = k - j * GEO_ROWS;
-      s_shadow[k] = p.tri[r * T + p.shadow_idx[j]];
-    }
-  }
-  for (int k = threadIdx.x; k < SPH_ROWS * S; k += blockDim.x) {
-    const int s = k / SPH_ROWS, r = k - s * SPH_ROWS;
-    s_sph[k] = p.sph[r * S + s];
-  }
-  if (!GROUPED) {
-    for (int k = threadIdx.x; k < ATTR_ROWS * P; k += blockDim.x) {
-      const int q = k / ATTR_ROWS, r = k - q * ATTR_ROWS;
-      s_attr[k] = p.atab[r * P + q];
-    }
-  }
-  __syncthreads();
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n_local) return;
-
   const int W = p.width, H = p.height;
   const int n_local = p.n_local;
   const int rid = p.rid_base + i;             // global pixel id
@@ -237,21 +263,27 @@ __global__ void __launch_bounds__(BLOCK_THREADS) path_kernel(const PathParams p)
     float col_r = 1.0f, col_g = 1.0f, col_b = 1.0f;
     float a_r = 0.0f, a_g = 0.0f, a_b = 0.0f;
     bool alive = in_image;
+    // Whether the lane traces this bounce: with EMIT every lane in range; in
+    // hdr mode until its path leaves the surfaces.
+    bool running = in_range;
 
     for (int bounce = 0; bounce < p.bounces; ++bounce) {
       // ---- closest hit: triangles in index order with strict <, then spheres
       float t_best = BIG;
       int prim = -1;
-      if (GROUPED) {
-        closest_grouped(p.geo, p.aabb, p.sup, p.n_super, T, ox, oy, oz, dx, dy, dz,
-                        RAY_TMIN, RAY_TMAX, &t_best, &prim);
+      if constexpr (!GROUPED) {
+        closest_triangle(sc.geo, T, ox, oy, oz, dx, dy, dz, RAY_TMIN, RAY_TMAX, &t_best,
+                         &prim);
+      } else if constexpr (WIDE) {
+        closest_grouped_wide(p.geo, sc.aabb, sc.sup, p.n_super, T, running, ox, oy, oz,
+                             dx, dy, dz, RAY_TMIN, RAY_TMAX, &t_best, &prim);
       } else {
-        closest_triangle(s_geo, T, ox, oy, oz, dx, dy, dz, RAY_TMIN, RAY_TMAX,
-                         &t_best, &prim);
+        closest_grouped_warp(p.geo, sc.aabb, sc.sup, p.n_super, T, running, ox, oy, oz,
+                             dx, dy, dz, RAY_TMIN, RAY_TMAX, &t_best, &prim);
       }
       for (int k = 0; k < S; ++k) {
         float t1, t2;
-        const bool pos = sphere_roots(s_sph + SPH_ROWS * k, ox, oy, oz, dx, dy, dz,
+        const bool pos = sphere_roots(sc.sph + SPH_ROWS * k, ox, oy, oz, dx, dy, dz,
                                       &t1, &t2);
         const bool t1_ok = (t1 > RAY_TMIN) && (t1 < RAY_TMAX);
         const bool t2_ok = (t2 > RAY_TMIN) && (t2 < RAY_TMAX);
@@ -262,7 +294,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS) path_kernel(const PathParams p)
 
       // ---- attributes of the winner by index (a miss reads primitive 0;
       // every use below is gated by hit-derived masks)
-      const float* at = (GROUPED ? p.atab : s_attr) + ATTR_ROWS * (prim < 0 ? 0 : prim);
+      const float* at = sc.attr + ATTR_ROWS * (prim < 0 ? 0 : prim);
       float nhx = at[0], nhy = at[1], nhz = at[2];
       const float dfr = at[3], dfg = at[4], dfb = at[5];
       const bool is_em = at[9] > 0.5f;
@@ -282,7 +314,14 @@ __global__ void __launch_bounds__(BLOCK_THREADS) path_kernel(const PathParams p)
       // (raytrace.metal:57-60).
       if (active && is_em) { a_r = at[6]; a_g = at[7]; a_b = at[8]; }
       const bool surf = active && !is_em;
-      if (!EMIT && !surf) break;  // nothing later can change the sums
+      if (!EMIT) {  // nothing later can change the sums of a lane off a surface
+        running = running && surf;
+        if constexpr (GROUPED) {
+          if (__ballot_sync(FULL_WARP, running) == 0u) break;
+        } else if (!running) {
+          break;
+        }
+      }
 
       const float t_safe = surf ? t_best : 0.0f;
       const float hx = ox + dx * t_safe + nhx * 1e-3f;
@@ -317,21 +356,29 @@ __global__ void __launch_bounds__(BLOCK_THREADS) path_kernel(const PathParams p)
 
       if (surf) { col_r *= dfr; col_g *= dfg; col_b *= dfb; }
 
-      // ---- shadow probe: any hit in (0, ldist - 1e-3) over the occluder list
+      // ---- shadow probe: any hit in (0, ldist - 1e-3) over the occluder
+      // list, triangles (to the first occluder) then spheres
       bool occ;
-      if (GROUPED) {
-        // The culled triangles by the sweep, then the spheres (no triangle).
-        occ = occluded_grouped(p.sgeo, p.saabb, p.ssup, p.n_shadow_super, p.n_shadow,
-                               hx, hy, hz, ldx, ldy, ldz, 0.0f, ldist - 1e-3f)
-              || occluded(s_shadow, 0, s_sph, S, hx, hy, hz, ldx, ldy, ldz,
-                          ldist - 1e-3f);
+      if constexpr (GROUPED) {
+        occ = occluded_grouped_warp(p.sgeo, sc.saabb, sc.ssup, p.n_shadow_super,
+                                    p.n_shadow, running, hx, hy, hz, ldx, ldy, ldz, 0.0f,
+                                    ldist - 1e-3f);
       } else {
-        occ = occluded(s_shadow, p.n_shadow, s_sph, S, hx, hy, hz, ldx, ldy, ldz,
-                       ldist - 1e-3f);
+        occ = any_triangle_filtered(sc.shadow, p.n_shadow, hx, hy, hz, ldx, ldy, ldz, 0.0f,
+                                    ldist - 1e-3f);
       }
-      if (EMIT) {
+      occ = occ || occluded(sc.shadow, 0, sc.sph, S, hx, hy, hz, ldx, ldy, ldz,
+                            ldist - 1e-3f);
+      if (EMIT && in_range) {
         p.records[((size_t)n * p.bounces + bounce) * n_local + i] =
             (prim + 1) + (occ ? OCC_BIT : 0);
+      }
+      if (!running) {
+        // The grouped tier's lanes that trace nothing: in hdr mode the path
+        // has ended, so a sphere the unchanged ray meets on a later bounce
+        // (which the sphere loop still tests) must not count as a hit.
+        alive = false;
+        continue;
       }
       const float w_c = (surf && !occ) ? gain : 0.0f;
       a_r = a_r + lr * w_c * col_r;
@@ -369,10 +416,139 @@ __global__ void __launch_bounds__(BLOCK_THREADS) path_kernel(const PathParams p)
     acc_b += a_b;
   }
 
-  const float inv_spp = (float)(1.0 / (double)p.spp);
-  p.hdr[i] = acc_r * inv_spp;
-  p.hdr[(size_t)n_local + i] = acc_g * inv_spp;
-  p.hdr[2 * (size_t)n_local + i] = acc_b * inv_spp;
+  if (in_range) {
+    const float inv_spp = (float)(1.0 / (double)p.spp);
+    p.hdr[i] = acc_r * inv_spp;
+    p.hdr[(size_t)n_local + i] = acc_g * inv_spp;
+    p.hdr[2 * (size_t)n_local + i] = acc_b * inv_spp;
+  }
+}
+
+// The static tier (K2): one thread per pixel, blocks of BLOCK_THREADS, at
+// least STATIC_MIN_BLOCKS of them per SM, the scene tables staged per block.
+template <bool EMIT, bool READ_DRAWS>
+__global__ void __launch_bounds__(BLOCK_THREADS, STATIC_MIN_BLOCKS)
+    path_kernel(const PathParams p) {
+  extern __shared__ float4 smem4[];
+  const int T = p.num_tris;
+  const int S = p.num_spheres;
+  const int P = T + S;
+  float* s_geo = reinterpret_cast<float*>(smem4);  // [T][12]
+  float* s_shadow = s_geo + GEO_ROWS * T;          // [n_shadow][12]
+  float* s_sph = s_shadow + GEO_ROWS * p.n_shadow;  // [S][4]
+  float* s_attr = s_sph + SPH_ROWS * S;            // [T + S][13]
+  for (int k = threadIdx.x; k < GEO_ROWS * T; k += blockDim.x) {
+    const int t = k / GEO_ROWS, r = k - t * GEO_ROWS;
+    s_geo[k] = p.tri[r * T + t];
+  }
+  for (int k = threadIdx.x; k < GEO_ROWS * p.n_shadow; k += blockDim.x) {
+    const int j = k / GEO_ROWS, r = k - j * GEO_ROWS;
+    s_shadow[k] = p.tri[r * T + p.shadow_idx[j]];
+  }
+  for (int k = threadIdx.x; k < SPH_ROWS * S; k += blockDim.x) {
+    const int s = k / SPH_ROWS, r = k - s * SPH_ROWS;
+    s_sph[k] = p.sph[r * S + s];
+  }
+  for (int k = threadIdx.x; k < ATTR_ROWS * P; k += blockDim.x) {
+    const int q = k / ATTR_ROWS, r = k - q * ATTR_ROWS;
+    s_attr[k] = p.atab[r * P + q];
+  }
+  __syncthreads();
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.n_local) return;
+  Tables sc{};
+  sc.geo = s_geo; sc.shadow = s_shadow; sc.sph = s_sph; sc.attr = s_attr;
+  trace_pixel<EMIT, READ_DRAWS, false, false>(p, sc, i, true);
+}
+
+// The grouped tier (K2g): a persistent grid of GROUPED_THREADS-thread blocks
+// whose warps take 32-pixel tiles from a counter (*tiles_taken, 0 at launch)
+// until the range is done.  WIDE: the closest-hit sweep for more than
+// WIDE_SUPERS supers.
+template <bool EMIT, bool READ_DRAWS, bool WIDE>
+__global__ void __launch_bounds__(GROUPED_THREADS,
+                                  WIDE ? GROUPED_MIN_BLOCKS_WIDE : GROUPED_MIN_BLOCKS)
+    path_grouped_kernel(const PathParams p) {
+  extern __shared__ float4 smem4[];
+  const int S = p.num_spheres;
+  float* s_sph = reinterpret_cast<float*>(smem4);  // [S][4]
+  for (int k = threadIdx.x; k < SPH_ROWS * S; k += blockDim.x) {
+    const int s = k / SPH_ROWS, r = k - s * SPH_ROWS;
+    s_sph[k] = p.sph[r * S + s];
+  }
+  // [2 n_super] supers, [16 n_super] groups, the same for the shadow sweep
+  // (box rows are two float4).
+  float4* s_sup = reinterpret_cast<float4*>(s_sph + SPH_ROWS * S);
+  float4* s_aabb = s_sup + 2 * p.n_super;
+  float4* s_ssup = s_aabb + 2 * SUPER * p.n_super;
+  float4* s_saabb = s_ssup + 2 * p.n_shadow_super;
+  for (int k = threadIdx.x; k < 2 * p.n_super; k += blockDim.x) {
+    grt::cp_async16(s_sup + k, p.sup + k);
+  }
+  for (int k = threadIdx.x; k < 2 * SUPER * p.n_super; k += blockDim.x) {
+    grt::cp_async16(s_aabb + k, p.aabb + k);
+  }
+  for (int k = threadIdx.x; k < 2 * p.n_shadow_super; k += blockDim.x) {
+    grt::cp_async16(s_ssup + k, p.ssup + k);
+  }
+  for (int k = threadIdx.x; k < 2 * SUPER * p.n_shadow_super; k += blockDim.x) {
+    grt::cp_async16(s_saabb + k, p.saabb + k);
+  }
+  grt::cp_async_wait_all();
+  __syncthreads();
+
+  Tables sc{};
+  sc.sph = s_sph; sc.attr = p.atab;
+  sc.aabb = s_aabb; sc.sup = s_sup; sc.saabb = s_saabb; sc.ssup = s_ssup;
+  const int lane = threadIdx.x & 31;
+  const int tiles = (p.n_local + 31) / 32;
+  for (;;) {
+    int tile = 0;
+    if (lane == 0) tile = atomicAdd(p.tiles_taken, 1);
+    tile = __shfl_sync(FULL_WARP, tile, 0);
+    if (tile >= tiles) break;
+    const int i = tile * 32 + lane;
+    const bool in_range = i < p.n_local;
+    trace_pixel<EMIT, READ_DRAWS, true, WIDE>(p, sc, in_range ? i : p.n_local - 1,
+                                              in_range);
+  }
+}
+
+// Shared memory of the static tier: the triangles, the shadow list, the
+// spheres and the attributes (floats).
+size_t static_smem(int num_tris, int n_shadow, int num_spheres) {
+  return sizeof(float) * ((size_t)GEO_ROWS * (num_tris + n_shadow)
+                          + (size_t)SPH_ROWS * num_spheres
+                          + (size_t)ATTR_ROWS * (num_tris + num_spheres));
+}
+
+// Shared memory of the grouped tier: the spheres (floats) and the four box
+// tables (float4).
+size_t grouped_smem(int num_spheres, int n_super, int n_shadow_super) {
+  return sizeof(float) * (size_t)SPH_ROWS * num_spheres
+         + sizeof(float4) * 2 * (1 + SUPER) * ((size_t)n_super + n_shadow_super);
+}
+
+using PathKernel = void (*)(const PathParams);
+
+// The kernel of a tier and mode: path_kernel<EMIT, READ_DRAWS> (static) or
+// path_grouped_kernel<EMIT, READ_DRAWS, WIDE>.
+template <bool GROUPED, bool WIDE>
+PathKernel kernel_of(bool emit, bool read_draws) {
+  if constexpr (GROUPED) {
+    if (read_draws) return path_grouped_kernel<true, true, WIDE>;
+    return emit ? path_grouped_kernel<true, false, WIDE> : path_grouped_kernel<false, false, WIDE>;
+  } else {
+    if (read_draws) return path_kernel<true, true>;
+    return emit ? path_kernel<true, false> : path_kernel<false, false>;
+  }
+}
+
+PathKernel kernel_for(bool grouped, bool wide, bool emit, bool read_draws) {
+  if (!grouped) return kernel_of<false, false>(emit, read_draws);
+  return wide ? kernel_of<true, true>(emit, read_draws)
+              : kernel_of<true, false>(emit, read_draws);
 }
 
 }  // namespace
@@ -391,9 +567,36 @@ int grt_pregen_draws(const int32_t* offsets, int n, int spp, int bounces,
   return (int)cudaGetLastError();
 }
 
-// Launches path_kernel on `stream`; returns cudaGetLastError() as an int.
-// grouped != 0 takes the grouped tier: geo, aabb, sup, sgeo, saabb, ssup
-// and the two super counts are read, tri and shadow_idx are not, and atab is
+// Shared memory bytes of the static tier (ops/cuda_path.static_smem_bytes
+// mirrors it).
+int grt_path_static_smem(int num_tris, int n_shadow, int num_spheres) {
+  return (int)static_smem(num_tris, n_shadow, num_spheres);
+}
+
+// Shared memory bytes of the grouped tier (ops/cuda_path.grouped_smem_bytes
+// mirrors it).
+int grt_path_grouped_smem(int num_spheres, int n_super, int n_shadow_super) {
+  return (int)grouped_smem(num_spheres, n_super, n_shadow_super);
+}
+
+// Blocks of a tier's kernel in a mode that one SM of the current device holds
+// at this shape (grouped != 0: the grouped tier, its WIDE instantiation above
+// WIDE_SUPERS supers); 0 where the query fails.
+int grt_path_blocks_per_sm(int grouped, int emit_records, int read_draws, int num_tris,
+                           int n_shadow, int num_spheres, int n_super, int n_shadow_super) {
+  if (grouped) {
+    return grt::blocks_per_sm(
+        kernel_for(true, n_super > grt::WIDE_SUPERS, emit_records, read_draws),
+        GROUPED_THREADS, grouped_smem(num_spheres, n_super, n_shadow_super));
+  }
+  return grt::blocks_per_sm(kernel_for(false, false, emit_records, read_draws),
+                            BLOCK_THREADS, static_smem(num_tris, n_shadow, num_spheres));
+}
+
+// Launches path_kernel (static tier) or path_grouped_kernel on `stream`;
+// returns cudaGetLastError() as an int. grouped != 0 takes the grouped tier:
+// geo, aabb, sup, sgeo, saabb, ssup, the two super counts and tiles_taken (one
+// int32 that is 0) are read, tri and shadow_idx are not, and atab is
 // [T + S][13].
 int grt_path_trace(const int32_t* offsets, const float* cam, const float* light,
                    const float* tri, const float* sph, const float* atab,
@@ -402,8 +605,8 @@ int grt_path_trace(const int32_t* offsets, const float* cam, const float* light,
                    const float* jx, const float* jy, float* hdr,
                    int32_t* records, const float* geo, const float* aabb,
                    const float* sup, const float* sgeo, const float* saabb,
-                   const float* ssup, int n_local, int rid_base, int width,
-                   int height, int spp, int bounces, int num_tris,
+                   const float* ssup, int32_t* tiles_taken, int n_local, int rid_base,
+                   int width, int height, int spp, int bounces, int num_tris,
                    int num_spheres, int n_shadow, int strat_k, int n_super,
                    int n_shadow_super, float inv_k, float half_extent,
                    int emit_records, int read_draws, int grouped, void* stream) {
@@ -416,6 +619,7 @@ int grt_path_trace(const int32_t* offsets, const float* cam, const float* light,
   p.sgeo = reinterpret_cast<const float4*>(sgeo);
   p.saabb = reinterpret_cast<const float4*>(saabb);
   p.ssup = reinterpret_cast<const float4*>(ssup);
+  p.tiles_taken = tiles_taken;
   p.n_super = n_super; p.n_shadow_super = n_shadow_super;
   p.nee0 = nee0; p.nee1 = nee1; p.cos0 = cos0; p.cos1 = cos1; p.jx = jx; p.jy = jy;
   p.hdr = hdr; p.records = records;
@@ -425,29 +629,35 @@ int grt_path_trace(const int32_t* offsets, const float* cam, const float* light,
   p.inv_k = inv_k; p.half_extent = half_extent;
 
   if (n_local <= 0 || (read_draws && !emit_records)) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      grouped ? sizeof(float) * (size_t)SPH_ROWS * num_spheres
-              : sizeof(float) * ((size_t)GEO_ROWS * (num_tris + n_shadow)
-                                 + (size_t)SPH_ROWS * num_spheres
-                                 + (size_t)ATTR_ROWS * (num_tris + num_spheres));
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const int grid = (n_local + BLOCK_THREADS - 1) / BLOCK_THREADS;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (grouped) {
-    if (emit_records && read_draws) {
-      path_kernel<true, true, true><<<grid, BLOCK_THREADS, smem, st>>>(p);
-    } else if (emit_records) {
-      path_kernel<true, false, true><<<grid, BLOCK_THREADS, smem, st>>>(p);
-    } else {
-      path_kernel<false, false, true><<<grid, BLOCK_THREADS, smem, st>>>(p);
-    }
-  } else if (emit_records && read_draws) {
-    path_kernel<true, true, false><<<grid, BLOCK_THREADS, smem, st>>>(p);
-  } else if (emit_records) {
-    path_kernel<true, false, false><<<grid, BLOCK_THREADS, smem, st>>>(p);
-  } else {
-    path_kernel<false, false, false><<<grid, BLOCK_THREADS, smem, st>>>(p);
+  if (grouped && (geo == nullptr || aabb == nullptr || sup == nullptr || sgeo == nullptr
+                  || saabb == nullptr || ssup == nullptr || tiles_taken == nullptr
+                  || n_super <= 0 || n_shadow_super <= 0)) {
+    return (int)cudaErrorInvalidValue;
   }
+  const size_t smem = grouped ? grouped_smem(num_spheres, n_super, n_shadow_super)
+                              : static_smem(num_tris, n_shadow, num_spheres);
+  if (smem > (grouped ? MAX_SMEM_BYTES : STATIC_SMEM_BYTES)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const PathKernel kernel =
+      kernel_for(grouped, n_super > grt::WIDE_SUPERS, emit_records, read_draws);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!grouped) {
+    kernel<<<(n_local + BLOCK_THREADS - 1) / BLOCK_THREADS, BLOCK_THREADS, smem, st>>>(p);
+    return (int)cudaGetLastError();
+  }
+  // The grouped tier's grid: the blocks the card holds at once (allow_smem
+  // inside the query opts in above 48 KiB), at most one per GROUPED_WARPS
+  // 32-pixel tiles.
+  int dev = 0, sms = 0;
+  const int per_sm = grt::blocks_per_sm(kernel, GROUPED_THREADS, smem);
+  if (per_sm <= 0 || cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  const int wanted = ((n_local + 31) / 32 + GROUPED_WARPS - 1) / GROUPED_WARPS;
+  const int grid = sms * per_sm < wanted ? sms * per_sm : wanted;
+  kernel<<<grid, GROUPED_THREADS, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,12 @@
 // Ray-primitive tests shared by the port's trace kernels (sm_90a):
-// path_kernel (path_kernels.cu), mis_kernel and mis_grouped_kernel
-// (mis_kernels.cu) and silh_kernel (soft_kernels.cu); the prefiltered loops
-// (closest_triangle_filtered, any_triangle_filtered) serve mis_kernel, the
-// grouped sweep (closest_grouped, occluded_grouped) path_kernel's grouped
-// tier, its warp-cooperative form (closest_grouped_warp,
-// occluded_grouped_warp) mis_grouped_kernel.
+// path_kernel and path_grouped_kernel (path_kernels.cu), mis_kernel and
+// mis_grouped_kernel (mis_kernels.cu) and silh_kernel (soft_kernels.cu); the
+// prefiltered loops serve the static tiers (closest_triangle_filtered
+// mis_kernel, any_triangle_filtered mis_kernel and path_kernel's shadow
+// probe), the grouped sweep's warp-cooperative form (closest_grouped_warp,
+// closest_grouped_wide, occluded_grouped_warp) the grouped tiers; the
+// per-lane grouped sweep (closest_grouped, occluded_grouped) is their
+// reference, and chip_smoke.py --split times path_grouped_kernel on it.
 //
 // One definition, in the operation order of the plain versions
 // (intersect.triangle_candidates / sphere_candidates), so that the kernels
@@ -78,8 +80,8 @@ __device__ __forceinline__ void closest_triangle(const float* s_geo, int T, floa
 }
 
 // ---------------------------------------------------------------------------
-// The same tests with exact prefilters before the divide (mis_kernel, the
-// static tier)
+// The same tests with exact prefilters before the divide (mis_kernel,
+// path_kernel's shadow probe)
 // ---------------------------------------------------------------------------
 // A test passes only where |den| >= 1e-12 and tt = num / den lies in
 // (t_min, t_far): t_far is t_max for a probe, and for a closest hit the nearer
@@ -87,23 +89,30 @@ __device__ __forceinline__ void closest_triangle(const float* s_geo, int T, floa
 // necessary for that, and the loops below take the divide, the barycentrics
 // and the interval test only where both hold; where they hold, they run
 // triangle_plane's and triangle_inside's arithmetic in the same order.  So
-// the decisions are the same bits.  They take t_min >= 1e-3 (the MIS kernel's
-// RAY_TMIN), closest_triangle_filtered also t_max >= 1e-3, so that every
-// bound is at least 1e-3.
+// the decisions are the same bits.  Each loop states what it needs of t_min
+// and t_max: every closest-hit loop t_min >= 1e-3 and t_max >= 1e-3 (the
+// kernels' RAY_TMIN and RAY_TMAX = 1e3: every bound it tests against is then
+// at least 1e-3, since a hit so far lies above t_min); every any-hit loop
+// t_min >= 0 (the path tracer's shadow probe takes 0, the MIS light probe
+// RAY_TMIN) and any t_max, zero, negative or below 1e-3 included.
 //
 // plane_ahead: the IEEE quotient is NaN where num or den is NaN, +-0 where num
 // is +-0 and den is not, and otherwise carries the sign of num xor that of
-// den (subnormals included).  A quotient above t_min >= 0 is positive, so
-// num is nonzero, not NaN and of den's sign, and |den| >= 1e-12 leaves den
-// nonzero and not NaN.
+// den (subnormals included).  A test passes only where tt > t_min >= 0, so
+// tt is positive: num is nonzero, not NaN and of den's sign, and |den| >=
+// 1e-12 leaves den nonzero and not NaN.  That needs only t_min >= 0.
 //
-// plane_within: with a = |num|, b = |den| and a bound t >= 1e-3 (a probe's
-// t_max may be smaller: it takes max(t_max, 1e-3), which only filters less),
-// p = b t rounded is at least b t (1 - 2^-24) (b t >= 1e-15 cannot underflow;
-// where it overflows, p is inf and the condition holds), and m = p (1 +
-// 2^-22) rounded is at least b t (1 - 2^-24)^2 (1 + 2^-22) > b t.  Where
-// a >= m, a / b > t, so tt, the quotient rounded, is at least t (t is a
-// float): tt < t fails, and with it the test.
+// plane_within: with a = |num|, b = |den| and a bound t >= 1e-3, p = b t
+// rounded is at least b t (1 - 2^-24) (b t >= 1e-15 cannot underflow; where
+// it overflows, p is inf and the condition holds), and m = p (1 + 2^-22)
+// rounded is at least b t (1 - 2^-24)^2 (1 + 2^-22) > b t.  Where a >= m,
+// a / b > t, so tt, the quotient rounded, is at least t (t is a float):
+// tt < t fails, and with it the test.  An any-hit loop bounds the prefilter
+// by t = max(t_max, 1e-3): where t_max >= 1e-3 that is t_max; where t_max is
+// smaller (a probe toward a light sample nearer than 1e-3 has t_max <= 0), a
+// test that passes has tt < t_max < t, which the condition at t keeps: the
+// larger bound only filters less, and the interval test still rejects what
+// t_max rejects (where t_max <= 0, every test).
 constexpr float WITHIN_MARGIN = 1.0f + 0x1p-22f;
 
 __device__ __forceinline__ bool plane_ahead(float den, float num) {
@@ -127,7 +136,8 @@ __device__ __forceinline__ void plane_hit(float4 p1, float4 p2, float ox, float 
        - p2.w;
 }
 
-// closest_triangle with the prefilters: the same winner and t_best.
+// closest_triangle with the prefilters: the same winner and t_best.  Needs
+// t_min >= 1e-3, t_max >= 1e-3 and *t_best >= 1e-3 on entry.
 __device__ __forceinline__ void closest_triangle_filtered(const float* s_geo, int T,
                                                           float ox, float oy, float oz,
                                                           float dx, float dy, float dz,
@@ -151,7 +161,7 @@ __device__ __forceinline__ void closest_triangle_filtered(const float* s_geo, in
 }
 
 // Whether any of n staged triangles is hit in (t_min, t_max), with the
-// prefilters; stops at the first hit.
+// prefilters; stops at the first hit.  Needs t_min >= 0, takes any t_max.
 __device__ __forceinline__ bool any_triangle_filtered(const float* s_tri, int n, float ox,
                                                       float oy, float oz, float dx,
                                                       float dy, float dz, float t_min,
@@ -298,7 +308,7 @@ __device__ __forceinline__ bool occluded_grouped(
 }
 
 // ---------------------------------------------------------------------------
-// The warp-cooperative grouped sweep (mis_grouped_kernel)
+// The warp-cooperative grouped sweep (mis_grouped_kernel, path_grouped_kernel)
 // ---------------------------------------------------------------------------
 // The same decisions as closest_grouped / occluded_grouped, lane by lane, with
 // the box tables in shared memory.  Per super, in index order: each lane tests
@@ -314,7 +324,9 @@ __device__ __forceinline__ bool occluded_grouped(
 // decide, its triangle tests, their order and their arithmetic are those of
 // closest_grouped.  Every lane of the warp calls these functions at the same
 // point of its program (the votes take the full mask); a lane with `live`
-// false takes part in the votes and tests nothing.
+// false takes part in the votes and tests nothing.  The group loops test
+// every triangle to its divide: with the prefilters above they were slower,
+// since the lanes of a warp walk different groups (PERF.md).
 
 constexpr unsigned FULL_WARP = 0xffffffffu;
 

@@ -46,8 +46,9 @@ from ..utils.host import resolve_device
 from . import _build
 from .cuda_path import (SUPER, GroupedTables, _pack_grouped,
                         _raise_on_launch_error, _require, camera_vector,
-                        closest_grouped, grouped_launch_tables, grouped_tier,
-                        occluded_grouped, shadow_indices)
+                        closest_bounds, closest_grouped, grouped_launch_tables,
+                        grouped_tier, occluded_grouped, prefilter_passes,
+                        shadow_indices)
 
 # Rows of the packed tables (the JAX package's layout).
 NROWS = 21   # tri: n xyz, c0, s1 xyz, c1, s2 xyz, c2, diffuse rgb, is_em, emissive rgb, metallic, roughness
@@ -80,8 +81,8 @@ _SMEM_LIMIT = 227 * 1024
 # The grouped tier (K4g) runs one persistent block of 384 threads per SM. A
 # block stages the sample table, the spheres and the box tables of both
 # sweeps (32 B a box: a super and its SUPER groups). Above WIDE_SUPERS
-# supers its closest-hit sweep takes its wide form (trace.cuh).
-WIDE_SUPERS = 32
+# (``cuda_path``) supers its closest-hit sweep takes its wide form
+# (trace.cuh).
 # Sample steps (pixels x camera rays x samples per strategy) whose autograd
 # graph the oracle backward of ``render_mis_cuda`` holds at a time: about
 # 4 KB each at 36 triangles (``chip_smoke.py`` prints it), so some 9 GB.
@@ -367,13 +368,10 @@ def _plain_chunk(n_local, rid_base, packed, shadow_idx, config, emit_records,
     def count_prefilter(key, rows, ox, oy, oz, dx, dy, dz, t_far, lanes):
         """Adds to stats[key] the triangle tests of the lanes ``lanes`` (all
         where None) and those that pass both prefilters, each test bounded
-        by ``t_far`` [n, T]; den and num in trace.cuh's order."""
-        nrm, c0 = rows[0], rows[1]
-        den = (dx[:, None] * nrm[:, 0] + dy[:, None] * nrm[:, 1]
-               + dz[:, None] * nrm[:, 2])
-        num = c0 - (ox[:, None] * nrm[:, 0] + oy[:, None] * nrm[:, 1]
-                    + oz[:, None] * nrm[:, 2])
-        passed = plane_ahead(den, num) & plane_within(den, num, t_far)
+        by ``t_far`` [n, T]."""
+        nrm = rows[0]
+        passed = prefilter_passes(rows, vec(ox, oy, oz), vec(dx, dy, dz),
+                                  t_far)
         if lanes is not None:
             passed = passed & lanes[:, None]
         n_lanes = len(ox) if lanes is None else int(lanes.sum())
@@ -388,12 +386,8 @@ def _plain_chunk(n_local, rid_base, packed, shadow_idx, config, emit_records,
                                                RAY_TMAX)
             if stats is not None:
                 # A test's bound: RAY_TMAX, or the nearest hit before it.
-                before = torch.cummin(torch.where(valid, t_all, _BIG),
-                                      dim=-1).values
-                t_far = torch.cat([torch.full_like(t_all[:, :1], RAY_TMAX),
-                                   before[:, :-1].clamp_max(RAY_TMAX)], dim=-1)
-                count_prefilter(key, geo_all, ox, oy, oz, dx, dy, dz, t_far,
-                                live)
+                count_prefilter(key, geo_all, ox, oy, oz, dx, dy, dz,
+                                closest_bounds(t_all, valid), live)
             if S:
                 t_s, valid_s = sphere_candidates(sph_center, sph_radius, o, d,
                                                  RAY_TMIN, RAY_TMAX)
@@ -606,30 +600,6 @@ def _plain_chunk(n_local, rid_base, packed, shadow_idx, config, emit_records,
 # ---------------------------------------------------------------------------
 # The kernel
 # ---------------------------------------------------------------------------
-
-# plane_within's margin, 1 + 2^-22 (``WITHIN_MARGIN`` in ``csrc/trace.cuh``).
-WITHIN_MARGIN = 1.0 + 2.0 ** -22
-
-
-def plane_ahead(den: torch.Tensor, num: torch.Tensor) -> torch.Tensor:
-    """K4's first prefilter (``csrc/trace.cuh:plane_ahead``), element-wise on
-    float32 tensors of a triangle test's plane denominator and numerator:
-    False only where the test cannot pass for any t_min >= 0 (|den| below
-    1e-12, num zero or NaN, or the signs of num and den differ)."""
-    return (den.abs() >= 1e-12) & torch.where(den > 0, num > 0, num < 0)
-
-
-def plane_within(den: torch.Tensor, num: torch.Tensor,
-                 t_far: torch.Tensor) -> torch.Tensor:
-    """K4's second prefilter (``csrc/trace.cuh:plane_within``), element-wise
-    on float32 tensors: False only where num / den, rounded, is at least
-    t_far (t_far >= 1e-3), so that a test bounded above by t_far fails.
-    Neither prefilter is on any path of the port: the kernel skips the
-    divide, the barycentrics and the interval test where either is False,
-    and the tests hold both against the exact test."""
-    margin = torch.tensor(WITHIN_MARGIN, dtype=torch.float32)
-    return num.abs() < (den.abs() * t_far) * margin
-
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int

@@ -11,10 +11,10 @@ limit) sweeps a two-level hierarchy of bounding boxes in triangle order:
     shadow table), as the JAX package packs them
 
   * ``pregen_draws``           the Halton draw planes (kernel ``draws_kernel``)
-  * ``render_path_cuda_impl``  the full spp x bounces trace (``path_kernel``)
-    in three modes: hdr only; ``emit_records`` (int32 decision records, draws
-    read from planes); ``records_only`` (records, draws regenerated in the
-    kernel).
+  * ``render_path_cuda_impl``  the full spp x bounces trace (``path_kernel``,
+    or ``path_grouped_kernel`` in the grouped tier) in three modes: hdr only;
+    ``emit_records`` (int32 decision records, draws read from planes);
+    ``records_only`` (records, draws regenerated in the kernel).
   * ``render_path_cuda``       the entry point, hdr only; differentiable: its
     backward re-traces with records and runs the backward kernel
     (``ops/cuda_shade.py``).
@@ -59,7 +59,18 @@ GROUP = 16
 SUPER = 8
 GROUP_AABB_PAD = 1e-3
 T_FAR_SLACK = 1e-3
-_SMEM_LIMIT = 48 * 1024  # bytes of shared memory the trace kernel may stage
+# Bytes of shared memory a block of the trace kernel may stage: the static
+# tier stays within the default 48 KiB, the grouped tier may take one block's
+# most on sm_90 (the launcher asks for what exceeds 48 KiB).
+_SMEM_LIMIT = 48 * 1024
+_GROUPED_SMEM_LIMIT = 227 * 1024
+# Above WIDE_SUPERS supers the grouped tiers' closest-hit sweep takes its wide
+# form (``csrc/trace.cuh``).
+WIDE_SUPERS = 32
+# K4's triangle tests and K2's shadow probe take the divide only where two
+# exact conditions hold (``plane_ahead``, ``plane_within``); plane_within's
+# margin is 1 + 2^-22 (``WITHIN_MARGIN`` in ``csrc/trace.cuh``).
+WITHIN_MARGIN = 1.0 + 2.0 ** -22
 
 # Rows of the packed tables (the JAX package's layout).
 NROWS = 19   # tri: n xyz, c0, s1 xyz, c1, s2 xyz, c2, diffuse rgb, is_em, emissive rgb
@@ -68,7 +79,8 @@ NATTR = 13   # atab: normal xyz, diffuse rgb, emissive rgb, is_em, sphere center
 
 # Kernel launches since the process started (or since a caller reset them):
 # each wrapper adds one where it launches its kernel and nowhere else.
-# The grouped tier (K2g) counts apart from the static tier.
+# The grouped tier (K2g, ``path_grouped_kernel``) counts apart from the
+# static tier.
 LAUNCHES = {"draws_kernel": 0, "path_kernel": 0, "path_kernel_grouped": 0}
 
 
@@ -313,8 +325,14 @@ def _library() -> ctypes.CDLL:
             [_PTR, _INT, _INT, _INT, _INT, _FLT] + [_PTR] * 6 + [_PTR])
         lib.grt_pregen_draws.restype = _INT
         lib.grt_path_trace.argtypes = (
-            [_PTR] * 21 + [_INT] * 12 + [_FLT, _FLT, _INT, _INT, _INT, _PTR])
+            [_PTR] * 22 + [_INT] * 12 + [_FLT, _FLT, _INT, _INT, _INT, _PTR])
         lib.grt_path_trace.restype = _INT
+        lib.grt_path_static_smem.argtypes = [_INT] * 3
+        lib.grt_path_static_smem.restype = _INT
+        lib.grt_path_grouped_smem.argtypes = [_INT] * 3
+        lib.grt_path_grouped_smem.restype = _INT
+        lib.grt_path_blocks_per_sm.argtypes = [_INT] * 8
+        lib.grt_path_blocks_per_sm.restype = _INT
     return lib
 
 
@@ -440,6 +458,59 @@ def _geo_rows(cols):
             cols[11])
 
 
+def plane_ahead(den: torch.Tensor, num: torch.Tensor) -> torch.Tensor:
+    """The static tiers' first prefilter (``csrc/trace.cuh:plane_ahead``),
+    element-wise on float32 tensors of a triangle test's plane denominator
+    and numerator: False only where the test cannot pass for any t_min >= 0
+    (|den| below 1e-12, num zero or NaN, or the signs of num and den
+    differ)."""
+    return (den.abs() >= 1e-12) & torch.where(den > 0, num > 0, num < 0)
+
+
+def plane_within(den: torch.Tensor, num: torch.Tensor,
+                 t_far: torch.Tensor) -> torch.Tensor:
+    """The static tiers' second prefilter (``csrc/trace.cuh:plane_within``),
+    element-wise on float32 tensors: False only where num / den, rounded, is
+    at least t_far (t_far >= 1e-3), so that a test bounded above by t_far
+    fails. Neither prefilter is on any path of the port: the kernels skip the
+    divide, the barycentrics and the interval test where either is False,
+    the plain versions count the tests that pass both (``stats=``), and the
+    tests hold both against the exact test."""
+    margin = torch.tensor(WITHIN_MARGIN, dtype=torch.float32)
+    return num.abs() < (den.abs() * t_far) * margin
+
+
+def plane_terms(rows, o, d):
+    """den and num [n, k] of rays o, d [n, 3] against the plane rows of
+    ``_geo_rows``, in trace.cuh's order."""
+    nrm, c0 = rows[0], rows[1]
+    den = (d[:, 0:1] * nrm[:, 0] + d[:, 1:2] * nrm[:, 1]
+           + d[:, 2:3] * nrm[:, 2])
+    num = c0 - (o[:, 0:1] * nrm[:, 0] + o[:, 1:2] * nrm[:, 1]
+                + o[:, 2:3] * nrm[:, 2])
+    return den, num
+
+
+def prefilter_passes(rows, o, d, t_far):
+    """[n, k]: the triangle tests of rays o, d that pass both prefilters,
+    each bounded by ``t_far`` (broadcast to [n, k])."""
+    den, num = plane_terms(rows, o, d)
+    return plane_ahead(den, num) & plane_within(den, num, t_far)
+
+
+def closest_bounds(t, valid, t_best=None):
+    """The bound each test of a closest-hit loop in index order runs
+    against: min(RAY_TMAX, the nearest hit before it, ``t_best`` [n] on
+    entry), from the loop's distances and hits [n, k]."""
+    before = torch.cummin(torch.where(valid, t, torch.full_like(t, _BIG)),
+                          dim=-1).values
+    prev = torch.cat([torch.full_like(t[:, :1], _BIG), before[:, :-1]],
+                     dim=-1)
+    if t_best is not None:
+        prev = torch.minimum(prev, t_best[:, None])
+    return prev.clamp_max(RAY_TMAX)
+
+
 def _count(stats, key, live, lanes, per_lane=1):
     """Add to ``stats[key]`` the live lanes among ``lanes``, and to
     ``stats[key + "_all"]`` all of them, each times ``per_lane`` (a number,
@@ -447,18 +518,23 @@ def _count(stats, key, live, lanes, per_lane=1):
     counts nothing."""
     if stats is not None:
         w = torch.as_tensor(per_lane, device=lanes.device).expand(lanes.shape)
-        stats[key] = stats.get(key, 0) + int((w * live[lanes]).sum())
-        stats[key + "_all"] = stats.get(key + "_all", 0) + int(w.sum())
+        live_sum, all_sum = torch.stack([(w * live[lanes]).sum(),
+                                         w.sum()]).tolist()
+        stats[key] = stats.get(key, 0) + int(live_sum)
+        stats[key + "_all"] = stats.get(key + "_all", 0) + int(all_sum)
 
 
-def closest_grouped(g: GroupedTables, o, d, live=None, stats=None):
+def closest_grouped(g: GroupedTables, o, d, live=None, stats=None,
+                    passes=False):
     """Closest triangle hit of each ray (o, d [n, 3]) by the grouped tier's
     sweep, the plain version of K2g's: per super, then per group of the
     super, the slab test against t_far = min(t_best (1 + T_FAR_SLACK) +
     T_FAR_SLACK, RAY_TMAX) with the current t_best; the group's triangles are
     tested only on the rays that reach it, in index order, strict < on t.
     Returns (t_best [n], prim [n] int64, -1 where no triangle is hit).
-    ``stats``: counts of box and triangle tests on the ``live`` rays."""
+    ``stats``: counts of box and triangle tests on the ``live`` rays, and
+    with ``passes`` of the triangle tests that pass both prefilters
+    ("passed", which the bound of K2g in ``chip_smoke.py`` reads)."""
     n = o.shape[0]
     dev = o.device
     t_best = torch.full((n,), _BIG, dtype=torch.float32, device=dev)
@@ -486,9 +562,14 @@ def closest_grouped(g: GroupedTables, o, d, live=None, stats=None):
             if not reach.numel() or top <= base:
                 continue
             _count(stats, "triangles", live, reach, top - base)
-            t, valid = triangle_candidates(
-                *_geo_rows(g.geo[:, base:top]), o[reach], d[reach], RAY_TMIN,
-                RAY_TMAX)
+            rows = _geo_rows(g.geo[:, base:top])
+            t, valid = triangle_candidates(*rows, o[reach], d[reach],
+                                           RAY_TMIN, RAY_TMAX)
+            if stats is not None and passes:
+                passed = prefilter_passes(rows, o[reach], d[reach],
+                                          closest_bounds(t, valid,
+                                                         t_best[reach]))
+                _count(stats, "passed", live, reach, passed.sum(dim=-1))
             t_grp, k_grp = torch.where(valid, t, torch.full_like(t, _BIG)
                                        ).min(dim=-1)  # first minimum
             closer = t_grp < t_best[reach]
@@ -499,12 +580,14 @@ def closest_grouped(g: GroupedTables, o, d, live=None, stats=None):
 
 
 def occluded_grouped(g: GroupedTables, h, ld, t_max, live=None, stats=None,
-                     t_min=0.0):
+                     t_min=0.0, passes=False):
     """Whether each shadow ray (h, ld [n, 3]) hits a triangle of the shadow
     table in (t_min, t_max): the grouped sweep with the segment's far limit
     t_max (1 + T_FAR_SLACK) + T_FAR_SLACK, a ray leaving the sweep at its
     first occluder. The plain version of K2g's shadow probe (t_min 0) and of
-    K4g's light probe (t_min RAY_TMIN)."""
+    K4g's light probe (t_min RAY_TMIN). ``stats`` and ``passes`` as
+    ``closest_grouped``'s, a test passing the prefilters against
+    max(t_max, 1e-3)."""
     n = h.shape[0]
     dev = h.device
     occ = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -529,15 +612,23 @@ def occluded_grouped(g: GroupedTables, h, ld, t_max, live=None, stats=None,
             base, top = gi * GROUP, min((gi + 1) * GROUP, g.num_shadow)
             if not reach.numel() or top <= base:
                 continue
-            _, blocked = triangle_candidates(
-                *_geo_rows(g.shadow_geo[:, base:top]), h[reach], ld[reach],
-                t_min, t_max[reach])
+            rows = _geo_rows(g.shadow_geo[:, base:top])
+            _, blocked = triangle_candidates(*rows, h[reach], ld[reach],
+                                             t_min, t_max[reach])
             hit = blocked.any(dim=-1)
             occ[reach] = hit
             # A lane leaves the group at its first occluder.
-            _count(stats, "triangles", live, reach,
-                   torch.where(hit, blocked.float().argmax(dim=-1) + 1,
-                               top - base))
+            tested = torch.where(hit, blocked.float().argmax(dim=-1) + 1,
+                                 top - base)
+            _count(stats, "triangles", live, reach, tested)
+            if stats is not None and passes:
+                passed = prefilter_passes(
+                    rows, h[reach], ld[reach],
+                    t_max[reach].clamp_min(1e-3)[:, None])
+                first = (torch.arange(top - base, device=dev)[None, :]
+                         < tested[:, None])
+                _count(stats, "passed", live, reach,
+                       (passed & first).sum(dim=-1))
     return occ
 
 
@@ -558,8 +649,15 @@ def render_path_plain(offsets: torch.Tensor, rid_base: int,
     every (sample, bounce, pixel). ``rid_base``: the first pixel's id, or
     the ids of all n pixels (an int64 tensor: a sample of pixels from
     anywhere in the frame). ``stats``: a dict that the grouped sweep adds its
-    rays, box tests and triangle tests to, under "closest" and "shadow" (live
-    lanes; with the suffix "_all", all lanes)."""
+    rays, box tests, triangle tests and the triangle tests that pass both
+    prefilters ("passed") to, under "closest" and "shadow" (live lanes: a
+    path that is alive, a probe from a shaded lane; with the suffix "_all",
+    all lanes, as the kernel runs them with records on). Without the grouped
+    tables it counts, under the same keys, the static tier's triangle tests
+    ("triangles") and those that pass both of its prefilters ("passed"), a
+    probe's only where it reaches the light (no triangle or sphere blocks
+    it): the loop that stops at its first occluder tests every occluder
+    there. The counts change no result."""
     def rid(s):
         return (rid_base + s if isinstance(rid_base, int)
                 else rid_base[s:s + config.pixel_chunk])
@@ -592,7 +690,7 @@ def _plain_chunk(offsets, rid_base, packed, shadow_idx, draws, config,
     if grp is None:
         geo_all = _geo_rows(tri)
         geo_shadow = _geo_rows(tri[:, shadow_idx.long()])
-    elif stats is not None:
+    if stats is not None:
         stats.setdefault("closest", {})
         stats.setdefault("shadow", {})
     sph_center = packed.sph[0:3].T[:S]
@@ -622,6 +720,7 @@ def _plain_chunk(offsets, rid_base, packed, shadow_idx, draws, config,
     def vec(x, y, z):
         return torch.stack([x, y, z], dim=-1)
 
+    every = torch.arange(n_local, device=dev)
     acc = [zero, zero, zero]
     records = []
     for n in range(config.spp):
@@ -645,6 +744,12 @@ def _plain_chunk(offsets, rid_base, packed, shadow_idx, draws, config,
             if grp is None:
                 t_all, valid = triangle_candidates(*geo_all, o, d, RAY_TMIN,
                                                    RAY_TMAX)
+                if stats is not None:
+                    passes = prefilter_passes(geo_all, o, d,
+                                              closest_bounds(t_all, valid))
+                    _count(stats["closest"], "triangles", alive, every, T)
+                    _count(stats["closest"], "passed", alive, every,
+                           passes.sum(dim=-1))
                 if S:
                     t_s, valid_s = sphere_candidates(
                         sph_center, sph_radius, o, d, RAY_TMIN, RAY_TMAX)
@@ -656,7 +761,7 @@ def _plain_chunk(offsets, rid_base, packed, shadow_idx, draws, config,
             else:
                 t_best, winner = closest_grouped(
                     grp, o, d, alive,
-                    None if stats is None else stats["closest"])
+                    None if stats is None else stats["closest"], passes=True)
                 if S:  # spheres after the triangles, strict <
                     t_s, valid_s = sphere_candidates(
                         sph_center, sph_radius, o, d, RAY_TMIN, RAY_TMAX)
@@ -723,11 +828,20 @@ def _plain_chunk(offsets, rid_base, packed, shadow_idx, draws, config,
             else:
                 occ = occluded_grouped(
                     grp, h, ld, t_max, surf,
-                    None if stats is None else stats["shadow"])
+                    None if stats is None else stats["shadow"], passes=True)
             if S:
                 _, blocked_s = sphere_candidates(sph_center, sph_radius, h, ld,
                                                  0.0, t_max)
                 occ = occ | blocked_s.any(dim=-1)
+            if grp is None and stats is not None:
+                reach = every[~occ]
+                t_far = t_max[reach].clamp_min(1e-3)[:, None]
+                passes = prefilter_passes(geo_shadow, h[reach], ld[reach],
+                                          t_far)
+                _count(stats["shadow"], "triangles", surf, reach,
+                       passes.shape[1])
+                _count(stats["shadow"], "passed", surf, reach,
+                       passes.sum(dim=-1))
             if emit_records:
                 records.append(((prim + 1) + OCC_BIT * occ.to(torch.int64))
                                .to(torch.int32))
@@ -790,14 +904,45 @@ def grouped_launch_tables(grp: GroupedTables, dev: torch.device):
     return tables, (grp.sup.shape[1], grp.shadow_sup.shape[1])
 
 
+def static_smem_bytes(num_tris: int, n_shadow: int, num_spheres: int) -> int:
+    """Shared memory of one K2 block (``static_smem`` in
+    ``csrc/path_kernels.cu``): the triangles, the shadow list, the spheres
+    and the attribute rows. Raises ValueError past the 48 KiB it may
+    stage."""
+    smem = 4 * (12 * (num_tris + n_shadow) + 4 * num_spheres
+                + NATTR * (num_tris + num_spheres))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"scene tables need {smem} B of shared memory; the kernel stages "
+            f"at most {_SMEM_LIMIT} B (fewer primitives, or the grouped "
+            "tier: grouped=True)")
+    return smem
+
+
+def grouped_smem_bytes(num_spheres: int, n_super: int,
+                       n_shadow_super: int) -> int:
+    """Shared memory of one K2g block (``grouped_smem`` in
+    ``csrc/path_kernels.cu``): the spheres, the super and group boxes of the
+    closest-hit and the shadow sweep (32 B a box). Raises ValueError past
+    the most one block may use."""
+    smem = 16 * num_spheres + 32 * (1 + SUPER) * (n_super + n_shadow_super)
+    if smem > _GROUPED_SMEM_LIMIT:
+        raise ValueError(
+            f"the grouped trace kernel needs {smem} B of shared memory "
+            f"({n_super} + {n_shadow_super} supers of boxes); one block may "
+            f"use at most {_GROUPED_SMEM_LIMIT} B")
+    return smem
+
+
 def path_trace_kernel(offsets: torch.Tensor, rid_base: int,
                       packed: PackedScene,
                       shadow_idx: Optional[torch.Tensor],
                       draws, config: RenderConfig, emit_records: bool):
     """Launch ``path_kernel`` on the card. Same arguments and results as
     ``render_path_plain``, with ``offsets`` and ``shadow_idx`` int32. Where
-    ``packed`` holds the grouped tables the grouped tier runs (K2g) and
-    ``shadow_idx`` is not read (None will do)."""
+    ``packed`` holds the grouped tables the grouped tier runs (K2g,
+    ``path_grouped_kernel``) and ``shadow_idx`` is not read (None will
+    do)."""
     if offsets.device.type != "cuda":
         raise ValueError("path_trace_kernel needs CUDA tensors")
     dev = offsets.device
@@ -808,14 +953,9 @@ def path_trace_kernel(offsets: torch.Tensor, rid_base: int,
     grp = packed.grouped
     n_shadow = shadow_idx.shape[0] if grp is None else grp.num_shadow
     if grp is None:
-        smem = 4 * (12 * (T + n_shadow) + 4 * S + NATTR * (T + S))
+        static_smem_bytes(T, n_shadow, S)
     else:
-        smem = 4 * 4 * S
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"scene tables need {smem} B of shared memory; the kernel stages "
-            f"at most {_SMEM_LIMIT} B (fewer primitives, or the grouped "
-            "tier: grouped=True)")
+        grouped_smem_bytes(S, grp.sup.shape[1], grp.shadow_sup.shape[1])
     if draws is not None and not emit_records:
         raise ValueError("draw planes are read only when records are emitted")
 
@@ -831,13 +971,14 @@ def path_trace_kernel(offsets: torch.Tensor, rid_base: int,
         ptrs += [
             _require(packed.atab, "atab", f32, (NATTR, T + S), dev),
             _require(shadow_idx, "shadow_idx", i32, (n_shadow,), dev)]
-        tables = [None] * 6
-        supers = (0, 0)
+        tables, supers, taken = [None] * 6, (0, 0), None
     else:
         _require(packed.atab, "atab", f32, (NATTR, T + S), dev)
         atab_t = packed.atab.T.contiguous()  # [T + S][13], held to the launch
         ptrs += [atab_t.data_ptr(), None]
         tables, supers = grouped_launch_tables(grp, dev)
+        # The persistent grid's tile counter.
+        taken = torch.zeros(1, dtype=i32, device=dev)
     if draws is not None:
         if len(draws) != 6:
             raise ValueError(f"draws: expected 6 planes, got {len(draws)}")
@@ -853,6 +994,7 @@ def path_trace_kernel(offsets: torch.Tensor, rid_base: int,
         code = lib.grt_path_trace(
             *ptrs, hdr.data_ptr(), rec.data_ptr() if emit_records else None,
             *[None if t is None else t.data_ptr() for t in tables],
+            None if taken is None else taken.data_ptr(),
             n, rid_base, config.width, config.height, config.spp,
             config.bounces, T, S, n_shadow, k, *supers,
             1.0 / k if k else 0.0, config.area_light_half_extent,

@@ -13,7 +13,7 @@ one block may use. No kernel runs.
 import pytest
 
 from gpuraytracer_tpu_torch.ops import cuda_mis, cuda_mis_bwd
-from gpuraytracer_tpu_torch.ops.cuda_path import GROUP, SUPER
+from gpuraytracer_tpu_torch.ops.cuda_path import GROUP, SUPER, WIDE_SUPERS
 
 LIMIT = 227 * 1024  # one block's most on sm_90
 
@@ -32,7 +32,7 @@ def test_supers_of_the_paths():
 
 @pytest.mark.parametrize("path, wide", [("M", False), ("N", True)])
 def test_k4g_takes_the_wide_sweep_above_32_supers(path, wide):
-    assert (supers(PATHS[path][0]) > cuda_mis.WIDE_SUPERS) is wide
+    assert (supers(PATHS[path][0]) > WIDE_SUPERS) is wide
 
 
 @pytest.mark.parametrize("path", sorted(PATHS))

@@ -1,6 +1,6 @@
 """The MIS static pair's host-side plans on the CPU (K4, K5).
 
-``cuda_mis.plane_ahead`` and ``cuda_mis.plane_within`` mirror K4's two exact
+``cuda_path.plane_ahead`` and ``cuda_path.plane_within`` mirror K4's two exact
 prefilters (``ops/csrc/trace.cuh``): the kernel skips a triangle test's
 divide, barycentrics and interval test where either is False. They may
 reject only tests that fail: so wherever the exact test passes (float32 IEEE
@@ -96,7 +96,7 @@ def seeded_pairs(n=100_000):
 def test_prefilter_rejects_only_failing_tests(source, t_min):
     num, den = seeded_pairs() if source == "seeded" else adversarial_pairs()
     passes = exact_passes(num, den, t_min)
-    ahead = cuda_mis.plane_ahead(den, num)
+    ahead = cuda_path.plane_ahead(den, num)
     assert passes.any() and (~ahead).any()
     missed = passes & ~ahead
     assert not missed.any(), list(zip(num[missed][:5].tolist(),
@@ -111,7 +111,7 @@ def test_prefilter_on_the_special_values():
                         0.0, -0.0], dtype=torch.float32)
     expect = [True, True, False, False, False, False, False, False, False,
               True, False, False]
-    assert cuda_mis.plane_ahead(den, num).tolist() == expect
+    assert cuda_path.plane_ahead(den, num).tolist() == expect
 
 
 def seeded_bounds(n=100_000):
@@ -146,7 +146,7 @@ def test_bound_prefilter_rejects_only_failing_tests(source):
     else:
         num, den, t_far = bound_pairs()
     passes = (den.abs() >= 1e-12) & (num / den > 0) & (num / den < t_far)
-    within = cuda_mis.plane_within(den, num, t_far)
+    within = cuda_path.plane_within(den, num, t_far)
     assert passes.any() and (~within).any()
     missed = passes & ~within
     assert not missed.any(), list(zip(num[missed][:5].tolist(),
@@ -156,14 +156,14 @@ def test_bound_prefilter_rejects_only_failing_tests(source):
 
 def test_bound_prefilter_margin():
     # 1 + 2^-22 is a float, and a product that overflows keeps the test.
-    assert float(np.float32(cuda_mis.WITHIN_MARGIN)) == cuda_mis.WITHIN_MARGIN
-    assert cuda_mis.plane_within(f32([1e38]), f32([1e30]), f32([1e3])).item()
+    assert float(np.float32(cuda_path.WITHIN_MARGIN)) == cuda_path.WITHIN_MARGIN
+    assert cuda_path.plane_within(f32([1e38]), f32([1e30]), f32([1e3])).item()
     # The margin keeps a quotient at the bound (the exact test rejects it);
     # a few ulp above, the prefilter rejects it.
     t_far = f32([0.37])
-    assert cuda_mis.plane_within(f32([1.0]), t_far, t_far).item()
+    assert cuda_path.plane_within(f32([1.0]), t_far, t_far).item()
     above = t_far * f32([1.0 + 2.0 ** -20])
-    assert not cuda_mis.plane_within(f32([1.0]), above, t_far).item()
+    assert not cuda_path.plane_within(f32([1.0]), above, t_far).item()
 
 
 def closest_exact(num, den, s1, s2, t_min, t_max):
@@ -192,8 +192,8 @@ def closest_filtered(num, den, s1, s2, t_min, t_max):
     t_far = torch.full((n_rays,), t_max, dtype=torch.float32)
     tested = 0
     for k in range(T):
-        go = (cuda_mis.plane_ahead(den[:, k], num[:, k])
-              & cuda_mis.plane_within(den[:, k], num[:, k], t_far))
+        go = (cuda_path.plane_ahead(den[:, k], num[:, k])
+              & cuda_path.plane_within(den[:, k], num[:, k], t_far))
         tested += int(go.sum())
         tt = num[:, k] / den[:, k]
         u = s1[0][:, k] + tt * s1[1][:, k] - s1[2][k]
@@ -240,7 +240,7 @@ def test_prefilter_on_the_box_scenes(scene_fn):
     _, valid = triangle_candidates(scene.n, scene.c0, scene.s1, scene.c1,
                                    scene.s2, scene.c2, origin, direction,
                                    RAY_TMIN, RAY_TMAX)
-    ahead = cuda_mis.plane_ahead(den, num)
+    ahead = cuda_path.plane_ahead(den, num)
     assert valid.any()
     assert not (valid & ~ahead).any()
     assert (exact_passes(num, den, RAY_TMIN) <= ahead).all()
