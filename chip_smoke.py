@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --count-drift
-    python3 chip_smoke.py --split
+    python3 chip_smoke.py --split [K2 K2g K3 K3g K4 K4g K5 K5g]
 
 Builds the CUDA kernels from the sources in this checkout, holds each against
 its plain PyTorch version on the card, renders six frames through the
@@ -28,10 +28,11 @@ count the ``full`` phase counts them at and the 300 samples it scales them
 to (the grouped MIS kernel's), and how far K2's prefilter pass shares at
 paths A and B move between the SHARE_SPP samples they are counted at and
 the frame's 400 (``count_drift``). ``--split`` runs only a measurement of
-where the trace and MIS kernels' time goes: each rebuilt from a copy of the
-sources with one part taken out or changed (``SPLIT_EDITS``) and timed
-beside the unedited build, K2 at paths A-C, K2g at K and L, K4 at F-H, K5
-at I, K4g and K5g at M and N.
+where the kernels' time goes: each rebuilt from a copy of the sources with
+one part taken out or changed (``SPLIT_EDITS``) and timed beside the
+unedited build, K2 at paths A-C, K2g at K and L, K3 at D and E, K3g at K and
+L, K4 at F-H, K5 at I, K4g and K5g at M and N (only the kernels named, where
+any are).
 
 Phases
   build   nvcc builds ops/csrc/path_kernels.cu, shade_kernels.cu,
@@ -117,6 +118,10 @@ Phases
           plain version (decisions equal on live lanes); the grouped
           backward against its plain version, draws read and regenerated,
           two launches bit-equal, and the differentiable entry's gradients;
+          the hidden-emitter scene (an emissive sphere behind the light
+          panel): hdr mode against records_only and the plain version, and
+          the grouped backward against its plain version, where the lanes of
+          a warp end at different bounces on different emitters;
           then both forced onto the box and sphere scenes: records and
           images bit-equal to the static trace kernel's, the grouped
           backward within the static one's limits of it.
@@ -434,6 +439,32 @@ def tess_with_hidden_emitter(resolution):
         f.name: torch.cat([getattr(scene.spheres, f.name), getattr(hidden, f.name)])
         for f in dataclasses.fields(hidden)})
     return dataclasses.replace(scene, spheres=spheres)
+
+
+# The most primitives K3's static tier takes with spheres: its tables fill
+# 48 KiB, and the staging rows take the block past it.
+STATIC_BWD_MAX_SPH = 169
+
+
+def spheres_at_static_limit(resolution, in_view=False):
+    """cornell-spheres with seeded small spheres before its own two, to
+    STATIC_BWD_MAX_SPH primitives (the box's two spheres take the table's
+    last rows): inside the box, or by default behind its back wall, where no
+    ray reaches them."""
+    scene = cornell_box_with_spheres(resolution=resolution)
+    own = scene.spheres
+    n = STATIC_BWD_MAX_SPH - scene.triangles.num_triangles - own.center.shape[0]
+    rng = np.random.default_rng(STATIC_BWD_MAX_SPH)
+    low, high = ((-2.2, -2.2, -2.2), (2.2, 2.0, 2.2)) if in_view else (
+        (-2.0, -2.0, -4.0), (2.0, 2.0, -3.0))
+    extra = make_spheres(
+        centers=rng.uniform(low, high, (n, 3)), radii=rng.uniform(0.1, 0.3, n),
+        materials=[dict(diffuse=tuple(rng.uniform(0.2, 0.9, 3)),
+                        metallic=float(rng.uniform(0.0, 0.5)),
+                        roughness=float(rng.uniform(0.2, 0.8))) for _ in range(n)])
+    return dataclasses.replace(scene, spheres=dataclasses.replace(own, **{
+        f.name: torch.cat([getattr(extra, f.name), getattr(own, f.name)])
+        for f in dataclasses.fields(own)}))
 
 
 GROUPED_SCENES = {
@@ -982,6 +1013,30 @@ def resource_fields(res):
     return dict(registers=res["registers"], stack_bytes=res["stack_bytes"],
                 spill_store_bytes=res["spill_store_bytes"],
                 spill_load_bytes=res["spill_load_bytes"])
+
+
+def shade_occupancy(sh: ShadeInputs, regenerate: bool):
+    """K3's or K3g's shared memory per block and blocks per SM for these
+    inputs; the exported plans (shared memory, K3g's grid) are held against
+    the wrapper's."""
+    lib = cuda_shade._library()
+    P = sh.table.shape[1]
+    sph = sh.table.shape[0] == cuda_shade.NROWS_TAB_SPH
+    smem = lib.grt_shade_bwd_smem(P, int(sph), int(sh.grouped))
+    plan = (cuda_shade.grouped_smem_bytes(sph) if sh.grouped
+            else cuda_shade.static_smem_bytes(P, sph))
+    check(smem == plan, f"K3's shared memory {smem} B is not the wrapper's plan "
+          f"{plan} B")
+    per_sm = lib.grt_shade_bwd_blocks_per_sm(P, int(sph), int(regenerate),
+                                             int(sh.grouped))
+    check(per_sm > 0, "K3's occupancy query failed")
+    if sh.grouped:
+        n = sh.cfg.num_pixels
+        blocks = lib.grt_shade_bwd_grouped_blocks(n, P, int(sph), int(regenerate))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        check(blocks == cuda_shade.grouped_blocks(n, P, sph, per_sm, sms),
+              f"K3g's grid of {blocks} blocks is not the wrapper's plan")
+    return smem, per_sm
 
 
 def shade_bound(sh: ShadeInputs, regenerate: bool):
@@ -1543,7 +1598,8 @@ def phase_build():
           "three static trace-kernel instantiations, the six grouped ones "
           "(with and without the wide sweep), the eight "
           "backward-kernel instantiations (static and grouped), the three "
-          "reductions, the six MIS-kernel instantiations (static, grouped, "
+          "reductions, the "
+          "six MIS-kernel instantiations (static, grouped, "
           "grouped with the wide sweep), the four MIS-backward "
           "instantiations (static and grouped), the silhouette record kernel "
           f"and its backward: {resources}\n{logs}")
@@ -1645,11 +1701,35 @@ def phase_small():
                 plain_ms["k_hdr"] = time_ms(lambda: full.kernel(), repeats=5)
                 plain_ms["k_emit"] = time_ms(
                     lambda: inp.kernel(draws_k, emit=True), repeats=5)
+    check_static_limit()
     for key in ("draws", "hdr", "emit", "bwd"):
         log(f"  128 x 96 x 4 spp, cornell: {key}: plain "
             f"{plain_ms[key][1]:.3f} ms, kernel "
             f"{plain_ms['k_' + key][1]:.3f} ms (median of 5)")
     return plain_ms
+
+
+def check_static_limit():
+    """K3 at the most primitives its static tier takes with spheres, whose
+    block opts in past 48 KiB of shared memory, against its plain version;
+    the rows of the spheres behind the back wall stay 0."""
+    cfg = RenderConfig(**SMALL)
+    sh = ShadeInputs(None, cfg, scene=spheres_at_static_limit(cfg.resolution))
+    P, hidden = sh.table.shape[1], slice(12, STATIC_BWD_MAX_SPH - 2)
+    check(P == STATIC_BWD_MAX_SPH, f"the scene at the static limit has {P} primitives")
+    smem, per_sm = shade_occupancy(sh, regenerate=False)
+    check(smem > 48 * 1024, f"K3 at the static limit takes {smem} B")
+    k, again = sh.kernel(), sh.kernel()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(k, again)),
+          "K3 at the static limit: two launches on the same inputs differ")
+    ref = sh.plain()
+    check(not k[0][hidden].any() and not ref[0][hidden].any(),
+          "K3 at the static limit: a sphere no ray reaches has a cotangent")
+    check(ref[0][P - 2:].abs().sum() > 0, "K3 at the static limit: the box's "
+          "spheres in the table's last rows have no cotangent")
+    tag = f"K3 cornell-spheres + {P - 14} hidden spheres ({smem} B, {per_sm} per SM)"
+    compare_grads(tag, k, ref, nudged=sh.plain(nudge=True))
 
 
 def phase_mis_small():
@@ -2614,12 +2694,11 @@ def phase_inverse():
                           device_busy_ms=busy_ms / steps)
 
 
-def shade_rows(launches):
+def shade_rows(launches, resources):
     """The backward kernel at the shapes of paths D and E, as those paths
-    launch it (draws read): against its plain version, and its time. At D
-    also with the draws regenerated, the mode frames above 2 GiB of draw
-    planes take; no main path here launches it, so its numbers ride on D's
-    row."""
+    launch it (draws read): against its plain version, and its time. Also
+    with the draws regenerated, the mode frames above 2 GiB of draw planes
+    take; no main path here launches it, so its numbers ride on the row."""
     rows = []
     for label, scene_name, size in (("D", "cornell", BENCH),
                                     ("E", "cornell-spheres", INVERSE)):
@@ -2628,7 +2707,7 @@ def shade_rows(launches):
         ref, nudged = sh.plain(), sh.plain(nudge=True)
         p_ms = time_ms(sh.plain, repeats=2, warmup=0)
         measured = {}
-        for regenerate in ((False, True) if label == "D" else (False,)):
+        for regenerate in (False, True):
             mode = "draws regenerated" if regenerate else "draws read"
             got = sh.kernel(regenerate)
             again = sh.kernel(regenerate)
@@ -2641,6 +2720,8 @@ def shade_rows(launches):
             (bound, by), iters = shade_bound(sh, regenerate)
             measured[regenerate] = (err, k_ms, bound, by)
         err, k_ms, bound, by = measured[False]
+        sph = int(label == "E")
+        smem, per_sm = shade_occupancy(sh, False)
         row = dict(
             name=f"shade_bwd_kernel[draws read, {scene_name}]", route="cuda",
             source=SHADE_SOURCE, replaces=SHADE_REPLACES,
@@ -2649,7 +2730,11 @@ def shade_rows(launches):
             launches=launches[label]["shade_bwd_kernel"], max_abs_err=err,
             ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2], plain_ms=p_ms[1],
             bound_ms=bound, bound_by=by, library_ms=None,
-            live_iterations=iters)
+            live_iterations=iters, smem_bytes=smem, blocks_per_sm=per_sm,
+            regenerated_blocks_per_sm=shade_occupancy(sh, True)[1],
+            **resource_fields(resources[f"shade_bwd_kernel<SPH={sph}, RNG=0>"]),
+            regenerated_registers=resources[
+                f"shade_bwd_kernel<SPH={sph}, RNG=1>"]["registers"])
         if True in measured:
             err, k_ms, bound, by = measured[True]
             row.update(regenerated_ms=k_ms[1], regenerated_bound_ms=bound,
@@ -2889,7 +2974,7 @@ def phase_full(launches, plain_small, resources):
     log(f"  K2 at E: {counts}")
     del inp, draws_k, hdr_k, rec_k, hdr_p, rec_p
 
-    rows += shade_rows(launches)
+    rows += shade_rows(launches, resources)
     k4_rows, mis_plain = mis_rows(launches, resources)
     rows += k4_rows
     for row in rows:
@@ -3042,6 +3127,20 @@ def phase_grouped():
         "other lanes go on; hdr mode equals records_only and the plain "
         "version")
     del inp
+    # K3g on the same scene: lanes of one warp that end at different bounces,
+    # on the panel or on the emissive sphere, each reversing only its own.
+    sh = ShadeInputs(None, cfg, grouped=True,
+                     scene=tess_with_hidden_emitter(cfg.resolution))
+    k_read, k_again = sh.kernel(), sh.kernel()
+    k_regen = sh.kernel(regenerate=True)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(k_read, k_again)),
+          "K3g behind the panel: two launches on the same inputs differ")
+    ref, nudged = sh.plain(), sh.plain(nudge=True)
+    compare_grads("K3g behind the panel draws read", k_read, ref, nudged=nudged)
+    compare_grads("K3g behind the panel draws regenerated", k_regen, ref,
+                  nudged=nudged)
+    del sh
 
     # Forced onto the static tier's scenes: K2g's records are K2's.
     for scene_name in SCENES:
@@ -3263,6 +3362,7 @@ def grouped_rows(launches, resources):
         r_ms = time_ms(lambda: sh.kernel(regenerate=True), repeats=3)
         (bound, by), iters = shade_bound(sh, False)
         (r_bound, r_by), _ = shade_bound(sh, True)
+        smem, per_sm = shade_occupancy(sh, False)
         res = resources["shade_bwd_grouped_kernel<SPH=0, RNG=0>"]
         rows.append(dict(
             name="shade_bwd_grouped_kernel[draws read]", route="cuda",
@@ -3272,6 +3372,8 @@ def grouped_rows(launches, resources):
             plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=None,
             regenerated_ms=r_ms[1], regenerated_bound_ms=r_bound,
             regenerated_bound_by=r_by, live_iterations=iters,
+            smem_bytes=smem, blocks_per_sm=per_sm,
+            regenerated_blocks_per_sm=shade_occupancy(sh, True)[1],
             registers=res["registers"], stack_bytes=res["stack_bytes"],
             spill_store_bytes=res["spill_store_bytes"],
             spill_load_bytes=res["spill_load_bytes"]))
@@ -3817,6 +3919,50 @@ K4_FILTER_OFF = [
      "    float den, tt, u, v;\n"
      "    grt::triangle_plane(g[0], g[1], g[2], ox, oy, oz, dx, dy, dz, &den, &tt, &u, &v);\n"
      "    if (grt::triangle_inside(den, tt, u, v, RAY_TMIN, t_max)) return false;\n  }")]
+# K3 and K3g (shade_kernels.cu): the scatter of a reversed bounce replaced
+# by a per-lane add of the row into the thread's own scalars (the arithmetic
+# stays live); a constant bounce count; the blocks per SM of either tier and
+# K3g's cap on its tables (k3_blocks, k3g_tables).
+K3_EDITS = {
+    "scatter off": [
+        ("shade_kernels.cu",
+         "        for (int k = 0; k < NTAB; ++k) stage[k] = rows[k];",
+         "        for (int k = 0; k < NTAB; ++k) ds[k] += rows[k];"),
+        ("shade_kernels.cu",
+         "      warp_scatter_peers<NTAB>(act, pc, stage, STAGE<SPH>, wtab, lane);\n",
+         "")],
+    # The bounce count a constant (3: paths D, K and L; timing only, E's two
+    # bounces then run three) with the bounce loops unrolled, so that the
+    # per-bounce entry state can live in registers.
+    "three bounces": [
+        ("shade_kernels.cu", "  const int B = p.bounces;\n", "  constexpr int B = 3;\n"),
+        ("shade_kernels.cu", "      for (int b = 0; b < B; ++b) {\n        const size_t idx",
+         "#pragma unroll\n      for (int b = 0; b < B; ++b) {\n        const size_t idx"),
+        ("shade_kernels.cu", "    for (int b = B - 1; b >= 0; --b) {",
+         "#pragma unroll\n    for (int b = B - 1; b >= 0; --b) {")],
+}
+K3_MIN_BLOCKS = 5  # shade_kernels.cu's STATIC_MIN_BLOCKS
+
+
+def k3_blocks(kernel, n):
+    """K3 (box scene) or K3g compiled for ``n`` blocks of 128 per SM (1:
+    ptxas' own occupancy)."""
+    if kernel == "K3":
+        return ("shade_kernels.cu", f"constexpr int STATIC_MIN_BLOCKS = {K3_MIN_BLOCKS};",
+                f"constexpr int STATIC_MIN_BLOCKS = {n};")
+    return ("shade_kernels.cu",
+            "__launch_bounds__(BLOCK_THREADS)\nshade_bwd_grouped_kernel(",
+            f"__launch_bounds__(BLOCK_THREADS, {n})\nshade_bwd_grouped_kernel(")
+
+
+def k3g_tables(mib):
+    """K3g's grid capped at ``mib`` MiB of per-warp tables (768 in
+    shade_kernels.cu): fewer tables to zero and reduce at path L, fewer warps
+    on the card."""
+    return ("shade_kernels.cu", "constexpr size_t GROUPED_TABLE_BYTES = (size_t)768 << 20;",
+            f"constexpr size_t GROUPED_TABLE_BYTES = (size_t){mib} << 20;")
+
+
 SPLIT_EDITS = {
     "K2 without the prefilters (every probe tests every occluder)": (
         "K2", "path_kernels", [K2_EDITS["probe plain"]]),
@@ -3884,12 +4030,22 @@ SPLIT_EDITS = {
         ("mis_bwd_kernels.cu",
          "        strategy_vndf<SPH, GLOBAL_TABLE>(",
          "        if (!GLOBAL_TABLE) strategy_vndf<SPH, GLOBAL_TABLE>(")]),
+    **{f"{k} without the scatter (each lane adds its row to its own scalars)": (
+        k, "shade_kernels", K3_EDITS["scatter off"]) for k in ("K3", "K3g")},
+    **{f"{k} with the bounce count a constant (3) and its loops unrolled": (
+        k, "shade_kernels", K3_EDITS["three bounces"]) for k in ("K3", "K3g")},
+    "K3 at ptxas' own occupancy on the box scene (no minimum of blocks per SM)": (
+        "K3", "shade_kernels", [k3_blocks("K3", 1)]),
+    "K3 at a minimum of 6 blocks per SM": ("K3", "shade_kernels", [k3_blocks("K3", 6)]),
+    "K3g at a minimum of 5 blocks per SM": ("K3g", "shade_kernels", [k3_blocks("K3g", 5)]),
+    **{f"K3g with its tables capped at {mib} MiB": ("K3g", "shade_kernels",
+                                                   [k3g_tables(mib)]) for mib in (512, 1024)},
 }
 
 
-def split_builds():
-    """The SPLIT_EDITS builds, side by side: {what: (kernel, library,
-    BuiltLibrary)}."""
+def split_builds(edits):
+    """The builds of ``edits`` (entries of SPLIT_EDITS), side by side: {what:
+    (kernel, library, BuiltLibrary)}."""
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_split_"))
 
     def build(item):
@@ -3904,42 +4060,88 @@ def split_builds():
                   f"times, not {expected}")
             (src / fname).write_text(text.replace(old, new))
         out = src / f"lib{name}.so"
+        start = time.perf_counter()
         proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
                                str(src / f"{name}.cu")], capture_output=True, text=True)
         check(proc.returncode == 0, f"split {what}: nvcc failed\n{proc.stderr}")
         return what, (kernel, name, _build.BuiltLibrary(
             lib=ctypes.CDLL(str(out)), path=out, nvcc=_build.find_nvcc(),
-            log=proc.stdout + proc.stderr, seconds=0.0))
+            log=proc.stdout + proc.stderr, seconds=time.perf_counter() - start))
 
-    with ThreadPoolExecutor(len(SPLIT_EDITS)) as pool:
-        return dict(pool.map(build, SPLIT_EDITS.items()))
+    with ThreadPoolExecutor(len(edits)) as pool:
+        return dict(pool.map(build, edits.items()))
 
 
 # The ptxas names of each kernel's instantiations.
 SPLIT_PTXAS = {"K2": "path_kernel<", "K2g": "path_grouped_kernel<",
                "K4": "mis_kernel<", "K4g": "mis_grouped_kernel<",
-               "K5": "mis_bwd_kernel<", "K5g": "mis_bwd_grouped_kernel<"}
+               "K5": "mis_bwd_kernel<", "K5g": "mis_bwd_grouped_kernel<",
+               "K3": "shade_bwd_kernel<", "K3g": "shade_bwd_grouped_kernel<"}
 
 
-def split():
-    """The trace and MIS kernels unedited and with each part of SPLIT_EDITS
-    taken out or changed, in turns (unedited first and last): K2 at A and B
-    (hdr) and C (records + draws + cull), K2g at K and L (records + draws +
-    cull), K4 at F and G (hdr) and H (records + cull), K5 at I (both
-    scenes), K4g and K5g at M and N."""
-    log("== split: the trace and MIS kernels with one part taken out or changed")
+def scatter_rounds(sh: ShadeInputs):
+    """The scatter's rounds in K3 and K3g from the records: per (sample,
+    bounce, warp of 32 consecutive pixels) with a live lane, the number of
+    distinct primitives the live lanes recorded (a lane is live at a bounce
+    where its path is alive and hit something), and the largest number of
+    lanes that share one; means over those warp-bounces, by bounce and in
+    all."""
+    alive, _ = live_lanes(sh.records, sh.trace.packed)
+    prim = (sh.records & (cuda_path.OCC_BIT - 1)).long()
+    key = torch.where(alive & (prim > 0), prim, torch.full_like(prim, -1))
+    key = key.view(*key.shape[:2], -1, 32).sort(dim=-1).values
+    new = torch.ones_like(key, dtype=torch.bool)
+    new[..., 1:] = key[..., 1:] != key[..., :-1]
+    distinct = (new & (key >= 0)).sum(dim=-1)
+    pos = torch.arange(32, device=key.device).expand_as(key)
+    start = torch.where(new, pos, torch.zeros_like(pos)).cummax(dim=-1).values
+    largest = torch.where(key >= 0, pos - start + 1,
+                          torch.zeros_like(pos)).amax(dim=-1)
+    live = key[..., -1] >= 0
+    out = {}
+    for b in range(key.shape[1]):
+        m = live[:, b]
+        out[f"bounce {b}"] = (round(distinct[:, b][m].float().mean().item(), 3),
+                              round(largest[:, b][m].float().mean().item(), 3))
+    out["all"] = (round(distinct[live].float().mean().item(), 3),
+                  round(largest[live].float().mean().item(), 3),
+                  int(live.sum()))
+    return out
+
+
+def split(kernels=None):
+    """The trace, MIS and backward kernels unedited and with each part of
+    SPLIT_EDITS taken out or changed, in turns (unedited first and last): K2
+    at A and B (hdr) and C (records + draws + cull), K2g at K and L (records
+    + draws + cull), K4 at F and G (hdr) and H (records + cull), K5 at I
+    (both scenes), K4g and K5g at M and N, K3 at D and E and K3g at K and L
+    (draws read, as those paths launch them). ``kernels``: only these (all
+    by default); a redesign slice splits its own kernels alone."""
+    kernels = set(kernels or SPLIT_PTXAS)
+    log("== split: the kernels with one part taken out or changed: "
+        + ", ".join(sorted(kernels)))
     started = time.perf_counter()
     own = {name: _build.load_library(name)
-           for name in ("path_kernels", "mis_kernels", "mis_bwd_kernels")}
-    variants = split_builds()
+           for name in ("path_kernels", "mis_kernels", "mis_bwd_kernels",
+                        "shade_kernels")}
+    variants = split_builds({what: e for what, e in SPLIT_EDITS.items()
+                             if e[0] in kernels})
     out = {"ptxas": {}}
+    for name, lib in own.items():
+        res = {fn: (r["registers"], r["stack_bytes"], r["spill_store_bytes"])
+               for fn, r in ptxas_resources(lib.log).items()
+               if any(fn.startswith(SPLIT_PTXAS[k]) for k in kernels)}
+        if res:
+            out["ptxas"][f"{name} unedited"] = res
+            log(f"  {name} unedited: registers, stack, spill stores " + ", ".join(
+                f"{fn} {r}" for fn, r in res.items()) + f"; built in {lib.seconds:.1f} s")
     for what, (kernel, _, lib) in variants.items():
         res = {name: (r["registers"], r["stack_bytes"], r["spill_store_bytes"])
                for name, r in ptxas_resources(lib.log).items()
                if name.startswith(SPLIT_PTXAS[kernel])}
         out["ptxas"][what] = res
         log(f"  {what}: registers, stack, spill stores " + ", ".join(
-            f"{name} {r}" for name, r in res.items()))
+            f"{name} {r}" for name, r in res.items()) + f"; built in {lib.seconds:.1f} s")
 
     def turns(key, kernel, name, fn):
         order = ([(f"{kernel} unedited", own[name])]
@@ -3949,47 +4151,92 @@ def split():
             _build._LOADED[name] = lib
             ms = time_ms(fn, repeats=3)
             out.setdefault(key, {})[what] = ms
-            log(f"  {key}: {what}: {ms[1]:.3f} ms (min {ms[0]:.3f}, max {ms[2]:.3f})")
+            part = ""
+            if kernel == "K3g":
+                # K3g and its reduction apart, by device time under the profiler.
+                device_busy(lambda: [fn() for _ in range(3)])
+                parts = (profiled_ms("shade_bwd_grouped") / 3, profiled_ms("reduce_") / 3)
+                out.setdefault(key + " kernel / reduction", {})[what] = parts
+                part = f"; profiled: kernel {parts[0]:.3f} ms, reduction {parts[1]:.3f} ms"
+            log(f"  {key}: {what}: {ms[1]:.3f} ms (min {ms[0]:.3f}, max {ms[2]:.3f})"
+                + part)
         _build._LOADED[name] = own[name]
 
-    for label, scene_name, size, cull in (("A", "cornell", FRAME, False),
-                                          ("B", "cornell-spheres", FRAME, False),
-                                          ("C", "cornell", BENCH, True)):
+    # Each shape: the kernels it times and a function that makes its inputs
+    # and returns (key, {kernel: (library, function to time)}).
+    def backward(label, scene_name, size, tess):
+        sh = ShadeInputs(scene_name, RenderConfig(**size), grouped=tess is not None,
+                         scene=tess and cornell_box_tessellated(
+                             resolution=RenderConfig(**BENCH).resolution, **tess))
+        key = f"{label} {scene_name or f'tess-{sh.trace.num_tris}'}"
+        rounds = scatter_rounds(sh)
+        out.setdefault("scatter_rounds", {})[key] = rounds
+        log(f"  {key}: distinct primitives per live warp-bounce, and the most "
+            f"lanes on one, by bounce: {rounds}")
+        return key, {"K3g" if tess else "K3": ("shade_kernels", sh.kernel)}
+
+    def trace(label, scene_name, size, cull):
         inp = TraceInputs(scene_name, RenderConfig(**size), cull=cull)
         draws = (cuda_path.pregen_draws_kernel(inp.offsets_i32, inp.cfg)
                  if cull else None)
-        turns(f"{label} {scene_name}", "K2", "path_kernels",
-              lambda: inp.kernel(draws, emit=cull))
-        del inp, draws
-    for label, kw in (("K", TESS_K), ("L", TESS_L)):
+        return f"{label} {scene_name}", {
+            "K2": ("path_kernels", lambda: inp.kernel(draws, emit=cull))}
+
+    def trace_grouped(label, tess):
         cfg = RenderConfig(**BENCH)
         inp = TraceInputs(None, cfg, cull=True, grouped=True, scene=(
-            cornell_box_tessellated(resolution=cfg.resolution, **kw)))
+            cornell_box_tessellated(resolution=cfg.resolution, **tess)))
         draws = cuda_path.pregen_draws_kernel(inp.offsets_i32, cfg)
-        turns(f"{label} tess-{inp.num_tris}", "K2g", "path_kernels",
-              lambda: inp.kernel(draws, emit=True))
-        del inp, draws
-        torch.cuda.empty_cache()
-    for label, scene_name, size, emit, cull in (
-            ("F", "cornell", MIS_FRAME, False, False),
-            ("G", "cornell-spheres", MIS_FRAME, False, False),
-            ("H", "cornell", MIS_BENCH, True, True)):
+        return f"{label} tess-{inp.num_tris}", {
+            "K2g": ("path_kernels", lambda: inp.kernel(draws, emit=True))}
+
+    def mis(label, scene_name, size, emit, cull):
         inp = MisInputs(scene_name, RenderConfig(integrator="mis", **size), cull=cull)
-        turns(f"{label} {scene_name}", "K4", "mis_kernels",
-              lambda: inp.kernel(emit=emit))
-        del inp
-    cfg = RenderConfig(integrator="mis", **MIS_BENCH)
-    for scene_name in ("cornell", "cornell-spheres"):
-        bw = MisBwdInputs(scene_name, cfg)
-        turns(f"I {scene_name}", "K5", "mis_bwd_kernels", bw.kernel)
-        del bw
-    for label, scene_name, scene in mis_grouped_path_scenes(cfg.resolution):
-        key = f"{label} {scene_name}"
+        return f"{label} {scene_name}", {
+            "K4": ("mis_kernels", lambda: inp.kernel(emit=emit))}
+
+    def mis_bwd(scene_name):
+        bw = MisBwdInputs(scene_name, RenderConfig(integrator="mis", **MIS_BENCH))
+        return f"I {scene_name}", {"K5": ("mis_bwd_kernels", bw.kernel)}
+
+    mis_scenes = []  # paths M and N, made at first use
+
+    def mis_grouped(i):
+        cfg = RenderConfig(integrator="mis", **MIS_BENCH)
+        if not mis_scenes:
+            mis_scenes.extend(mis_grouped_path_scenes(cfg.resolution))
+        label, scene_name, scene = mis_scenes[i]
         inp = MisInputs(None, cfg, cull=True, grouped=True, scene=scene)
         bw = MisBwdInputs(None, cfg, grouped=True, scene=scene)
-        turns(key, "K4g", "mis_kernels", lambda: inp.kernel(emit=True))
-        turns(key, "K5g", "mis_bwd_kernels", bw.kernel)
-        del inp, bw
+        return f"{label} {scene_name}", {
+            "K4g": ("mis_kernels", lambda: inp.kernel(emit=True)),
+            "K5g": ("mis_bwd_kernels", bw.kernel)}
+
+    shapes = [
+        ({"K3"}, lambda: backward("D", "cornell", BENCH, None)),
+        ({"K3"}, lambda: backward("E", "cornell-spheres", INVERSE, None)),
+        ({"K3g"}, lambda: backward("K", None, BENCH, TESS_K)),
+        ({"K3g"}, lambda: backward("L", None, BENCH, TESS_L)),
+        ({"K2"}, lambda: trace("A", "cornell", FRAME, False)),
+        ({"K2"}, lambda: trace("B", "cornell-spheres", FRAME, False)),
+        ({"K2"}, lambda: trace("C", "cornell", BENCH, True)),
+        ({"K2g"}, lambda: trace_grouped("K", TESS_K)),
+        ({"K2g"}, lambda: trace_grouped("L", TESS_L)),
+        ({"K4"}, lambda: mis("F", "cornell", MIS_FRAME, False, False)),
+        ({"K4"}, lambda: mis("G", "cornell-spheres", MIS_FRAME, False, False)),
+        ({"K4"}, lambda: mis("H", "cornell", MIS_BENCH, True, True)),
+        ({"K5"}, lambda: mis_bwd("cornell")),
+        ({"K5"}, lambda: mis_bwd("cornell-spheres")),
+        *[({"K4g", "K5g"}, lambda i=i: mis_grouped(i)) for i in range(3)],
+    ]
+    for timed, make in shapes:
+        if not timed & kernels:
+            continue
+        key, fns = make()
+        for kernel, (name, fn) in fns.items():
+            if kernel in kernels:
+                turns(key, kernel, name, fn)
+        del fns, fn
         torch.cuda.empty_cache()
     log(f"  split took {time.perf_counter() - started:.1f} s")
     return out
@@ -4105,13 +4352,15 @@ def main() -> int:
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() "
               "is False", file=sys.stderr)
         return 1
-    if sys.argv[1:] not in ([], ["--count-drift"], ["--split"]):
-        print("usage: python3 chip_smoke.py [--count-drift | --split]",
-              file=sys.stderr)
+    args = sys.argv[1:]
+    if not (args in ([], ["--count-drift"])
+            or (args[:1] == ["--split"] and set(args[1:]) <= set(SPLIT_PTXAS))):
+        print("usage: python3 chip_smoke.py [--count-drift | --split "
+              f"[{' '.join(SPLIT_PTXAS)} ...]]", file=sys.stderr)
         return 2
-    if sys.argv[1:]:
-        if sys.argv[1] == "--split":
-            result = {"split_ms": split()}
+    if args:
+        if args[0] == "--split":
+            result = {"split_ms": split(args[1:])}
         else:
             result = {"count_drift": count_drift()}
         print(json.dumps(result), flush=True)

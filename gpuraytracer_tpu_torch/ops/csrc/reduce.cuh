@@ -11,7 +11,8 @@
 // reduce_partials_kernel sums the partials in block order in float64.  The
 // grouped backwards keep one table per warp in global memory instead, on a
 // persistent grid that persistent_blocks sizes; mis_bwd_grouped_kernel
-// scatters by warp_scatter_peers.
+// scatters by warp_scatter_peers, and so do shade_bwd_kernel and its grouped
+// tier (shade_kernels.cu says why).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -108,10 +109,10 @@ inline void launch_reduce_partials(const float* partials, int blocks, int count,
 // blocks of `threads` threads with `smem` bytes of dynamic shared memory: the
 // blocks the card holds at once, at most one per threads / 32 of the `tiles`
 // 32-item tiles, and at most as many as keep one table of `row_floats` floats
-// per warp within 1 GiB.  0 means the occupancy query failed.
+// per warp within `table_bytes`.  0 means the occupancy query failed.
 template <class Kernel>
 inline int persistent_blocks(Kernel kernel, int threads, size_t smem, int tiles,
-                             size_t row_floats) {
+                             size_t row_floats, size_t table_bytes = (size_t)1 << 30) {
   int dev = 0, sms = 0;
   const int per_sm = blocks_per_sm(kernel, threads, smem);
   if (per_sm <= 0 || cudaGetDevice(&dev) != cudaSuccess
@@ -120,7 +121,7 @@ inline int persistent_blocks(Kernel kernel, int threads, size_t smem, int tiles,
     return 0;
   }
   const int warps = threads / 32;
-  const size_t cap = ((size_t)1 << 30) / (sizeof(float) * warps * row_floats);
+  const size_t cap = table_bytes / (sizeof(float) * warps * row_floats);
   int blocks = sms * per_sm;
   if (blocks > (tiles + warps - 1) / warps) blocks = (tiles + warps - 1) / warps;
   if ((size_t)blocks > cap) blocks = (int)cap;

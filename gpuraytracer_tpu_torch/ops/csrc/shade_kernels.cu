@@ -42,9 +42,23 @@
 //     is skipped there — it adds nothing, rather than garbage times zero;
 //   * the sums over all lanes are taken in a FIXED order, without float
 //     atomics: the 21 scalars accumulate in registers over a thread's
-//     samples; the table rows go through reduce.cuh (shuffles by primitive
-//     into a per-warp table, per-block partials, a float64 second kernel).
-//     Two launches on equal inputs give equal bits.
+//     samples; the table rows of a reversed bounce are summed over the lanes
+//     of the warp that recorded the same primitive and added once to that
+//     warp's own table (reduce.cuh), then per-block partials, a float64
+//     second kernel.  Two launches on equal inputs give equal bits;
+//   * that scatter was the larger part of the time (the previous design's
+//     kernels without it: 0.80 of 1.32 ms at path D, 1.03 of 2.63 at K, 1.75
+//     of 3.69 at L; PERF.md), one round of a ballot, a shuffle and ntab
+//     five-shuffle sums per distinct primitive.  warp_scatter_peers groups
+//     the lanes by __match_any_sync in one pass instead, each group's lowest
+//     lane summing the rows the lanes staged in shared memory, in lane order.
+//     Above bounce 0 a warp's lanes hit 8-21 primitives, and a reduce-scatter
+//     round per primitive (12 or 15 shuffles, ntab lanes adding a column
+//     each) was 16-76 % slower there; at bounce 0 they hit 1-7, and it was
+//     no faster there (PERF.md);
+//   * K3 on the box scene runs 5 blocks of 128 per SM (STATIC_MIN_BLOCKS:
+//     9-15 % faster at D than ptxas' own 4), with spheres 4; K3g at ptxas'
+//     own.
 //
 // The grouped tier runs the same per-pixel body (shade_pixel) with two
 // changes, because its tables do not fit a block's shared memory (the static
@@ -55,17 +69,17 @@
 //     miss fetches nothing;
 //   * the scatter keeps its fixed order without memory that grows with
 //     pixels x P: a persistent grid of G blocks (resident blocks of the card,
-//     capped at 1 GiB of tables), each warp owning one dense [P][ntab] + 21
+//     capped at 768 MiB of tables), each warp owning one dense [P][ntab] + 21
 //     table in global memory that it zeroes, walks the 32-pixel tiles w, w +
-//     4G, w + 8G, ... in that order and adds to through warp_scatter_rows
-//     (lanes that share a primitive summed by shuffles, one leader's add per
-//     primitive, __syncwarp between rounds); reduce_partials_kernel then sums
-//     the 4G tables in float64 in table order.  No float atomics: two
-//     launches on equal inputs give equal bits.  The tables cost 4G (P ntab +
-//     21) floats written twice and read once, about 0.2 ms of memory traffic
-//     per MB-per-warp at G = 528; a sort by primitive with a segmented sum
-//     would move less but needs a sort inside the kernel's order (a later
-//     perf_opt).  Bound as for the static tier.
+//     4G, w + 8G, ... in that order and adds to through warp_scatter_peers
+//     (only its staging rows in shared memory); reduce_partials_kernel
+//     then sums the 4G tables in float64 in table order.  No float atomics:
+//     two launches on equal inputs give equal bits.  The tables cost 4G (P
+//     ntab + 21) floats written twice and read once: at L (G = 393, 768 MiB)
+//     about 0.29 ms of reduction and as much zeroing.  Tables that are
+//     never zeroed, with one bit per row a warp holds and a reduction that
+//     reads only marked rows, were slower (the bit tests cost the reduction
+//     more than the bytes they save; PERF.md).  Bound as for the static tier.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -78,7 +92,7 @@ namespace {
 
 using grt::camera_jitter;
 using grt::halton;
-using grt::warp_scatter_rows;
+using grt::warp_scatter_peers;
 using grt::warp_sum;
 
 constexpr int OCC_BIT = 1 << 20;
@@ -87,6 +101,21 @@ constexpr int WARPS = BLOCK_THREADS / 32;
 constexpr int MAX_BOUNCES = 4;   // the Halton table has 24 bases: 2 + 5 * 3 + 3 < 24
 constexpr int NSCAL = 21;        // pos, hu, hv, wb | light center, color, normal
 constexpr unsigned FULL = grt::FULL_MASK;
+// Blocks per SM that shade_bwd_kernel is compiled for: on the box scene 5
+// (96 registers and 12 B of spills, against ptxas' own 109 registers and 4
+// blocks: 9-15 % faster at path D); with spheres 4 (127 registers).
+constexpr int STATIC_MIN_BLOCKS = 5;
+constexpr int STATIC_MIN_BLOCKS_SPH = 4;
+// K3g's grid keeps its per-warp tables within 768 MiB: at path L (512 KB a
+// table) 393 blocks, about 3 per SM, where the 1 GiB of persistent_blocks
+// gives 524: 2.33 against 2.44-2.46 ms, the kernel as fast and a quarter less
+// to zero and to reduce; 512 MiB (2 blocks per SM) took 2.70 (PERF.md).
+constexpr size_t GROUPED_TABLE_BYTES = (size_t)768 << 20;
+// Floats between two lanes' staging rows for warp_scatter_peers: the table
+// columns, rounded up to an odd count so that a warp's 32 words of one column
+// fall in 32 banks.
+template <bool SPH>
+constexpr int STAGE = SPH ? 15 : 11;
 
 // Table rows ([rows, P] in global memory, [P, rows] in shared memory).
 constexpr int R_N = 0, R_C0 = 3, R_DF = 4, R_EM = 7, R_ISEM = 10;
@@ -423,15 +452,19 @@ __device__ __forceinline__ void bounce_reverse(
 // the table rows scattered into this warp's table `wtab` [P][NTAB] and the
 // camera's and light's cotangents added to ds.  `tab` is the [P][NROWS]
 // parameter table (shared memory in the static tier, global in the grouped
-// one), `cam` the 12 camera scalars, `lv` the light's 9.  Every lane of the
-// warp calls it (the scatter shuffles); a lane past the range runs on with no
-// live path.  GLOBAL_TABLE: wtab lies in global memory, and a __syncwarp
-// after each scatter round orders one leader's add before the next one's.
-template <bool SPH, bool RNG, bool GLOBAL_TABLE>
+// one), `cam` the 12 camera scalars, `lv` the light's 9, `stage` this lane's
+// row of the warp's staging rows in shared memory (STAGE floats apart). Every
+// lane of the warp calls it (the scatter is warp-wide); a lane past the range
+// runs on with no live path.  A reversed bounce's rows are scattered by
+// warp_scatter_peers from the staging rows.  A __syncwarp after each scatter
+// orders its adds and reads before the next one's, which other lanes may make
+// to the same words.
+template <bool SPH, bool RNG>
 __device__ __forceinline__ void shade_pixel(const ShadeParams& p,
                                             const float* __restrict__ tab,
                                             const float* cam, const float* lv,
-                                            float* wtab, int i, int lane, float* ds) {
+                                            float* wtab, float* stage, int i, int lane,
+                                            float* ds) {
   constexpr int NROWS = SPH ? 16 : 11;
   constexpr int NTAB = SPH ? 14 : 10;
   const int P = p.num_prims;
@@ -511,12 +544,11 @@ __device__ __forceinline__ void shade_pixel(const ShadeParams& p,
     float d_col[3] = {0.0f, 0.0f, 0.0f};
     for (int b = B - 1; b >= 0; --b) {
       const bool act = b < n_active;
-      const unsigned rem = __ballot_sync(FULL, act);
-      if (rem == 0u) continue;
-      float rows[NTAB];
-      for (int k = 0; k < NTAB; ++k) rows[k] = 0.0f;
+      if (__ballot_sync(FULL, act) == 0u) continue;
       int pc = -1;
       if (act) {
+        float rows[NTAB];
+        for (int k = 0; k < NTAB; ++k) rows[k] = 0.0f;
         Bounce r;
         bounce_forward<SPH>(r, tab, NROWS, P, st_code[b], true, st_o[b][0],
                             st_o[b][1], st_o[b][2], st_d[b][0], st_d[b][1],
@@ -526,11 +558,12 @@ __device__ __forceinline__ void shade_pixel(const ShadeParams& p,
                             st_d[b][0], st_d[b][1], st_d[b][2], st_col[b], lv, d_a,
                             d_o, d_d, d_col, rows, ds);
         pc = r.pc;
+        for (int k = 0; k < NTAB; ++k) stage[k] = rows[k];
       }
-      // Sum the rows over the lanes that recorded the same primitive, one
-      // primitive at a time, and add each sum to this warp's table.
-      warp_scatter_rows<NTAB>(rem, act, pc, rows, wtab, lane);
-      if (GLOBAL_TABLE) __syncwarp();
+      // Sum the rows over the lanes that recorded the same primitive and add
+      // each sum to this warp's table.
+      warp_scatter_peers<NTAB>(act, pc, stage, STAGE<SPH>, wtab, lane);
+      __syncwarp();
     }
 
     // ---- camera: the ray at entry of bounce 0
@@ -550,7 +583,9 @@ __device__ __forceinline__ void shade_pixel(const ShadeParams& p,
 }
 
 template <bool SPH, bool RNG>
-__global__ void __launch_bounds__(BLOCK_THREADS) shade_bwd_kernel(const ShadeParams p) {
+__global__ void __launch_bounds__(BLOCK_THREADS,
+                                  SPH ? STATIC_MIN_BLOCKS_SPH : STATIC_MIN_BLOCKS)
+shade_bwd_kernel(const ShadeParams p) {
   constexpr int NROWS = SPH ? 16 : 11;
   constexpr int NTAB = SPH ? 14 : 10;
   extern __shared__ float smem[];
@@ -559,6 +594,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS) shade_bwd_kernel(const ShadePar
   float* s_vec = s_tab + NROWS * P;             // camera 12, light 9
   float* s_wtab = s_vec + NSCAL;                // [WARPS][P][NTAB]
   float* s_wscal = s_wtab + WARPS * P * NTAB;   // [WARPS][NSCAL]
+  float* s_stage = s_wscal + WARPS * NSCAL;     // [BLOCK_THREADS][STAGE]
 
   for (int k = threadIdx.x; k < NROWS * P; k += blockDim.x) {
     const int q = k / NROWS, row = k - q * NROWS;
@@ -574,8 +610,10 @@ __global__ void __launch_bounds__(BLOCK_THREADS) shade_bwd_kernel(const ShadePar
   const int warp = threadIdx.x >> 5;
   float ds[NSCAL];
   for (int k = 0; k < NSCAL; ++k) ds[k] = 0.0f;
-  shade_pixel<SPH, RNG, false>(p, s_tab, s_vec, s_vec + 12, s_wtab + warp * P * NTAB,
-                               blockIdx.x * blockDim.x + threadIdx.x, lane, ds);
+  shade_pixel<SPH, RNG>(
+      p, s_tab, s_vec, s_vec + 12, s_wtab + warp * P * NTAB,
+      s_stage + threadIdx.x * STAGE<SPH>, blockIdx.x * blockDim.x + threadIdx.x, lane,
+      ds);
 
   // ---- block partial: scalars over the warp, then warps in index order
   for (int k = 0; k < NSCAL; ++k) {
@@ -602,6 +640,7 @@ template <bool SPH, bool RNG>
 __global__ void __launch_bounds__(BLOCK_THREADS)
 shade_bwd_grouped_kernel(const ShadeParams p) {
   constexpr int NTAB = SPH ? 14 : 10;
+  extern __shared__ float s_stage[];            // [BLOCK_THREADS][STAGE]
   const int lane = threadIdx.x & 31;
   const int warp = blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int n_warps = gridDim.x * WARPS;
@@ -614,8 +653,9 @@ shade_bwd_grouped_kernel(const ShadeParams p) {
   for (int k = 0; k < NSCAL; ++k) ds[k] = 0.0f;
   const int tiles = (p.n_local + 31) / 32;
   for (int tile = warp; tile < tiles; tile += n_warps) {
-    shade_pixel<SPH, RNG, true>(p, p.table, p.cam, p.light, wtab, tile * 32 + lane,
-                                lane, ds);
+    shade_pixel<SPH, RNG>(p, p.table, p.cam, p.light, wtab,
+                          s_stage + threadIdx.x * STAGE<SPH>, tile * 32 + lane, lane,
+                          ds);
   }
   for (int k = 0; k < NSCAL; ++k) {
     const float v = warp_sum(ds[k]);
@@ -623,9 +663,33 @@ shade_bwd_grouped_kernel(const ShadeParams p) {
   }
 }
 
+// Bytes of shade_bwd_kernel's tables in one block: the table [P][nrows], the
+// 21 scalars, one [P][ntab] table and 21 scalars per warp.  The static tier
+// takes a scene whose tables fit STATIC_TABLE_SMEM; the staging rows come on
+// top of them, opted in past 48 KiB.
+constexpr size_t STATIC_TABLE_SMEM = 48 * 1024;
+size_t static_table_bytes(int num_prims, int has_spheres) {
+  const int nrows = has_spheres ? 16 : 11;
+  const int ntab = has_spheres ? 14 : 10;
+  return sizeof(float) * ((size_t)nrows * num_prims + NSCAL
+                          + (size_t)WARPS * ((size_t)num_prims * ntab + NSCAL));
+}
+
 }  // namespace
 
 extern "C" {
+
+// Bytes of dynamic shared memory of one block: shade_bwd_kernel (grouped ==
+// 0) stages its tables (static_table_bytes) and the staging rows of
+// warp_scatter_peers; shade_bwd_grouped_kernel (grouped == 1) the staging
+// rows alone.  The wrapper's plans (cuda_shade.static_smem_bytes,
+// grouped_smem_bytes) mirror it.
+int grt_shade_bwd_smem(int num_prims, int has_spheres, int grouped) {
+  const size_t stage = sizeof(float) * BLOCK_THREADS
+                       * (has_spheres ? STAGE<true> : STAGE<false>);
+  if (grouped) return (int)stage;
+  return (int)(static_table_bytes(num_prims, has_spheres) + stage);
+}
 
 // Number of blocks shade_bwd_kernel runs for n_local pixels: the wrapper
 // sizes the partials buffer [blocks, num_prims * ntab + 21] with it.
@@ -636,19 +700,43 @@ int grt_shade_bwd_blocks(int n_local) {
 // Blocks of the grouped tier's persistent grid on the current device: the
 // blocks the card holds at once, at most one per 128 pixels, and at most as
 // many as keep the per-warp tables (WARPS x (num_prims * ntab + 21) floats
-// each) within 1 GiB.  The wrapper sizes the partials [blocks * 4, ...] with
-// it; 0 means the occupancy query failed.
+// each) within GROUPED_TABLE_BYTES.  The wrapper sizes the partials [blocks *
+// 4, ...] with it; 0 means the occupancy query failed.
 int grt_shade_bwd_grouped_blocks(int n_local, int num_prims, int has_spheres,
                                  int recompute_rng) {
   const int tiles = (n_local + 31) / 32;
   const size_t row = (size_t)num_prims * (has_spheres ? 14 : 10) + NSCAL;
+  const size_t smem = grt_shade_bwd_smem(num_prims, has_spheres, 1);
   const auto blocks = [&](auto kernel) {
-    return grt::persistent_blocks(kernel, BLOCK_THREADS, 0, tiles, row);
+    return grt::persistent_blocks(kernel, BLOCK_THREADS, smem, tiles, row,
+                                  GROUPED_TABLE_BYTES);
   };
   return has_spheres ? (recompute_rng ? blocks(shade_bwd_grouped_kernel<true, true>)
                                       : blocks(shade_bwd_grouped_kernel<true, false>))
                      : (recompute_rng ? blocks(shade_bwd_grouped_kernel<false, true>)
                                       : blocks(shade_bwd_grouped_kernel<false, false>));
+}
+
+// Blocks of shade_bwd_kernel (grouped == 0) or shade_bwd_grouped_kernel
+// (grouped == 1) that one SM of the current device holds, in the
+// instantiation and at the shared memory of these inputs; 0 where the query
+// fails.
+int grt_shade_bwd_blocks_per_sm(int num_prims, int has_spheres, int recompute_rng,
+                                int grouped) {
+  const size_t smem = grt_shade_bwd_smem(num_prims, has_spheres, grouped);
+  const auto per_sm = [&](auto kernel) {
+    return grt::blocks_per_sm(kernel, BLOCK_THREADS, smem);
+  };
+  if (grouped) {
+    return has_spheres ? (recompute_rng ? per_sm(shade_bwd_grouped_kernel<true, true>)
+                                        : per_sm(shade_bwd_grouped_kernel<true, false>))
+                       : (recompute_rng ? per_sm(shade_bwd_grouped_kernel<false, true>)
+                                        : per_sm(shade_bwd_grouped_kernel<false, false>));
+  }
+  return has_spheres ? (recompute_rng ? per_sm(shade_bwd_kernel<true, true>)
+                                      : per_sm(shade_bwd_kernel<true, false>))
+                     : (recompute_rng ? per_sm(shade_bwd_kernel<false, true>)
+                                      : per_sm(shade_bwd_kernel<false, false>));
 }
 
 // Launches shade_bwd_kernel (grouped == 0: table [nrows, P], partials
@@ -678,41 +766,40 @@ int grt_shade_bwd(const float* g, const int32_t* records, const float* nee0,
       || bounces > MAX_BOUNCES) {
     return (int)cudaErrorInvalidValue;
   }
-  const int nrows = has_spheres ? 16 : 11;
   const int ntab = has_spheres ? 14 : 10;
   const int count = num_prims * ntab + NSCAL;
+  const size_t smem = grt_shade_bwd_smem(num_prims, has_spheres, grouped);
   cudaStream_t st = (cudaStream_t)stream;
   if (grouped) {
     if (blocks <= 0) return (int)cudaErrorInvalidValue;
     if (has_spheres && recompute_rng) {
-      shade_bwd_grouped_kernel<true, true><<<blocks, BLOCK_THREADS, 0, st>>>(p);
+      shade_bwd_grouped_kernel<true, true><<<blocks, BLOCK_THREADS, smem, st>>>(p);
     } else if (has_spheres) {
-      shade_bwd_grouped_kernel<true, false><<<blocks, BLOCK_THREADS, 0, st>>>(p);
+      shade_bwd_grouped_kernel<true, false><<<blocks, BLOCK_THREADS, smem, st>>>(p);
     } else if (recompute_rng) {
-      shade_bwd_grouped_kernel<false, true><<<blocks, BLOCK_THREADS, 0, st>>>(p);
+      shade_bwd_grouped_kernel<false, true><<<blocks, BLOCK_THREADS, smem, st>>>(p);
     } else {
-      shade_bwd_grouped_kernel<false, false><<<blocks, BLOCK_THREADS, 0, st>>>(p);
+      shade_bwd_grouped_kernel<false, false><<<blocks, BLOCK_THREADS, smem, st>>>(p);
     }
     int code = (int)cudaGetLastError();
     if (code != 0) return code;
     grt::launch_reduce_partials(partials, blocks * WARPS, count, out, st);
     return (int)cudaGetLastError();
   }
-  const size_t smem = sizeof(float) * ((size_t)nrows * num_prims + NSCAL
-                                       + (size_t)WARPS * num_prims * ntab
-                                       + (size_t)WARPS * NSCAL);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const int grid = grt_shade_bwd_blocks(n_local);
-  if (has_spheres && recompute_rng) {
-    shade_bwd_kernel<true, true><<<grid, BLOCK_THREADS, smem, st>>>(p);
-  } else if (has_spheres) {
-    shade_bwd_kernel<true, false><<<grid, BLOCK_THREADS, smem, st>>>(p);
-  } else if (recompute_rng) {
-    shade_bwd_kernel<false, true><<<grid, BLOCK_THREADS, smem, st>>>(p);
-  } else {
-    shade_bwd_kernel<false, false><<<grid, BLOCK_THREADS, smem, st>>>(p);
+  if (static_table_bytes(num_prims, has_spheres) > STATIC_TABLE_SMEM) {
+    return (int)cudaErrorInvalidValue;
   }
-  int code = (int)cudaGetLastError();
+  const int grid = grt_shade_bwd_blocks(n_local);
+  const auto launch = [&](auto kernel) {
+    const cudaError_t err = grt::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, BLOCK_THREADS, smem, st>>>(p);
+    return (int)cudaGetLastError();
+  };
+  const int code = has_spheres ? (recompute_rng ? launch(shade_bwd_kernel<true, true>)
+                                                : launch(shade_bwd_kernel<true, false>))
+                               : (recompute_rng ? launch(shade_bwd_kernel<false, true>)
+                                                : launch(shade_bwd_kernel<false, false>));
   if (code != 0) return code;
   grt::launch_reduce_partials(partials, grid, count, out, st);
   return (int)cudaGetLastError();

@@ -59,8 +59,52 @@ NTAB_SPH = 14
 NROWS_TAB = 11
 NROWS_TAB_SPH = 16
 NSCAL = 21  # camera: pos, hu, hv, wb; light: center, color, normal
-_SMEM_LIMIT = 48 * 1024  # bytes of shared memory the backward kernel may use
-_KERNEL_WARPS = 4        # warps per block of shade_bwd_kernel
+_SMEM_LIMIT = 48 * 1024  # bytes of tables the static tier stages
+_KERNEL_THREADS = 128    # threads per block of both tiers
+_KERNEL_WARPS = _KERNEL_THREADS // 32
+_GROUPED_TABLE_BYTES = 768 << 20  # K3g's per-warp tables, at most
+
+
+def _stage(has_spheres: bool) -> int:
+    """Floats between two lanes' staging rows of the peer scatter
+    (``shade_kernels.cu`` STAGE): the table columns, rounded up to odd."""
+    return 15 if has_spheres else 11
+
+
+def static_smem_bytes(num_prims: int, has_spheres: bool) -> int:
+    """Shared memory of one block of K3 (``grt_shade_bwd_smem``, grouped 0):
+    its tables (the table [P][rows], the 21 scalars, one [P][ntab] table and
+    21 scalars per warp), then the staging rows of the peer scatter. Raises
+    where the tables pass the 48 KiB the static tier takes; the staging rows
+    come on top (the kernel opts in past 48 KiB)."""
+    nrows = NROWS_TAB_SPH if has_spheres else NROWS_TAB
+    ntab = NTAB_SPH if has_spheres else NTAB
+    tables = 4 * (nrows * num_prims + NSCAL
+                  + _KERNEL_WARPS * (num_prims * ntab + NSCAL))
+    if tables > _SMEM_LIMIT:
+        raise ValueError(
+            f"the parameter table needs {tables} B of shared memory; the "
+            f"static tier stages at most {_SMEM_LIMIT} B: pass grouped=True")
+    return tables + 4 * _KERNEL_THREADS * _stage(has_spheres)
+
+
+def grouped_smem_bytes(has_spheres: bool) -> int:
+    """Shared memory of one block of K3g (``grt_shade_bwd_smem``, grouped
+    1): the staging rows of the peer scatter."""
+    return 4 * _KERNEL_THREADS * _stage(has_spheres)
+
+
+def grouped_blocks(n_local: int, num_prims: int, has_spheres: bool,
+                   blocks_per_sm: int, sms: int) -> int:
+    """Blocks of K3g's persistent grid (``grt_shade_bwd_grouped_blocks``) on
+    a card of ``sms`` SMs that hold ``blocks_per_sm`` blocks each: all of
+    them, at most one per ``_KERNEL_WARPS`` tiles of 32 pixels, and at most
+    as many as keep one partial table per warp within 768 MiB."""
+    tiles = (n_local + 31) // 32
+    row = num_prims * (NTAB_SPH if has_spheres else NTAB) + NSCAL
+    cap = _GROUPED_TABLE_BYTES // (4 * _KERNEL_WARPS * row)
+    return max(1, min(sms * blocks_per_sm,
+                      (tiles + _KERNEL_WARPS - 1) // _KERNEL_WARPS, cap))
 
 # Kernel launches since the process started (or since a caller reset them):
 # the wrapper adds one where it launches the kernel and nowhere else.
@@ -353,6 +397,10 @@ def _library() -> ctypes.CDLL:
         lib.grt_shade_bwd_blocks.restype = _INT
         lib.grt_shade_bwd_grouped_blocks.argtypes = [_INT] * 4
         lib.grt_shade_bwd_grouped_blocks.restype = _INT
+        lib.grt_shade_bwd_smem.argtypes = [_INT] * 3
+        lib.grt_shade_bwd_smem.restype = _INT
+        lib.grt_shade_bwd_blocks_per_sm.argtypes = [_INT] * 4
+        lib.grt_shade_bwd_blocks_per_sm.restype = _INT
     return lib
 
 
@@ -371,13 +419,9 @@ def shade_bwd_kernel(g: torch.Tensor, records: torch.Tensor, draws,
     n, P, has_spheres = _check_views(g, records, table, cam_vec, light_vec,
                                      config, dev)
     ntab = NTAB_SPH if has_spheres else NTAB
-    nrows = NROWS_TAB_SPH if has_spheres else NROWS_TAB
     _check_bounces(config)
-    smem = 4 * (nrows * P + NSCAL + _KERNEL_WARPS * (P * ntab + NSCAL))
-    if not grouped and smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"the parameter table needs {smem} B of shared memory; the "
-            f"static tier stages at most {_SMEM_LIMIT} B: pass grouped=True")
+    if not grouped:
+        static_smem_bytes(P, has_spheres)
     if draws is not None:
         if len(draws) != 6:
             raise ValueError(f"draws: expected 6 planes, got {len(draws)}")

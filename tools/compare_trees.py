@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
-"""Compare the variant-B trace kernels of two checkouts on one NVIDIA GPU.
+"""Compare the variant-B kernels of two checkouts on one NVIDIA GPU.
 
     python3 tools/compare_trees.py PARENT_DIR
 
 PARENT_DIR holds an earlier commit's ``gpuraytracer_tpu_torch`` package
 (unpacked from ``git archive``). A slice that redesigns a kernel runs this
 once, to show that the kernels it left alone compile to the parent's SASS
-and that the redesigned ones make the parent's decisions:
+and that the redesigned ones make the parent's decisions or sums:
 
   * K2's and K2g's images and records at the shapes of paths A-D, K and L
     (hdr, records_only, records + draws read + cull) must be equal by
     sha256 in both checkouts;
-  * every kernel other than ``path_kernel`` and ``path_grouped_kernel``
-    must compile to the same SASS (``cuobjdump -sass``);
-  * K2 at path A (hdr) is timed in each, in turns: parent, this, this,
-    parent.
+  * the backward's outputs (K3 at D and E and at S, the static tier's
+    limit with spheres: ``chip_smoke.spheres_at_static_limit`` in view at
+    128 x 96 x 4 spp; K3g at K and L; draws read, at D, E and S also
+    regenerated) on those records and a seeded cotangent are
+    compared by sha256, and where they differ, per output group, the
+    largest difference beside ``chip_smoke.compare_grads``' limit;
+  * every kernel other than ``shade_bwd_kernel`` and
+    ``shade_bwd_grouped_kernel`` must compile to the same SASS
+    (``cuobjdump -sass``); a kernel that only this checkout has is listed;
+  * K2 at path A (hdr), K3 at D and E and K3g at K and L are timed in each,
+    in turns: parent, this, this, parent.
 
 Each checkout runs ``--fingerprint`` in a process of its own with its
 package first on the path and ``chip_smoke.py``'s helpers from this
@@ -22,12 +29,15 @@ checkout. Prints one JSON object, then the card's name and power limit.
 """
 from __future__ import annotations
 
+import difflib
 import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
@@ -37,10 +47,12 @@ def sha(t) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy()).hexdigest()
 
 
-def fingerprint() -> dict:
-    """K2's and K2g's outputs in the checkout whose package this process
-    imports, through the wrappers every version of the port has: sha256 of
-    the images and records, K2's time at A (hdr), the built libraries."""
+def fingerprint(outdir: Path) -> dict:
+    """K2's, K2g's, K3's and K3g's outputs in the checkout whose package this
+    process imports, through the wrappers every version of the port has:
+    sha256 of the images, records and cotangents (the cotangents also saved
+    under ``outdir``), the times of K2 at A, K3 at D and E and K3g at K and
+    L, the built libraries."""
     import torch
 
     import chip_smoke as cs
@@ -87,8 +99,27 @@ def fingerprint() -> dict:
             out["hashes"][key + " records"] = sha(rec)
         del hdr, rec
         if key == "A hdr":
-            out["ms"][key] = cs.time_ms(launch)
+            out["ms"]["K2 " + key] = cs.time_ms(launch)
         del packed, draws
+        torch.cuda.empty_cache()
+    for label, scene_name, size, tess in (
+            ("D", "cornell", cs.BENCH, None), ("E", "cornell-spheres", cs.INVERSE, None),
+            ("S", None, cs.SMALL, None),
+            ("K", None, cs.BENCH, cs.TESS_K), ("L", None, cs.BENCH, cs.TESS_L)):
+        cfg = RenderConfig(**size)
+        scene = (cs.spheres_at_static_limit(cfg.resolution, in_view=True)
+                 if label == "S" else tess and cornell_box_tessellated(
+                     resolution=cfg.resolution, **tess))
+        sh = cs.ShadeInputs(scene_name, cfg, grouped=tess is not None, scene=scene)
+        for mode in ("read", "regenerated") if tess is None else ("read",):
+            got = sh.kernel(regenerate=mode == "regenerated")
+            key = f"{label} draws {mode}"
+            out["hashes"][f"{key} cotangents"] = sha(torch.cat([got[0].flatten(),
+                                                                 got[1]]))
+            torch.save([t.cpu() for t in got], outdir / f"{key}.pt")
+        if label != "S":
+            out["ms"][f"{'K3g' if tess else 'K3'} {label}"] = cs.time_ms(lambda: sh.kernel())
+        del sh
         torch.cuda.empty_cache()
     out["libraries"] = {lib.path.name.split("-")[0]: str(lib.path)
                         for lib in _build.load_libraries()}
@@ -98,7 +129,7 @@ def fingerprint() -> dict:
 def sass_by_function(lib_path: str) -> dict:
     """{mangled kernel name: its SASS text} of a built library. nvcc names a
     source's anonymous namespace after a hash of the file's path, so that
-    name is replaced by one the two checkouts share."""
+    name is replaced by one the two checkouts share; blanks are collapsed."""
     from gpuraytracer_tpu_torch.ops import _build
 
     cuobjdump = str(Path(_build.find_nvcc()).with_name("cuobjdump"))
@@ -109,14 +140,21 @@ def sass_by_function(lib_path: str) -> dict:
     out = {}
     for part in text.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
-        out[name.strip()] = body
+        # A function's listing ends at a line of dots; what follows the last
+        # one (the rest of the file's listing) is not its code. cuobjdump pads
+        # every line to the widest instruction of the whole file, so runs of
+        # blanks count as one.
+        body = re.split(r"\n\s*\.{5,}\s*(?:\n|$)", body)[0]
+        out[name.strip()] = re.sub(r"[ \t]+", " ", body)
     return out
 
 
-def run(root: Path) -> dict:
+def run(root: Path, outdir: Path) -> dict:
     """``--fingerprint`` with ``root``'s package first on the path."""
+    outdir.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run(
-        [sys.executable, "-P", str(Path(__file__).resolve()), "--fingerprint"],
+        [sys.executable, "-P", str(Path(__file__).resolve()), "--fingerprint",
+         str(outdir)],
         cwd=root, env=dict(os.environ, PYTHONPATH=f"{root}{os.pathsep}{HERE}"),
         capture_output=True, text=True)
     if proc.returncode != 0:
@@ -127,11 +165,23 @@ def run(root: Path) -> dict:
 
 def compare(parent: Path) -> dict:
     sys.path.insert(0, str(HERE))
+    work = Path(tempfile.mkdtemp(prefix="compare_trees_"))
+    try:
+        return _compare(parent, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _compare(parent: Path, work: Path) -> dict:
+    """``compare`` with the cotangents of each side saved under ``work``."""
+    import torch
+
     import chip_smoke as cs
     from gpuraytracer_tpu_torch.ops import _build
 
-    runs = [("parent", run(parent)), ("this", run(HERE)),
-            ("this, again", run(HERE)), ("parent, again", run(parent))]
+    runs = [("parent", run(parent, work / "parent")), ("this", run(HERE, work / "this")),
+            ("this, again", run(HERE, work / "this")),
+            ("parent, again", run(parent, work / "parent"))]
     first, mine = runs[0][1], runs[1][1]
     for label, r in runs:
         cs.log(f"  {label}: " + ", ".join(
@@ -139,28 +189,60 @@ def compare(parent: Path) -> dict:
             for k, v in r["ms"].items()))
     equal = {k: first["hashes"][k] == mine["hashes"].get(k)
              for k in first["hashes"]}
-    cs.log("  images and records equal by sha256: " + ", ".join(
+    cs.log("  equal by sha256: " + ", ".join(
         f"{k} {'yes' if v else 'NO'}" for k, v in equal.items()))
-    sass = {}
+    # Where the cotangents differ: per group, the largest difference over
+    # compare_grads' limit (atol + rtol * the group's largest magnitude).
+    cotangents = {}
+    for key in sorted(k[:-len(" cotangents")] for k in equal if k.endswith("cotangents")):
+        if equal[f"{key} cotangents"]:
+            continue
+        got, ref = (cs.grad_groups(*torch.load(work / side / f"{key}.pt"))
+                    for side in ("this", "parent"))
+        ratios = {}
+        for name, r in ref.items():
+            scale = r.abs().max().item()
+            rtol = (cs.SPHERE_GEOMETRY_RTOL if name in ("d center", "d radius")
+                    else cs.GRAD_RTOL)
+            ratios[name] = (got[name] - r).abs().max().item() / (cs.GRAD_ATOL
+                                                                  + rtol * scale)
+        cotangents[key] = ratios
+        cs.log(f"  {key}: largest difference over compare_grads' limit: " + ", ".join(
+            f"{name} {v:.2e}" for name, v in ratios.items()))
+    sass, new, listings = {}, [], {}
     for name in _build.SOURCES:
         a = sass_by_function(first["libraries"][f"lib{name}"])
         b = sass_by_function(mine["libraries"][f"lib{name}"])
+        listings[f"lib{name}"] = (a, b)
         for fn in sorted(set(a) | set(b)):
-            if "path_kernel" in fn or "path_grouped_kernel" in fn:
+            if "shade_bwd_kernel" in fn or "shade_bwd_grouped_kernel" in fn:
+                continue
+            if fn not in a:
+                new.append(f"{name}: {fn}")
                 continue
             sass[f"{name}: {fn}"] = a.get(fn) == b.get(fn)
     cs.log(f"  SASS of {len(sass)} other kernels equal: {sum(sass.values())}; "
-           f"differ: {[k for k, v in sass.items() if not v]}")
-    cs.check(all(equal.values()), f"images or records differ from {parent}")
-    cs.check(all(sass.values()), "kernels other than K2 and K2g changed SASS")
+           f"differ: {[k for k, v in sass.items() if not v]}; only in this "
+           f"checkout: {new}")
+    for key in (k for k, v in sass.items() if not v):
+        name, fn = key.split(": ")
+        diff = difflib.unified_diff(
+            listings[f"lib{name}"][0].get(fn, "").splitlines(),
+            listings[f"lib{name}"][1].get(fn, "").splitlines(), "parent", "this",
+            lineterm="", n=1)
+        cs.log(f"  {key}, first differing lines:\n" + "\n".join(list(diff)[:40]))
+    trace = {k: v for k, v in equal.items() if not k.endswith("cotangents")}
+    cs.check(all(trace.values()), f"images or records differ from {parent}")
+    cs.check(all(sass.values()), "kernels other than K3 and K3g changed SASS")
     return dict(ms={label: r["ms"] for label, r in runs}, hashes_equal=equal,
-                sass_equal=sass, card=cs.card_name_and_limit())
+                cotangents_over_limit=cotangents, sass_equal=sass, new_kernels=new,
+                card=cs.card_name_and_limit())
 
 
 def main() -> int:
     args = sys.argv[1:]
-    if args == ["--fingerprint"]:
-        print(json.dumps(fingerprint()), flush=True)
+    if len(args) == 2 and args[0] == "--fingerprint":
+        print(json.dumps(fingerprint(Path(args[1]))), flush=True)
         return 0
     if len(args) != 1:
         print("usage: python3 tools/compare_trees.py PARENT_DIR",
