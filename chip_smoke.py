@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --count-drift
-    python3 chip_smoke.py --split [K2 K2g K3 K3g K4 K4g K5 K5g]
+    python3 chip_smoke.py --split [K2 K2g K3 K3g K4 K4g K5 K5g K6 K7]
 
 Builds the CUDA kernels from the sources in this checkout, holds each against
 its plain PyTorch version on the card, renders six frames through the
@@ -31,8 +31,8 @@ the frame's 400 (``count_drift``). ``--split`` runs only a measurement of
 where the kernels' time goes: each rebuilt from a copy of the sources with
 one part taken out or changed (``SPLIT_EDITS``) and timed beside the
 unedited build, K2 at paths A-C, K2g at K and L, K3 at D and E, K3g at K and
-L, K4 at F-H, K5 at I, K4g and K5g at M and N (only the kernels named, where
-any are).
+L, K4 at F-H, K5 at I, K4g and K5g at M and N, K6 and K7 at J, at the
+recovery and at 800 x 600 x 16 (only the kernels named, where any are).
 
 Phases
   build   nvcc builds ops/csrc/path_kernels.cu, shade_kernels.cu,
@@ -99,7 +99,10 @@ Phases
           ``render_direct_soft_fused`` gives every scene tensor at 128 x 96,
           against autograd through ``cuda_soft.soft_replay`` on the same
           records and through the eager oracle ``render_direct_soft``; its
-          value against the trace kernel's at one bounce.
+          value against the trace kernel's at one bounce. Both kernels and
+          the entry point at the most primitives the path takes, 64
+          triangles and 127 spheres (K7's block past 48 KiB of shared
+          memory).
   J       ``grad.inverse.inverse_render(soft=True, fast=True)`` at 256 x 256
           x 4 spp, direct, kappa 0.1, 20 Adam steps from perturbed centers,
           albedo and emission (benchmarks/bench_config4.py's soft-fast line):
@@ -109,7 +112,9 @@ Phases
           tests/test_soft_fused.py's sphere-center recovery on the card: 32 x
           32 x 2 spp, 600 SGD steps at 3.5e2 with momentum 0.9, held to the
           JAX package's criteria (last loss below a tenth of the first,
-          center error halved); the trajectory is printed.
+          center error halved); the trajectory is printed; one trace, one
+          record and one backward launch per step, counted; 10 more steps
+          under ``torch.profiler`` for the card's time per step.
   grouped the grouped tier (more than 64 triangles) at 128 x 96 x 4 spp x 3
           bounces on the tessellated box (252 and 1,002 triangles) and on
           its 252-triangle walls with two analytic spheres, cull on and off:
@@ -392,6 +397,9 @@ SOFT_J = dict(width=256, height=256, spp=4, pixel_chunk=65536)
 SOFT_RECOVERY = dict(width=32, height=32, spp=2, pixel_chunk=1024)
 RECOVERY_SHIFTS = [[0.15, 0.0, -0.1], [-0.1, 0.05, 0.1]]
 RECOVERY_STEPS, RECOVERY_LR = 600, 3.5e2
+# The recovery's steps under the profiler (each profiled step costs about
+# a quarter of a second of the profiler's own host work).
+RECOVERY_PROFILED_STEPS = 10
 # Float32 operations of the silhouette kernels, counted by hand from
 # soft_kernels.cu like the counts above (one per multiply, add, divide,
 # square root, exp, compare, min, max or |x|; selects and negations not
@@ -2077,10 +2085,10 @@ class SoftInputs:
     parameter views and a cotangent from a seeded generator, divided by spp
     as the autograd glue hands it over."""
 
-    def __init__(self, cfg: RenderConfig, cull: bool):
+    def __init__(self, cfg: RenderConfig, cull: bool, scene=None):
         dev = torch.device("cuda")
         self.cfg = cfg
-        self.scene = cornell_box_with_spheres(resolution=cfg.resolution)
+        self.scene = scene or cornell_box_with_spheres(resolution=cfg.resolution)
         self.packed = cuda_path._pack_inputs(self.scene.to(dev), cfg)
         self.offsets = pixel_rng_offsets(cfg, dev)
         self.offsets_i32 = self.offsets.to(torch.int32).contiguous()
@@ -2144,23 +2152,58 @@ def compare_codes(what, got, ref):
     return share, err
 
 
+def silh_probe_counts(inp: SoftInputs):
+    """K6's shadow probes as it runs them, counted by its plain version on
+    every PREFILTER_STRIDE-th pixel of the frame: the share of the probes
+    that reach the light (of both probes of every item), and of their
+    triangle tests (every occluder) the share that passes both prefilters."""
+    pix = torch.arange(0, inp.cfg.num_pixels, PREFILTER_STRIDE,
+                       device=inp.offsets.device)
+    stats = {}
+    cuda_soft.silh_records_plain(inp.offsets[pix], inp.packed, inp.shadow_idx,
+                                 inp.cfg.replace(pixel_chunk=pix.numel()),
+                                 pix=pix, stats=stats)
+    return dict(reached=stats["reached"] / (stats["reached"] + stats["blocked"]),
+                passed=stats["passed"] / max(stats["triangles"], 1))
+
+
 def silh_bound(inp: SoftInputs):
-    """(bound_ms, bound_by) of one silhouette record pass: every (sample,
-    pixel) needs its record, so every lane's tests count — T closest-hit
-    and S sphere tests, two probes over the shadow list and the spheres,
-    the rest of the lane and its four radical inverses — against the
-    offsets read and the records written once."""
+    """(bound_ms, bound_by, counts) of one silhouette record pass: every
+    (sample, pixel) needs its record, so every lane's tests count: T
+    closest-hit tests (each to its divide) and S sphere tests, two shadow
+    probes, the rest of the lane and its four radical inverses, against the
+    offsets read and the records written once. A probe that reaches the
+    light tests every occluder at OPS_TRI_PREFILTER and the rest of a whole
+    test only where both prefilters pass, then every sphere; a blocked probe
+    at least one whole test (the records give both counts; the share that
+    passes is ``silh_probe_counts``', an estimate and so named ``est_``).
+    ``whole_tests_bound_ms``: every probe testing every occluder and sphere
+    to its divide, the count of the previous design."""
     cfg, n = inp.cfg, inp.cfg.num_pixels
     t, s, n_shadow = inp.num_tris, inp.packed.num_spheres, len(inp.shadow_idx)
+    _, occ_b, occ_s, _, _, _ = cuda_soft._decode(inp.codes)
+    blocked = int(occ_b.sum() + occ_s.sum())
+    reached = 2 * cfg.spp * n - blocked
+    share = silh_probe_counts(inp)["passed"]
     digits = sum(halton_digits(PRIMES[d], (1 << 20) + cfg.spp)
                  for d in range(4))
-    ops = cfg.spp * n * (t * OPS_TRI_CLOSEST + s * OPS_SPH_CLOSEST
-                         + 2 * (n_shadow * OPS_TRI_SHADOW
-                                + s * OPS_SPH_SHADOW)
-                         + OPS_SILH_LANE + OPS_HALTON_DIGIT * digits)
+    lane = (t * OPS_TRI_CLOSEST + s * OPS_SPH_CLOSEST + OPS_SILH_LANE
+            + OPS_HALTON_DIGIT * digits)
+    passed = int(reached * n_shadow * share)
+    ops = (cfg.spp * n * lane
+           + reached * (n_shadow * OPS_TRI_PREFILTER + s * OPS_SPH_SHADOW)
+           + passed * (OPS_TRI_SHADOW - OPS_TRI_PREFILTER)
+           + blocked * OPS_TRI_SHADOW)
+    whole_ops = cfg.spp * n * (lane + 2 * (n_shadow * OPS_TRI_SHADOW
+                                           + s * OPS_SPH_SHADOW))
     tables = 4 * (inp.packed.tri.numel() + inp.packed.sph.numel() + 18
                   + n_shadow)
-    return roofline(4 * n + 4 * cfg.spp * n + tables, ops)
+    nbytes = 4 * n + 4 * cfg.spp * n + tables
+    bound, by = roofline(nbytes, ops)
+    return bound, by, dict(probes_reached=reached, probes_blocked=blocked,
+                           est_pass_share_probe=share, est_passed_probe=passed,
+                           operations=int(ops),
+                           whole_tests_bound_ms=roofline(nbytes, whole_ops)[0])
 
 
 def soft_bwd_bound(inp: SoftInputs):
@@ -2204,6 +2247,84 @@ def soft_bwd_bound(inp: SoftInputs):
     return bound, by, counts
 
 
+def soft_scene_at_limit(resolution):
+    """cornell-spheres with seeded small triangles and spheres after its own
+    (its primitives keep their rows), to the most the silhouette path takes:
+    64 triangles and 127 spheres, P = 191. The added ones lie behind the back
+    wall, where no camera ray or shadow probe reaches them, so that no
+    silhouette of theirs grazes a pixel."""
+    scene = cornell_box_with_spheres(resolution=resolution)
+    tris, own = scene.triangles, scene.spheres
+    n_tri = cuda_path.STATIC_TIER_MAX - tris.num_triangles
+    n_sph = cuda_soft.MAX_SPHERES - own.center.shape[0]
+    rng = np.random.default_rng(cuda_soft.MAX_PRIMS)
+    behind = ((-2.0, -2.0, -4.0), (2.0, 2.0, -3.0))
+    verts = (rng.uniform(*behind, (n_tri, 1, 3))
+             + rng.uniform(-0.2, 0.2, (n_tri, 3, 3))).astype(np.float32)
+    extra = dict(verts=verts, diffuse=rng.uniform(0.2, 0.9, (n_tri, 3)),
+                 metallic=np.zeros(n_tri), roughness=np.full(n_tri, 0.5),
+                 emissive=np.zeros((n_tri, 3)))
+    tris = dataclasses.replace(tris, **{
+        name: torch.cat([getattr(tris, name),
+                         torch.as_tensor(value, dtype=torch.float32)])
+        for name, value in extra.items()})
+    spheres = make_spheres(
+        centers=rng.uniform(*behind, (n_sph, 3)), radii=rng.uniform(0.1, 0.3, n_sph),
+        materials=[dict(diffuse=tuple(rng.uniform(0.2, 0.9, 3)),
+                        roughness=float(rng.uniform(0.2, 0.8))) for _ in range(n_sph)])
+    spheres = dataclasses.replace(own, **{
+        f.name: torch.cat([getattr(own, f.name), getattr(spheres, f.name)])
+        for f in dataclasses.fields(own)})
+    return dataclasses.replace(scene, triangles=tris, spheres=spheres)
+
+
+def check_soft_limit():
+    """The silhouette path at the most primitives it takes (64 triangles and
+    127 spheres, ``soft_scene_at_limit``), where K7's block opts in past 48
+    KiB of shared memory: ``render_direct_soft_fused`` with gradients
+    launches K2, K6 and K7 once each and gives finite gradients; K6 against
+    its plain version, K7 against its plain version, two launches of each
+    equal; the rows of the added primitives, which no ray reaches, stay 0."""
+    cfg = soft_cfg(SOFT_SIZES[0])
+    scene = soft_scene_at_limit(cfg.resolution)
+    shape = f"{cfg.width}x{cfg.height} x {cfg.spp}"
+    grad_scene = with_grad(scene)
+    reset_launches()
+    hdr = cuda_soft.render_direct_soft_fused(grad_scene, cfg, SOFT_KAPPA)
+    grads = scene_grads(grad_scene, hdr)
+    launched = read_launches()
+    check(launched == launches_of(path_kernel=1, silh_kernel=1,
+                                  soft_bwd_kernel=1),
+          f"render_direct_soft_fused at the limit launched {launched}")
+    check(all(bool(torch.isfinite(g).all()) for g in grads.values()),
+          "render_direct_soft_fused at the limit: a gradient is not finite")
+    inp = SoftInputs(cfg, cull=False, scene=scene)
+    P = inp.table.shape[1]
+    check(P == cuda_soft.MAX_PRIMS, f"the scene at the limit has {P} primitives")
+    occ = soft_occupancy(inp)
+    check(occ["bwd_smem_bytes"] > 48 * 1024,
+          f"K7 at the limit takes {occ['bwd_smem_bytes']} B")
+    again = inp.silh_kernel()
+    torch.cuda.synchronize()
+    check(torch.equal(again, inp.codes), f"K6 at the limit {shape}: two launches differ")
+    compare_codes(f"K6 at the limit {shape}", inp.codes, inp.silh_plain())
+    got, again = inp.bwd_kernel(), inp.bwd_kernel()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"K7 at the limit {shape}: two launches differ")
+    ref = inp.bwd_plain()
+    own = cornell_box_with_spheres(resolution=cfg.resolution)
+    tris, spheres = own.triangles.num_triangles, own.spheres.num_spheres
+    added = torch.cat([torch.arange(tris, inp.num_tris),
+                       torch.arange(inp.num_tris + spheres, P)])
+    check(not got[0][added].any() and not ref[0][added].any(),
+          "K7 at the limit: a primitive no ray reaches has a cotangent")
+    compare_scaled(f"K7 at the limit {shape} ({P} primitives, "
+                   f"{occ['bwd_smem_bytes']} B, {occ['bwd_blocks_per_sm']} blocks "
+                   f"per SM, grid {occ['bwd_grid']})", grad_groups(*got),
+                   grad_groups(*ref), grad_groups(*inp.bwd_plain(nudge=True)))
+
+
 def phase_soft():
     """K6 against its plain version at three sizes, with and without the
     occluder cull; K7 against its plain version on K6's records and a seeded
@@ -2233,6 +2354,7 @@ def phase_soft():
             grad_groups(*inp.bwd_plain(nudge=True)))
         del inp, got, again
         torch.cuda.empty_cache()
+    check_soft_limit()
 
     cfg = soft_cfg(SOFT_SIZES[0])
     log(f"== soft: gradients of render_direct_soft_fused(scene).mean(), "
@@ -2354,8 +2476,12 @@ def phase_soft_train():
     warm_ms = 1e3 * (time.perf_counter() - start) / steps
     wall_ms, busy_ms, top = device_busy(lambda: fit(steps))
     k2_ms = profiled_ms("path_kernel") / steps
+    k6_ms = profiled_ms("silh_kernel") / steps
+    k7_ms = profiled_ms("soft_bwd_kernel") / steps
+    k7_reduction_ms = profiled_ms("reduce_partials") / steps
     share = f"{busy_ms / wall_ms:.1%}" if busy_ms else "not measured"
-    log(f"  path J: K2 under the profiler {k2_ms:.4f} ms per step")
+    log(f"  path J: under the profiler per step K2 {k2_ms:.4f} ms, K6 "
+        f"{k6_ms:.4f} ms, K7 {k7_ms:.4f} ms")
     log(f"  path J: loss {losses[0].item():.4e} -> {losses[-1].item():.4e} "
         f"in {steps} steps; {first_ms:.2f} ms per step in the first fit, "
         f"{warm_ms:.2f} ms warm (host clock); under the profiler "
@@ -2366,7 +2492,9 @@ def phase_soft_train():
     return launches, dict(first_call_ms=first_ms, warm_ms=warm_ms,
                           profiled_ms=wall_ms / steps,
                           device_busy_ms=busy_ms / steps,
-                          k2_profiled_ms=k2_ms,
+                          k2_profiled_ms=k2_ms, k6_profiled_ms=k6_ms,
+                          k7_profiled_ms=k7_ms,
+                          k7_reduction_profiled_ms=k7_reduction_ms,
                           loss_first=losses[0].item(),
                           loss_last=losses[-1].item())
 
@@ -2386,14 +2514,35 @@ def phase_soft_recovery():
     target = inverse.render_hdr(scene, cfg)
     init = true._replace(sphere_centers=true.sphere_centers
                          + torch.tensor(RECOVERY_SHIFTS))
+
+    def fit(steps):
+        result = inverse.inverse_render(
+            scene, target, init, cfg, steps=steps, soft=True, fast=True,
+            kappa=SOFT_KAPPA, optimizer=lambda params: torch.optim.SGD(
+                params, lr=RECOVERY_LR, momentum=0.9))
+        torch.cuda.synchronize()
+        return result
+
+    reset_launches()
     torch.cuda.synchronize()
     start = time.perf_counter()
-    result = inverse.inverse_render(
-        scene, target, init, cfg, steps=RECOVERY_STEPS, soft=True, fast=True,
-        kappa=SOFT_KAPPA, optimizer=lambda params: torch.optim.SGD(
-            params, lr=RECOVERY_LR, momentum=0.9))
-    torch.cuda.synchronize()
+    result = fit(RECOVERY_STEPS)
     seconds = time.perf_counter() - start
+    launches = read_launches()
+    check(launches == launches_of(path_kernel=RECOVERY_STEPS,
+                                  silh_kernel=RECOVERY_STEPS,
+                                  soft_bwd_kernel=RECOVERY_STEPS),
+          f"recovery: launches {launches}, expected one trace, one record "
+          "pass and one backward per step")
+    wall_ms, busy_ms, top = device_busy(lambda: fit(RECOVERY_PROFILED_STEPS))
+    per_step = {f"{key}_profiled_ms": profiled_ms(name) / RECOVERY_PROFILED_STEPS
+                for key, name in (("k2", "path_kernel"), ("k6", "silh_kernel"),
+                                  ("k7", "soft_bwd_kernel"),
+                                  ("k7_reduction", "reduce_partials"))}
+    log(f"  recovery under the profiler, {RECOVERY_PROFILED_STEPS} steps: "
+        f"{wall_ms / RECOVERY_PROFILED_STEPS:.3f} ms per step of which the card "
+        f"is busy {busy_ms / RECOVERY_PROFILED_STEPS:.4f} ms; per step "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in per_step.items()))
     losses = result.losses.cpu()
     centers = result.params.sphere_centers.cpu()
     err0 = (init.sphere_centers - true.sphere_centers).abs().max().item()
@@ -2408,66 +2557,117 @@ def phase_soft_recovery():
     check(losses[-1].item() < 0.1 * losses[0].item() and err1 < 0.5 * err0,
           f"recovery left the basin: loss {losses[0].item():.4e} -> "
           f"{losses[-1].item():.4e}, center error {err0:.4f} -> {err1:.4f}")
-    return dict(loss_first=losses[0].item(), loss_last=losses[-1].item(),
-                center_error_first=err0, center_error_last=err1,
-                seconds=seconds)
+    return launches, dict(
+        loss_first=losses[0].item(), loss_last=losses[-1].item(),
+        center_error_first=err0, center_error_last=err1, seconds=seconds,
+        profiled_step_ms=wall_ms / RECOVERY_PROFILED_STEPS,
+        device_busy_step_ms=busy_ms / RECOVERY_PROFILED_STEPS,
+        **per_step)
 
 
-def soft_rows(launches_j, resources):
-    """K6 and K7 at path J's shape, as path J launches them (no occluder
-    cull in soft mode): against their plain versions on the whole frame,
-    their times, their bounds from the records of the same frame."""
-    cfg = soft_cfg(SOFT_J)
-    inp = SoftInputs(cfg, cull=False)
-    shape = (f"J: {cfg.width}x{cfg.height} x {cfg.spp} spp, direct, "
-             f"{inp.num_tris} triangles, {inp.packed.num_spheres} spheres")
-    start = time.perf_counter()
-    ref = inp.silh_plain()
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - start)
-    share, err = compare_codes("K6 at J", inp.codes, ref)
-    k_ms = time_ms(inp.silh_kernel)
-    bound, by = silh_bound(inp)
-    res = resources["silh_kernel"]
-    rows = [dict(
-        name="silh_kernel", route="cuda", source=SOFT_SOURCE,
-        replaces=SILH_REPLACES, shape=shape,
-        launches=launches_j["silh_kernel"], max_abs_err=err,
-        flip_share=share, ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2],
-        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
-        registers=res["registers"], stack_bytes=res["stack_bytes"],
-        spill_store_bytes=res["spill_store_bytes"],
-        spill_load_bytes=res["spill_load_bytes"])]
+def soft_occupancy(inp: SoftInputs):
+    """K6's and K7's launch plans at ``inp``'s shape from the library, each
+    held against the wrapper's mirror: shared memory per block, blocks per
+    SM, grid (K7's partials are one row per block)."""
+    lib = cuda_soft._library()
+    tables = (inp.num_tris, len(inp.shadow_idx), inp.packed.num_spheres)
+    n, spp, prims = inp.cfg.num_pixels, inp.cfg.spp, inp.table.shape[1]
+    out = dict(silh_smem_bytes=lib.grt_silh_smem(*tables),
+               silh_blocks_per_sm=lib.grt_silh_blocks_per_sm(*tables),
+               silh_grid=lib.grt_silh_blocks(n, spp),
+               bwd_smem_bytes=lib.grt_soft_bwd_smem(prims),
+               bwd_blocks_per_sm=lib.grt_soft_bwd_blocks_per_sm(prims),
+               bwd_grid=lib.grt_soft_bwd_blocks(n, spp, prims))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    check(out["silh_blocks_per_sm"] > 0 and out["bwd_blocks_per_sm"] > 0,
+          f"an occupancy query of the silhouette kernels failed: {out}")
+    plan = dict(silh_smem_bytes=cuda_soft.silh_smem_bytes(*tables),
+                silh_grid=cuda_soft.silh_blocks(n, spp),
+                bwd_smem_bytes=cuda_soft.soft_bwd_smem_bytes(prims),
+                bwd_grid=cuda_soft.soft_bwd_blocks(
+                    n, spp, out["bwd_blocks_per_sm"], sms))
+    check(all(out[k] == v for k, v in plan.items()),
+          f"the silhouette kernels' plans {out} are not the wrapper's {plan}")
+    return out
 
-    got, again = inp.bwd_kernel(), inp.bwd_kernel()
-    torch.cuda.synchronize()
-    check(all(torch.equal(a, b) for a, b in zip(got, again)),
-          "K7 at J: two launches differ")
-    start = time.perf_counter()
-    ref = inp.bwd_plain()
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - start)
-    err = compare_scaled("K7 at J", grad_groups(*got), grad_groups(*ref),
-                         grad_groups(*inp.bwd_plain(nudge=True)))
-    k_ms = time_ms(inp.bwd_kernel)
-    bound, by, counts = soft_bwd_bound(inp)
-    res = resources["soft_bwd_kernel"]
-    rows.append(dict(
-        name="soft_bwd_kernel", route="cuda", source=SOFT_SOURCE,
-        replaces=SOFT_BWD_REPLACES, shape=shape,
-        launches=launches_j["soft_bwd_kernel"], max_abs_err=err,
-        ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2], plain_ms=plain_ms,
-        bound_ms=bound, bound_by=by, library_ms=None,
-        registers=res["registers"], stack_bytes=res["stack_bytes"],
-        spill_store_bytes=res["spill_store_bytes"],
-        spill_load_bytes=res["spill_load_bytes"], **counts))
-    for row in rows:
-        log(f"  {row['name']} @ {row['shape']}: kernel {row['ms']:.3f} ms "
-            f"(min {row['ms_min']:.3f}, max {row['ms_max']:.3f}), bound "
-            f"{row['bound_ms']:.4f} ms by {row['bound_by']}, plain "
-            f"{row['plain_ms']:.1f} ms, launches {row['launches']}, "
-            f"{row['registers']} registers, {row['stack_bytes']} B stack")
-    log(f"  K7 at J: {counts}")
+
+def soft_rows(launches_j, launches_recovery, path_j, recovery, resources):
+    """K6 and K7 at path J's shape and at the recovery's, as those paths
+    launch them (no occluder cull in soft mode): against their plain
+    versions on the whole frame, their times by CUDA events and by the
+    profiler's device time per step of that path's profiled fit (K7 apart
+    from its reduction), their launch plans and bounds from the records of
+    the same frame."""
+    rows = []
+    for label, size, launches, path in (
+            ("J", SOFT_J, launches_j, path_j),
+            ("recovery", SOFT_RECOVERY, launches_recovery, recovery)):
+        cfg = soft_cfg(size)
+        inp = SoftInputs(cfg, cull=False)
+        shape = (f"{label}: {cfg.width}x{cfg.height} x {cfg.spp} spp, direct, "
+                 f"{inp.num_tris} triangles, {inp.packed.num_spheres} spheres")
+        occ = soft_occupancy(inp)
+        start = time.perf_counter()
+        ref = inp.silh_plain()
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - start)
+        share, err = compare_codes(f"K6 at {label}", inp.codes, ref)
+        k_ms = time_ms(inp.silh_kernel)
+        bound, by, counts = silh_bound(inp)
+        res = resources["silh_kernel"]
+        rows.append(dict(
+            name="silh_kernel", route="cuda", source=SOFT_SOURCE,
+            replaces=SILH_REPLACES, shape=shape,
+            launches=launches["silh_kernel"], launches_per_step=1,
+            max_abs_err=err, flip_share=share, ms=k_ms[1], ms_min=k_ms[0],
+            ms_max=k_ms[2], profiled_ms=path["k6_profiled_ms"], plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+            smem_bytes=occ["silh_smem_bytes"],
+            blocks_per_sm=occ["silh_blocks_per_sm"], grid=occ["silh_grid"],
+            **resource_fields(res), **counts))
+
+        got, again = inp.bwd_kernel(), inp.bwd_kernel()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K7 at {label}: two launches differ")
+        start = time.perf_counter()
+        ref = inp.bwd_plain()
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - start)
+        err = compare_scaled(f"K7 at {label}", grad_groups(*got),
+                             grad_groups(*ref),
+                             grad_groups(*inp.bwd_plain(nudge=True)))
+        k_ms = time_ms(inp.bwd_kernel)
+        bound, by, counts = soft_bwd_bound(inp)
+        res = resources["soft_bwd_kernel"]
+        rows.append(dict(
+            name="soft_bwd_kernel", route="cuda", source=SOFT_SOURCE,
+            replaces=SOFT_BWD_REPLACES, shape=shape,
+            launches=launches["soft_bwd_kernel"], launches_per_step=1,
+            max_abs_err=err, ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2],
+            profiled_ms=path["k7_profiled_ms"],
+            reduction_profiled_ms=path["k7_reduction_profiled_ms"],
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+            smem_bytes=occ["bwd_smem_bytes"],
+            blocks_per_sm=occ["bwd_blocks_per_sm"], grid=occ["bwd_grid"],
+            partials=occ["bwd_grid"], **resource_fields(res), **counts))
+        for row in rows[-2:]:
+            log(f"  {row['name']} @ {row['shape']}: kernel {row['ms']:.4f} ms "
+                f"(min {row['ms_min']:.4f}, max {row['ms_max']:.4f}) by events, "
+                f"{row['profiled_ms']:.4f} ms device time"
+                + (f" + reduction {row['reduction_profiled_ms']:.4f}"
+                   if "reduction_profiled_ms" in row else "")
+                + f", bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+                f"plain {row['plain_ms']:.1f} ms, launches {row['launches']}, "
+                f"{row['registers']} registers, {row['stack_bytes']} B stack, "
+                f"{row['spill_store_bytes']} B spill stores, {row['smem_bytes']} B "
+                f"shared, {row['blocks_per_sm']} blocks per SM, grid {row['grid']}")
+        log(f"  K6 at {label}: {rows[-2]['probes_reached']} probes reach the light, "
+            f"{rows[-2]['probes_blocked']} blocked, prefilter pass share "
+            f"{rows[-2]['est_pass_share_probe']:.4f}; bound "
+            f"{rows[-2]['bound_ms']:.5f} ms, every test whole "
+            f"{rows[-2]['whole_tests_bound_ms']:.5f}")
+        log(f"  K7 at {label}: {counts}")
+        del inp, got, again, ref
     return rows
 
 
@@ -3963,6 +4163,102 @@ def k3g_tables(mib):
             f"constexpr size_t GROUPED_TABLE_BYTES = (size_t){mib} << 20;")
 
 
+# K6 and K7 (soft_kernels.cu): K6's probes testing every occluder to its
+# divide (trace.cuh's occluded, the previous design's), its closest hit
+# prefiltered, its occupancy; K7 without its scatter, with the butterflies
+# of the previous design over ten or all fourteen columns, at ptxas' own
+# occupancy or 5 blocks per SM, in blocks of one warp.
+K6_PROBE_TEXT = (
+    "  if (any_triangle_filtered(s_shadow, n_shadow, hx, hy, hz, ldx, ldy, ldz, 0.0f, "
+    "t_max)) {\n    return true;\n  }\n"
+    "  for (int k = 0; k < S; ++k) {\n    float t1, t2;\n"
+    "    const bool pos = sphere_roots(s_sph + SPH_ROWS * k, hx, hy, hz, ldx, ldy, ldz, "
+    "&t1,\n                                  &t2);\n"
+    "    if (pos && (((t1 > 0.0f) && (t1 < t_max)) || ((t2 > 0.0f) && (t2 < t_max)))) {\n"
+    "      return true;\n    }\n  }\n  return false;\n")
+K6_EDITS = {
+    "probes whole": [("soft_kernels.cu", K6_PROBE_TEXT,
+                      "  return grt::occluded(s_shadow, n_shadow, s_sph, S, hx, hy, hz, "
+                      "ldx, ldy, ldz, t_max);\n")],
+    "closest filtered": [(
+        "soft_kernels.cu",
+        "  closest_triangle(s_geo, T, ox, oy, oz, dx, dy, dz, RAY_TMIN, RAY_TMAX, &t_bg,",
+        "  grt::closest_triangle_filtered(s_geo, T, ox, oy, oz, dx, dy, dz, RAY_TMIN, "
+        "RAY_TMAX, &t_bg,")],
+}
+
+
+def k6_blocks(n):
+    return ("soft_kernels.cu",
+            "__global__ void __launch_bounds__(BLOCK_THREADS) silh_kernel(",
+            f"__global__ void __launch_bounds__(BLOCK_THREADS, {n}) silh_kernel(")
+
+
+K7_SCATTER_TEXT = (
+    "    unsigned rem = __ballot_sync(FULL, act_bg);\n"
+    "    if (rem != 0u) scatter_row<R_N>(rem, act_bg, key_bg, row_bg, my_wtab, lane);\n"
+    "    rem = __ballot_sync(FULL, act_s);\n"
+    "    if (rem != 0u) scatter_row<R_DF>(rem, act_s, key_s, row_s, my_wtab, lane);\n")
+K7_SCATTER_HEAD = "template <int C0>\n__device__ __forceinline__ void scatter_row("
+K7_MIN_BLOCKS = 4  # soft_kernels.cu's BWD_MIN_BLOCKS
+K7_EDITS = {
+    "scatter off": [("soft_kernels.cu", K7_SCATTER_TEXT,
+                     "    for (int k = 0; k < NTAB; ++k) ds[k] += (act_bg ? row_bg[k] : 0.0f)"
+                     " + (act_s ? row_s[k] : 0.0f);\n")],
+    # The previous design's butterflies (a five-shuffle sum per column and
+    # distinct primitive), over the ten columns a row can fill.
+    "ten-column butterflies": [
+        ("soft_kernels.cu", K7_SCATTER_HEAD,
+         "template <int C0>\n"
+         "__device__ __forceinline__ void scatter_cols(unsigned rem, bool act, int key,\n"
+         "                                             const float* row, float* table,\n"
+         "                                             int lane) {\n"
+         "  while (rem != 0u) {\n"
+         "    const int leader = __ffs(rem) - 1;\n"
+         "    const int k = __shfl_sync(FULL, key, leader);\n"
+         "    const bool mine = act && (key == k);\n"
+         "    rem &= ~__ballot_sync(FULL, mine);\n"
+         "    for (int c = C0; c < C0 + 10; ++c) {\n"
+         "      const float v = warp_sum(mine ? row[c] : 0.0f);\n"
+         "      if (lane == leader) table[k * NTAB + c] += v;\n"
+         "    }\n"
+         "  }\n"
+         "}\n\n" + K7_SCATTER_HEAD),
+        ("soft_kernels.cu", K7_SCATTER_TEXT, K7_SCATTER_TEXT.replace(
+            "scatter_row<", "scatter_cols<"))],
+    # The previous design's scatter as it was: butterflies over all fourteen.
+    "fourteen-column butterflies": [("soft_kernels.cu", K7_SCATTER_TEXT, (
+        "    unsigned rem = __ballot_sync(FULL, act_bg);\n"
+        "    if (rem != 0u) grt::warp_scatter_rows<NTAB>(rem, act_bg, key_bg, row_bg, "
+        "my_wtab, lane);\n"
+        "    rem = __ballot_sync(FULL, act_s);\n"
+        "    if (rem != 0u) grt::warp_scatter_rows<NTAB>(rem, act_s, key_s, row_s, "
+        "my_wtab, lane);\n"))],
+    "own occupancy": [("soft_kernels.cu",
+                       "__global__ void __launch_bounds__(BLOCK_THREADS, BWD_MIN_BLOCKS)",
+                       "__global__ void __launch_bounds__(BLOCK_THREADS)")],
+    "one-warp blocks": [("soft_kernels.cu", "constexpr int BLOCK_THREADS = 128;",
+                         "constexpr int BLOCK_THREADS = 32;")],
+    # The 21 scalars accumulated in the thread's own row of shared memory
+    # (21 floats a thread), not in registers.
+    "scalars shared": [
+        ("soft_kernels.cu",
+         "  float ds[NSCAL];\n  for (int k = 0; k < NSCAL; ++k) ds[k] = 0.0f;\n"
+         "  for (int tile",
+         "  float* ds = s_wscal + WARPS * NSCAL + threadIdx.x * NSCAL;\n"
+         "  for (int k = 0; k < NSCAL; ++k) ds[k] = 0.0f;\n  for (int tile"),
+        ("soft_kernels.cu",
+         "                          + (size_t)WARPS * ((size_t)num_prims * NTAB + NSCAL));",
+         "                          + (size_t)WARPS * ((size_t)num_prims * NTAB + NSCAL)\n"
+         "                          + (size_t)BLOCK_THREADS * NSCAL);")],
+}
+
+
+def k7_blocks(n):
+    return ("soft_kernels.cu", f"constexpr int BWD_MIN_BLOCKS = {K7_MIN_BLOCKS};",
+            f"constexpr int BWD_MIN_BLOCKS = {n};")
+
+
 SPLIT_EDITS = {
     "K2 without the prefilters (every probe tests every occluder)": (
         "K2", "path_kernels", [K2_EDITS["probe plain"]]),
@@ -4040,6 +4336,22 @@ SPLIT_EDITS = {
     "K3g at a minimum of 5 blocks per SM": ("K3g", "shade_kernels", [k3_blocks("K3g", 5)]),
     **{f"K3g with its tables capped at {mib} MiB": ("K3g", "shade_kernels",
                                                    [k3g_tables(mib)]) for mib in (512, 1024)},
+    "K6, the probes testing every occluder to its divide": (
+        "K6", "soft_kernels", K6_EDITS["probes whole"]),
+    "K6, the closest hit prefiltered": ("K6", "soft_kernels", K6_EDITS["closest filtered"]),
+    "K6 at a minimum of 12 blocks per SM": ("K6", "soft_kernels", [k6_blocks(12)]),
+    "K7 without the scatter (each lane adds its rows to its own scalars)": (
+        "K7", "soft_kernels", K7_EDITS["scatter off"]),
+    "K7, butterflies over the ten columns": (
+        "K7", "soft_kernels", K7_EDITS["ten-column butterflies"]),
+    "K7, butterflies over all fourteen columns": (
+        "K7", "soft_kernels", K7_EDITS["fourteen-column butterflies"]),
+    "K7 at ptxas' own occupancy (no minimum of blocks per SM)": (
+        "K7", "soft_kernels", K7_EDITS["own occupancy"]),
+    "K7 at a minimum of 5 blocks per SM": ("K7", "soft_kernels", [k7_blocks(5)]),
+    "K7 in blocks of one warp": ("K7", "soft_kernels", K7_EDITS["one-warp blocks"]),
+    "K7, the 21 scalars in shared memory": ("K7", "soft_kernels",
+                                            K7_EDITS["scalars shared"]),
 }
 
 
@@ -4076,7 +4388,48 @@ def split_builds(edits):
 SPLIT_PTXAS = {"K2": "path_kernel<", "K2g": "path_grouped_kernel<",
                "K4": "mis_kernel<", "K4g": "mis_grouped_kernel<",
                "K5": "mis_bwd_kernel<", "K5g": "mis_bwd_grouped_kernel<",
-               "K3": "shade_bwd_kernel<", "K3g": "shade_bwd_grouped_kernel<"}
+               "K3": "shade_bwd_kernel<", "K3g": "shade_bwd_grouped_kernel<",
+               "K6": "silh_kernel", "K7": "soft_bwd_kernel"}
+# The kernels split() also times by the profiler's device time, apart from
+# their reduction: the name the profiler gives each.
+SPLIT_PROFILED = {"K3g": "shade_bwd_grouped", "K6": "silh_kernel",
+                  "K7": "soft_bwd_kernel"}
+
+
+def warp_keys(key):
+    """Per warp of 32 lanes (the last axis of ``key``; -1 where a lane adds
+    no row): the distinct keys, the most lanes on one key, and whether any
+    lane adds a row."""
+    key = key.sort(dim=-1).values
+    new = torch.ones_like(key, dtype=torch.bool)
+    new[..., 1:] = key[..., 1:] != key[..., :-1]
+    distinct = (new & (key >= 0)).sum(dim=-1)
+    pos = torch.arange(32, device=key.device).expand_as(key)
+    start = torch.where(new, pos, torch.zeros_like(pos)).cummax(dim=-1).values
+    largest = torch.where(key >= 0, pos - start + 1,
+                          torch.zeros_like(pos)).amax(dim=-1)
+    return distinct, largest, key[..., -1] >= 0
+
+
+def soft_scatter_keys(inp: SoftInputs):
+    """K7's two scatters per warp-sample from the records: per 32 consecutive
+    (sample, pixel) items of the [spp, N] records (a warp of K7), the
+    distinct primitives among the lanes that add a background row (a hit
+    not behind a front sphere) and a sphere row (front or potential), and
+    the most lanes on one; means over the warps with such a lane, and the
+    share of warps that have one."""
+    prim, _, _, front, pot, s_idx = cuda_soft._decode(inp.codes)
+    keys = {"background": torch.where(~front & (prim >= 0), prim, -1),
+            "sphere": torch.where(front | pot, inp.num_tris + s_idx, -1)}
+    out = {}
+    for name, key in keys.items():
+        key = key.flatten()
+        key = torch.cat([key, key.new_full(((-key.numel()) % 32,), -1)])
+        distinct, largest, live = warp_keys(key.view(-1, 32))
+        out[name] = (round(distinct[live].float().mean().item(), 3),
+                     round(largest[live].float().mean().item(), 3),
+                     round(live.float().mean().item(), 3))
+    return out
 
 
 def scatter_rounds(sh: ShadeInputs):
@@ -4089,15 +4442,7 @@ def scatter_rounds(sh: ShadeInputs):
     alive, _ = live_lanes(sh.records, sh.trace.packed)
     prim = (sh.records & (cuda_path.OCC_BIT - 1)).long()
     key = torch.where(alive & (prim > 0), prim, torch.full_like(prim, -1))
-    key = key.view(*key.shape[:2], -1, 32).sort(dim=-1).values
-    new = torch.ones_like(key, dtype=torch.bool)
-    new[..., 1:] = key[..., 1:] != key[..., :-1]
-    distinct = (new & (key >= 0)).sum(dim=-1)
-    pos = torch.arange(32, device=key.device).expand_as(key)
-    start = torch.where(new, pos, torch.zeros_like(pos)).cummax(dim=-1).values
-    largest = torch.where(key >= 0, pos - start + 1,
-                          torch.zeros_like(pos)).amax(dim=-1)
-    live = key[..., -1] >= 0
+    distinct, largest, live = warp_keys(key.view(*key.shape[:2], -1, 32))
     out = {}
     for b in range(key.shape[1]):
         m = live[:, b]
@@ -4115,15 +4460,17 @@ def split(kernels=None):
     at A and B (hdr) and C (records + draws + cull), K2g at K and L (records
     + draws + cull), K4 at F and G (hdr) and H (records + cull), K5 at I
     (both scenes), K4g and K5g at M and N, K3 at D and E and K3g at K and L
-    (draws read, as those paths launch them). ``kernels``: only these (all
-    by default); a redesign slice splits its own kernels alone."""
+    (draws read, as those paths launch them), K6 and K7 at J, at the
+    recovery and at 800 x 600 x 16 (no cull, as J and the recovery launch
+    them). ``kernels``: only these (all by default); a redesign slice
+    splits its own kernels alone."""
     kernels = set(kernels or SPLIT_PTXAS)
     log("== split: the kernels with one part taken out or changed: "
         + ", ".join(sorted(kernels)))
     started = time.perf_counter()
     own = {name: _build.load_library(name)
            for name in ("path_kernels", "mis_kernels", "mis_bwd_kernels",
-                        "shade_kernels")}
+                        "shade_kernels", "soft_kernels")}
     variants = split_builds({what: e for what, e in SPLIT_EDITS.items()
                              if e[0] in kernels})
     out = {"ptxas": {}}
@@ -4152,12 +4499,14 @@ def split(kernels=None):
             ms = time_ms(fn, repeats=3)
             out.setdefault(key, {})[what] = ms
             part = ""
-            if kernel == "K3g":
-                # K3g and its reduction apart, by device time under the profiler.
+            if kernel in SPLIT_PROFILED:
+                # The kernel and its reduction apart, by device time under the
+                # profiler.
                 device_busy(lambda: [fn() for _ in range(3)])
-                parts = (profiled_ms("shade_bwd_grouped") / 3, profiled_ms("reduce_") / 3)
+                parts = (profiled_ms(SPLIT_PROFILED[kernel]) / 3,
+                         profiled_ms("reduce_") / 3)
                 out.setdefault(key + " kernel / reduction", {})[what] = parts
-                part = f"; profiled: kernel {parts[0]:.3f} ms, reduction {parts[1]:.3f} ms"
+                part = f"; profiled: kernel {parts[0]:.4f} ms, reduction {parts[1]:.4f} ms"
             log(f"  {key}: {what}: {ms[1]:.3f} ms (min {ms[0]:.3f}, max {ms[2]:.3f})"
                 + part)
         _build._LOADED[name] = own[name]
@@ -4199,6 +4548,16 @@ def split(kernels=None):
         bw = MisBwdInputs(scene_name, RenderConfig(integrator="mis", **MIS_BENCH))
         return f"I {scene_name}", {"K5": ("mis_bwd_kernels", bw.kernel)}
 
+    def soft(label, size):
+        inp = SoftInputs(soft_cfg(size), cull=False)
+        key = f"{label} {inp.cfg.width}x{inp.cfg.height} x {inp.cfg.spp}"
+        keys = soft_scatter_keys(inp)
+        out.setdefault("scatter_keys", {})[key] = keys
+        log(f"  {key}: K7's distinct primitives per warp-sample, the most lanes "
+            f"on one, the share of warps with a row: {keys}")
+        return key, {"K6": ("soft_kernels", inp.silh_kernel),
+                     "K7": ("soft_kernels", inp.bwd_kernel)}
+
     mis_scenes = []  # paths M and N, made at first use
 
     def mis_grouped(i):
@@ -4228,6 +4587,9 @@ def split(kernels=None):
         ({"K5"}, lambda: mis_bwd("cornell")),
         ({"K5"}, lambda: mis_bwd("cornell-spheres")),
         *[({"K4g", "K5g"}, lambda i=i: mis_grouped(i)) for i in range(3)],
+        ({"K6", "K7"}, lambda: soft("J", SOFT_J)),
+        ({"K6", "K7"}, lambda: soft("recovery", SOFT_RECOVERY)),
+        ({"K6", "K7"}, lambda: soft("frame", SOFT_SIZES[-1])),
     ]
     for timed, make in shapes:
         if not timed & kernels:
@@ -4393,7 +4755,8 @@ def main() -> int:
         mis_grad = timed("MIS gradients", phase_mis_grad)
         soft_small = timed("soft", phase_soft)
         launches["J"], path_j = timed("J", phase_soft_train)
-        recovery = timed("soft recovery", phase_soft_recovery)
+        launches["recovery"], recovery = timed("soft recovery",
+                                               phase_soft_recovery)
         grouped_small = timed("grouped", phase_grouped)
         launches["K"], path_k = timed("K", phase_grouped_path, "K", TESS_K,
                                       steps=4)
@@ -4410,7 +4773,8 @@ def main() -> int:
         rows, small_ms, mis_plain = timed("full", phase_full, launches,
                                           plain_small, resources)
         rows += timed("K5 rows", mis_bwd_rows, path_i, resources)
-        rows += timed("K6 and K7 rows", soft_rows, launches["J"], resources)
+        rows += timed("K6 and K7 rows", soft_rows, launches["J"],
+                      launches["recovery"], path_j, recovery, resources)
         rows += timed("K2 at J row", k2_at_j_row, launches["J"], path_j,
                       resources)
         rows += timed("K2g and K3g rows", grouped_rows, launches, resources)

@@ -22,11 +22,27 @@
 //
 // Bound on this card: OPERATIONS.  Per (sample, pixel) T closest-hit tests,
 // S sphere tests and two shadow probes (n_shadow triangle and S sphere tests
-// each) against 4 B of record written.  Design: one thread per pixel, the
-// sample loop inside the thread; the triangle table, the compacted occluder
-// list and the spheres staged once per block in shared memory (a warp reads
-// one triangle from one address: a broadcast); the record store of a warp
-// is one contiguous 128-byte line.
+// each, to the first occluder) against 4 B of record written.  Design:
+//   * one thread per (sample, pixel) item, the pixel minor-most as the
+//     records are: at path J 262,144 threads where one thread per pixel,
+//     the samples looped inside it, ran 65,536 on 15.5 warps per SM (with
+//     the probes below, the items took J's device time from 0.040 to 0.030
+//     ms and the recovery's from 0.014 to 0.008; PERF.md).  A warp's record
+//     store is one contiguous 128-byte line;
+//   * the triangle table, the compacted occluder list and the spheres staged
+//     once per block in shared memory (a warp reads one triangle from one
+//     address: a broadcast);
+//   * both shadow probes take trace.cuh's prefiltered any-hit loop at t_min
+//     = 0 (any_triangle_filtered, as path_kernel's probe does): the divide
+//     only where two exact conditions hold, and the loop ends at the first
+//     occluder; the spheres are tested only where no triangle blocks, and
+//     their loop ends at the first hit.  The same bits as testing every
+//     occluder to its divide (trace.cuh proves the prefilters exact; the
+//     probe's decision is an OR);
+//   * the closest hit tests every triangle to its divide (closest_triangle),
+//     blocks of 128 at ptxas' own occupancy: the prefiltered closest hit was
+//     4 % slower at J and at the recovery (4 % faster at 800x600 x 16), a
+//     minimum of 12 or 16 blocks per SM no faster (PERF.md).
 //
 // ---------------------------------------------------------------------------
 // soft_bwd_kernel  replaces  gpuraytracer_tpu/ops/pallas_soft.py:_soft_bwd_kernel
@@ -47,19 +63,37 @@
 //
 // Bound on this card: OPERATIONS — a few hundred f32 operations per live
 // (pixel, sample) against 4 B of record.  Design:
-//   * one thread per pixel, samples looped inside the thread; the table,
-//     camera and light staged once per block in shared memory, the two
-//     attribute fetches indexed shared-memory reads, the background one
-//     gated on the hit (a miss reads no row);
-//   * per sample the forward and its reverse in registers; work a lane does
+//   * one thread per (sample, pixel) item on a persistent grid: the blocks
+//     the card holds at once (grt::persistent_blocks), at most one per four
+//     32-item tiles; warp w of the grid takes the tiles w, w + (warps of the
+//     grid), ... in that order.  The partials are one per resident block,
+//     whatever the frame (the previous design, one thread per pixel with
+//     the samples looped inside, ran 512 blocks at path J in two waves on 3
+//     blocks per SM, and 3,750 partials at 800x600 x 16);
+//   * compiled for 4 blocks of 128 per SM (BWD_MIN_BLOCKS: 128 registers
+//     and 56 B of spills, 12-14 % faster at J than ptxas' own 3 blocks;
+//     PERF.md);
+//   * the table, camera and light staged once per block in shared memory,
+//     the two attribute fetches indexed shared-memory reads, the background
+//     one gated on the hit (a miss reads no row);
+//   * per item the forward and its reverse in registers; work a lane does
 //     not need is skipped (the sphere layer where neither front nor
 //     potential, its reverse where not front, the background's reverse where
 //     the sphere is in front or the probe was blocked);
-//   * sums in a FIXED order, without float atomics (reduce.cuh): each
-//     sample's two rows go to a per-warp table by shuffles over the lanes
-//     that share a primitive, the 21 scalars accumulate in registers; per
+//   * sums in a FIXED order, without float atomics (reduce.cuh): each item's
+//     two rows go to a per-warp table in shared memory, the lanes that share
+//     a primitive summed first (scatter_row: a reduce-scatter of the ten
+//     columns a row can fill, one round per distinct primitive of the
+//     warp; at J a warp's lanes hold 1.5 distinct background and 1.1
+//     sphere primitives, 22-24 lanes on one: the peer scatter of K3 took 43
+//     % more time, the butterflies over ten or fourteen columns 2 or 8 %);
+//     the 21 scalars accumulate in registers; per
 //     block one partial; reduce_partials_kernel sums them in float64.  Two
-//     launches on equal inputs give equal bits.
+//     launches on equal inputs give equal bits;
+//   * the table and the per-warp tables take 4 (16 P + 21 + 4 (14 P + 21))
+//     B of shared memory: 55,428 B at the most primitives the silhouette
+//     path takes (64 triangles and 127 spheres, P = 191), opted in above
+//     48 KiB; 4 blocks of it fit an SM.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -75,10 +109,9 @@ using grt::camera_jitter;
 using grt::closest_triangle;
 using grt::GEO_ROWS;
 using grt::halton;
-using grt::occluded;
+using grt::any_triangle_filtered;
 using grt::SPH_ROWS;
 using grt::sphere_roots;
-using grt::warp_scatter_rows;
 using grt::warp_sum;
 
 constexpr float BIG = 1e30f;
@@ -87,6 +120,13 @@ constexpr float RAY_TMAX = 1e3f;
 constexpr int ISEM_ROW = 15;    // is_emissive row of the packed triangle table
 constexpr int BLOCK_THREADS = 128;
 constexpr int WARPS = BLOCK_THREADS / 32;
+// Blocks per SM that soft_bwd_kernel is compiled for (PERF.md: 128 registers
+// and 56 B of spills at 4, against ptxas' own 142 registers at 3; 5 spill
+// 288 B and are slower).
+constexpr int BWD_MIN_BLOCKS = 4;
+// The most primitives the silhouette path takes: 64 triangles (the static
+// tier) and 127 spheres (s* + 1 fills the code's 7 bits above bit 24).
+constexpr int MAX_PRIMS = 64 + 127;
 constexpr int NROWS = 16;       // parameter table rows
 constexpr int NTAB = 14;        // cotangent columns
 constexpr int NSCAL = 21;       // camera 12 | light center, color, normal
@@ -120,7 +160,8 @@ struct SilhParams {
 
 // Shadow bit of the light sample (half-extent square about the light center,
 // draws w0, w1 in [-1, 1)) seen from h: any hit in (0, dist - 1e-3) over the
-// occluder list and every sphere.
+// occluder list (prefiltered, to the first occluder) and, where none blocks,
+// the spheres (to the first hit).
 __device__ __forceinline__ bool light_blocked(const float* s_shadow, int n_shadow,
                                               const float* s_sph, int S,
                                               const float* lc, float he, float w0,
@@ -130,8 +171,20 @@ __device__ __forceinline__ bool light_blocked(const float* s_shadow, int n_shado
   const float tlz = lc[2] + he * w1 - hz;
   const float dist = sqrtf(fmaxf(tlx * tlx + tly * tly + tlz * tlz, 0.0f));
   const float inv_d = 1.0f / fmaxf(dist, 1e-3f);
-  return occluded(s_shadow, n_shadow, s_sph, S, hx, hy, hz, tlx * inv_d, tly * inv_d,
-                  tlz * inv_d, dist - 1e-3f);
+  const float ldx = tlx * inv_d, ldy = tly * inv_d, ldz = tlz * inv_d;
+  const float t_max = dist - 1e-3f;
+  if (any_triangle_filtered(s_shadow, n_shadow, hx, hy, hz, ldx, ldy, ldz, 0.0f, t_max)) {
+    return true;
+  }
+  for (int k = 0; k < S; ++k) {
+    float t1, t2;
+    const bool pos = sphere_roots(s_sph + SPH_ROWS * k, hx, hy, hz, ldx, ldy, ldz, &t1,
+                                  &t2);
+    if (pos && (((t1 > 0.0f) && (t1 < t_max)) || ((t2 > 0.0f) && (t2 < t_max)))) {
+      return true;
+    }
+  }
+  return false;
 }
 
 __global__ void __launch_bounds__(BLOCK_THREADS) silh_kernel(const SilhParams p) {
@@ -158,8 +211,11 @@ __global__ void __launch_bounds__(BLOCK_THREADS) silh_kernel(const SilhParams p)
   }
   __syncthreads();
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n) return;
+  // Item n * N + i: sample n of pixel i, the record's own index.
+  const int item = blockIdx.x * blockDim.x + threadIdx.x;
+  if (item >= p.n * p.spp) return;
+  const int n = item / p.n;
+  const int i = item - n * p.n;
   const float px = (float)(i % p.width);
   const float py = (float)(i / p.width);
   const float fW = (float)p.width, fH = (float)p.height;
@@ -168,81 +224,79 @@ __global__ void __launch_bounds__(BLOCK_THREADS) silh_kernel(const SilhParams p)
   const float* lc = p.light;
   const float he = p.half_extent;
 
-  for (int n = 0; n < p.spp; ++n) {
-    const uint32_t ih = off + (uint32_t)n;
-    float jx, jy;
-    camera_jitter(ih, p.spp, p.strat_k, p.inv_k, &jx, &jy);
-    const float s = ((px + jx) / fW) * 2.0f - 1.0f;
-    const float t = -(((py + jy) / fH) * 2.0f - 1.0f);
-    const float rx = s * cam[3] + t * cam[6] - cam[9];
-    const float ry = s * cam[4] + t * cam[7] - cam[10];
-    const float rz = s * cam[5] + t * cam[8] - cam[11];
-    const float rn = sqrtf(rx * rx + ry * ry + rz * rz);
-    const float dx = rx / rn, dy = ry / rn, dz = rz / rn;
-    const float ox = cam[0], oy = cam[1], oz = cam[2];
+  const uint32_t ih = off + (uint32_t)n;
+  float jx, jy;
+  camera_jitter(ih, p.spp, p.strat_k, p.inv_k, &jx, &jy);
+  const float s = ((px + jx) / fW) * 2.0f - 1.0f;
+  const float t = -(((py + jy) / fH) * 2.0f - 1.0f);
+  const float rx = s * cam[3] + t * cam[6] - cam[9];
+  const float ry = s * cam[4] + t * cam[7] - cam[10];
+  const float rz = s * cam[5] + t * cam[8] - cam[11];
+  const float rn = sqrtf(rx * rx + ry * ry + rz * rz);
+  const float dx = rx / rn, dy = ry / rn, dz = rz / rn;
+  const float ox = cam[0], oy = cam[1], oz = cam[2];
 
-    // ---- background: triangle-only closest hit, index order, strict <
-    float t_bg = BIG;
-    int prim_bg = -1;
-    closest_triangle(s_geo, T, ox, oy, oz, dx, dy, dz, RAY_TMIN, RAY_TMAX, &t_bg,
-                     &prim_bg);
-    const bool bg_hit = t_bg < BIG * 0.5f;
+  // ---- background: triangle-only closest hit, index order, strict <
+  float t_bg = BIG;
+  int prim_bg = -1;
+  closest_triangle(s_geo, T, ox, oy, oz, dx, dy, dz, RAY_TMIN, RAY_TMAX, &t_bg,
+                   &prim_bg);
+  const bool bg_hit = t_bg < BIG * 0.5f;
 
-    // ---- sphere candidate: first minimum of the masked roots
-    int s_idx = 0;
-    float t_s = 0.0f, masked_b = BIG;
-    bool valid_b = false;
-    for (int k = 0; k < S; ++k) {
-      float t1, t2;
-      const bool pos = sphere_roots(s_sph + SPH_ROWS * k, ox, oy, oz, dx, dy, dz,
-                                    &t1, &t2);
-      const bool t1_ok = (t1 > RAY_TMIN) && (t1 < RAY_TMAX);
-      const bool t2_ok = (t2 > RAY_TMIN) && (t2 < RAY_TMAX);
-      const float tt = t1_ok ? t1 : t2;
-      const bool valid = pos && (t1_ok || t2_ok);
-      const float masked = valid ? tt : BIG;
-      if (k == 0 || masked < masked_b) {
-        masked_b = masked; valid_b = valid; t_s = tt; s_idx = k;
-      }
+  // ---- sphere candidate: first minimum of the masked roots
+  int s_idx = 0;
+  float t_s = 0.0f, masked_b = BIG;
+  bool valid_b = false;
+  for (int k = 0; k < S; ++k) {
+    float t1, t2;
+    const bool pos = sphere_roots(s_sph + SPH_ROWS * k, ox, oy, oz, dx, dy, dz,
+                                  &t1, &t2);
+    const bool t1_ok = (t1 > RAY_TMIN) && (t1 < RAY_TMAX);
+    const bool t2_ok = (t2 > RAY_TMIN) && (t2 < RAY_TMAX);
+    const float tt = t1_ok ? t1 : t2;
+    const bool valid = pos && (t1_ok || t2_ok);
+    const float masked = valid ? tt : BIG;
+    if (k == 0 || masked < masked_b) {
+      masked_b = masked; valid_b = valid; t_s = tt; s_idx = k;
     }
-    const bool front = valid_b && (t_s < t_bg);
-    const float* sc = s_sph + SPH_ROWS * s_idx;
-    const float t_ca = (sc[0] - ox) * dx + (sc[1] - oy) * dy + (sc[2] - oz) * dz;
-    const bool pot = (t_ca > RAY_TMIN) && (t_ca < t_bg);
-
-    const float w0 = halton(ih, 2) * 2.0f - 1.0f;
-    const float w1 = halton(ih, 3) * 2.0f - 1.0f;
-
-    // ---- sphere layer probe: normal at where(front, t_s, 1), point at
-    // where(front, t_s, 0)
-    const float ts_n = front ? t_s : 1.0f;
-    const float ts_p = front ? t_s : 0.0f;
-    const float tox = (ox + dx * ts_n) - sc[0];
-    const float toy = (oy + dy * ts_n) - sc[1];
-    const float toz = (oz + dz * ts_n) - sc[2];
-    const float inv_n = 1.0f / sqrtf(fmaxf(tox * tox + toy * toy + toz * toz, 1e-6f));
-    const bool occ_s = light_blocked(
-        s_shadow, NS, s_sph, S, lc, he, w0, w1, ox + dx * ts_p + (tox * inv_n) * 1e-3f,
-        oy + dy * ts_p + (toy * inv_n) * 1e-3f, oz + dz * ts_p + (toz * inv_n) * 1e-3f);
-
-    // ---- background probe from the winner's plane normal (zero on a miss)
-    float bnx = 0.0f, bny = 0.0f, bnz = 0.0f, b_isem = 0.0f;
-    if (bg_hit) {
-      const float* g = s_geo + GEO_ROWS * prim_bg;
-      bnx = g[0]; bny = g[1]; bnz = g[2];
-      b_isem = s_isem[prim_bg];
-    }
-    const bool tri_surf = bg_hit && (b_isem < 0.5f);
-    const float tb_p = tri_surf ? t_bg : 0.0f;
-    const bool occ_b = light_blocked(s_shadow, NS, s_sph, S, lc, he, w0, w1,
-                                     ox + dx * tb_p + bnx * 1e-3f,
-                                     oy + dy * tb_p + bny * 1e-3f,
-                                     oz + dz * tb_p + bnz * 1e-3f);
-
-    p.codes[(size_t)n * p.n + i] =
-        (prim_bg + 1) + (occ_b ? B_OCCB : 0) + (occ_s ? B_OCCS : 0)
-        + (front ? B_FRONT : 0) + (pot ? B_POT : 0) + ((s_idx + 1) << SIDX_SHIFT);
   }
+  const bool front = valid_b && (t_s < t_bg);
+  const float* sc = s_sph + SPH_ROWS * s_idx;
+  const float t_ca = (sc[0] - ox) * dx + (sc[1] - oy) * dy + (sc[2] - oz) * dz;
+  const bool pot = (t_ca > RAY_TMIN) && (t_ca < t_bg);
+
+  const float w0 = halton(ih, 2) * 2.0f - 1.0f;
+  const float w1 = halton(ih, 3) * 2.0f - 1.0f;
+
+  // ---- sphere layer probe: normal at where(front, t_s, 1), point at
+  // where(front, t_s, 0)
+  const float ts_n = front ? t_s : 1.0f;
+  const float ts_p = front ? t_s : 0.0f;
+  const float tox = (ox + dx * ts_n) - sc[0];
+  const float toy = (oy + dy * ts_n) - sc[1];
+  const float toz = (oz + dz * ts_n) - sc[2];
+  const float inv_n = 1.0f / sqrtf(fmaxf(tox * tox + toy * toy + toz * toz, 1e-6f));
+  const bool occ_s = light_blocked(
+      s_shadow, NS, s_sph, S, lc, he, w0, w1, ox + dx * ts_p + (tox * inv_n) * 1e-3f,
+      oy + dy * ts_p + (toy * inv_n) * 1e-3f, oz + dz * ts_p + (toz * inv_n) * 1e-3f);
+
+  // ---- background probe from the winner's plane normal (zero on a miss)
+  float bnx = 0.0f, bny = 0.0f, bnz = 0.0f, b_isem = 0.0f;
+  if (bg_hit) {
+    const float* g = s_geo + GEO_ROWS * prim_bg;
+    bnx = g[0]; bny = g[1]; bnz = g[2];
+    b_isem = s_isem[prim_bg];
+  }
+  const bool tri_surf = bg_hit && (b_isem < 0.5f);
+  const float tb_p = tri_surf ? t_bg : 0.0f;
+  const bool occ_b = light_blocked(s_shadow, NS, s_sph, S, lc, he, w0, w1,
+                                   ox + dx * tb_p + bnx * 1e-3f,
+                                   oy + dy * tb_p + bny * 1e-3f,
+                                   oz + dz * tb_p + bnz * 1e-3f);
+
+  p.codes[item] =
+      (prim_bg + 1) + (occ_b ? B_OCCB : 0) + (occ_s ? B_OCCS : 0)
+      + (front ? B_FRONT : 0) + (pot ? B_POT : 0) + ((s_idx + 1) << SIDX_SHIFT);
 }
 
 // ---------------------------------------------------------------------------
@@ -549,7 +603,57 @@ __device__ __forceinline__ void soft_sample(
   row_s[13] = d_srad;
 }
 
-__global__ void __launch_bounds__(BLOCK_THREADS) soft_bwd_kernel(const SoftParams p) {
+// One step of scatter_row's reduce-scatter: the lane holds M partial sums
+// s[0 .. M) of the columns lo .. lo + M (those at len and above hold none);
+// the lanes of each pair OFF apart keep half of them each, the lower lane
+// the first H = ceil(M / 2), the upper the rest, and add the partner's.
+template <int M, int OFF>
+__device__ __forceinline__ void halve(float* s, int lane, int* lo, int* len) {
+  constexpr int H = (M + 1) / 2;
+  const bool upper = (lane & OFF) != 0;
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    const float rest = H + j < M ? s[H + j] : 0.0f;  // the upper half's slot j
+    const float got = __shfl_xor_sync(FULL, upper ? s[j] : rest, OFF);
+    s[j] = (upper ? rest : s[j]) + got;
+  }
+  if (upper) {
+    *lo += H;
+    *len = max(*len - H, 0);
+  } else {
+    *len = min(*len, H);
+  }
+}
+
+// Adds columns C0 .. C0 + 10 of row (the ten a row can fill: the background
+// row's n, c0, diffuse, emissive; the sphere row's diffuse, emissive, center,
+// radius) of every lane with `act` to table[key * NTAB + ...], one key at a
+// time in the order of the lowest lane that holds it: the lanes that share
+// the key reduce-scatter their rows in five steps of 5, 3, 2, 1 and 1
+// shuffles, after which ten lanes each hold one column's sum and add it.
+// `rem` is __ballot_sync(FULL, act).  Every lane of the warp must call it.
+template <int C0>
+__device__ __forceinline__ void scatter_row(unsigned rem, bool act, int key,
+                                            const float* row, float* table, int lane) {
+  while (rem != 0u) {
+    const int leader = __ffs(rem) - 1;
+    const int k = __shfl_sync(FULL, key, leader);
+    const bool mine = act && (key == k);
+    rem &= ~__ballot_sync(FULL, mine);
+    float s[10];
+    for (int c = 0; c < 10; ++c) s[c] = mine ? row[C0 + c] : 0.0f;
+    int lo = 0, len = 10;
+    halve<10, 16>(s, lane, &lo, &len);
+    halve<5, 8>(s, lane, &lo, &len);
+    halve<3, 4>(s, lane, &lo, &len);
+    halve<2, 2>(s, lane, &lo, &len);
+    halve<1, 1>(s, lane, &lo, &len);
+    if (len > 0) table[k * NTAB + C0 + lo] += s[0];
+  }
+}
+
+__global__ void __launch_bounds__(BLOCK_THREADS, BWD_MIN_BLOCKS)
+soft_bwd_kernel(const SoftParams p) {
   extern __shared__ float smem[];
   const int P = p.num_prims;
   float* s_tab = smem;                          // [P][16]
@@ -569,31 +673,34 @@ __global__ void __launch_bounds__(BLOCK_THREADS) soft_bwd_kernel(const SoftParam
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   float* my_wtab = s_wtab + warp * P * NTAB;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  // A thread past the frame runs on (the warp's shuffles need every lane)
-  // and adds nothing.
-  const bool in_image = i < p.n;
-  const int ii = in_image ? i : 0;
-  const float px = (float)(ii % p.width);
-  const float py = (float)(ii / p.width);
-  const uint32_t off = (uint32_t)p.offsets[ii];
-  const float g[3] = {p.g[ii], p.g[(size_t)p.n + ii], p.g[2 * (size_t)p.n + ii]};
-
+  // Item n * N + i (sample n of pixel i, the records' order); warp w of the
+  // grid takes the 32-item tiles w, w + n_warps, ...  A lane past the last
+  // item runs on (the warp's shuffles need every lane) and adds nothing.
+  const int items = p.n * p.spp;
+  const int tiles = (items + 31) / 32;
+  const int n_warps = gridDim.x * WARPS;
   float ds[NSCAL];
   for (int k = 0; k < NSCAL; ++k) ds[k] = 0.0f;
-  for (int n = 0; n < p.spp; ++n) {
+  for (int tile = blockIdx.x * WARPS + warp; tile < tiles; tile += n_warps) {
+    const int item = tile * 32 + lane;
+    const bool live = item < items;
+    const int it = live ? item : 0;
+    const int n = it / p.n;
+    const int i = it - n * p.n;
     float row_bg[NTAB], row_s[NTAB];
     bool act_bg = false, act_s = false;
     int key_bg = 0, key_s = 0;
-    if (in_image) {
-      soft_sample(p, s_tab, s_vec, s_vec + 12, p.codes[(size_t)n * p.n + i],
-                  off + (uint32_t)n, px, py, g, ds, row_bg, &act_bg, &key_bg, row_s,
-                  &act_s, &key_s);
+    if (live) {
+      const float g[3] = {p.g[i], p.g[(size_t)p.n + i], p.g[2 * (size_t)p.n + i]};
+      soft_sample(p, s_tab, s_vec, s_vec + 12, p.codes[it],
+                  (uint32_t)p.offsets[i] + (uint32_t)n, (float)(i % p.width),
+                  (float)(i / p.width), g, ds, row_bg, &act_bg, &key_bg, row_s, &act_s,
+                  &key_s);
     }
     unsigned rem = __ballot_sync(FULL, act_bg);
-    if (rem != 0u) warp_scatter_rows<NTAB>(rem, act_bg, key_bg, row_bg, my_wtab, lane);
+    if (rem != 0u) scatter_row<R_N>(rem, act_bg, key_bg, row_bg, my_wtab, lane);
     rem = __ballot_sync(FULL, act_s);
-    if (rem != 0u) warp_scatter_rows<NTAB>(rem, act_s, key_s, row_s, my_wtab, lane);
+    if (rem != 0u) scatter_row<R_DF>(rem, act_s, key_s, row_s, my_wtab, lane);
   }
 
   // ---- block partial: scalars over the warp, then warps in index order
@@ -614,9 +721,41 @@ __global__ void __launch_bounds__(BLOCK_THREADS) soft_bwd_kernel(const SoftParam
   }
 }
 
+// Bytes of dynamic shared memory of one block of silh_kernel: the triangle
+// table, the occluder list, the spheres and the triangles' is_emissive.
+size_t silh_smem(int num_tris, int n_shadow, int num_spheres) {
+  return sizeof(float) * ((size_t)GEO_ROWS * (num_tris + n_shadow)
+                          + (size_t)SPH_ROWS * num_spheres + num_tris);
+}
+
+// Bytes of dynamic shared memory of one block of soft_bwd_kernel: the table
+// [P][16], the 21 scalars, one [P][14] table and 21 scalars per warp.
+size_t soft_bwd_smem(int num_prims) {
+  return sizeof(float) * ((size_t)NROWS * num_prims + NSCAL
+                          + (size_t)WARPS * ((size_t)num_prims * NTAB + NSCAL));
+}
+
 }  // namespace
 
 extern "C" {
+
+// Bytes of dynamic shared memory of one block of silh_kernel (the wrapper's
+// plan cuda_soft.silh_smem_bytes mirrors it).
+int grt_silh_smem(int num_tris, int n_shadow, int num_spheres) {
+  return (int)silh_smem(num_tris, n_shadow, num_spheres);
+}
+
+// Blocks of silh_kernel for n pixels at spp samples: one thread per item.
+int grt_silh_blocks(int n, int spp) {
+  return (int)(((long long)n * spp + BLOCK_THREADS - 1) / BLOCK_THREADS);
+}
+
+// Blocks of silh_kernel that one SM of the current device holds with the
+// shared memory of these tables; 0 where the query fails.
+int grt_silh_blocks_per_sm(int num_tris, int n_shadow, int num_spheres) {
+  return grt::blocks_per_sm(silh_kernel, BLOCK_THREADS,
+                            silh_smem(num_tris, n_shadow, num_spheres));
+}
 
 // Launches silh_kernel on `stream`; returns cudaGetLastError() as an int.
 // codes is [spp, n] int32.
@@ -631,50 +770,68 @@ int grt_silh_records(const int32_t* offsets, const float* cam, const float* ligh
   p.n = n; p.width = width; p.height = height; p.spp = spp; p.num_tris = num_tris;
   p.num_spheres = num_spheres; p.n_shadow = n_shadow; p.strat_k = strat_k;
   p.inv_k = inv_k; p.half_extent = half_extent;
-  if (n <= 0 || spp <= 0 || num_spheres <= 0 || num_spheres > 127) {
+  if (n <= 0 || spp <= 0 || (long long)n * spp > INT32_MAX || num_spheres <= 0
+      || num_spheres > 127) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = sizeof(float) * ((size_t)GEO_ROWS * (num_tris + n_shadow)
-                                       + (size_t)SPH_ROWS * num_spheres + num_tris);
+  const size_t smem = silh_smem(num_tris, n_shadow, num_spheres);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const int grid = (n + BLOCK_THREADS - 1) / BLOCK_THREADS;
-  silh_kernel<<<grid, BLOCK_THREADS, smem, (cudaStream_t)stream>>>(p);
+  silh_kernel<<<grt_silh_blocks(n, spp), BLOCK_THREADS, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// Number of blocks soft_bwd_kernel runs for n pixels: the wrapper sizes the
-// partials buffer [blocks, num_prims * 14 + 21] with it.
-int grt_soft_bwd_blocks(int n) {
-  return (n + BLOCK_THREADS - 1) / BLOCK_THREADS;
+// Bytes of dynamic shared memory of one block of soft_bwd_kernel (the
+// wrapper's plan cuda_soft.soft_bwd_smem_bytes mirrors it).
+int grt_soft_bwd_smem(int num_prims) { return (int)soft_bwd_smem(num_prims); }
+
+// Blocks of soft_bwd_kernel that one SM of the current device holds with the
+// shared memory of num_prims primitives; 0 where the query fails.
+int grt_soft_bwd_blocks_per_sm(int num_prims) {
+  return grt::blocks_per_sm(soft_bwd_kernel, BLOCK_THREADS, soft_bwd_smem(num_prims));
 }
 
-// Launches soft_bwd_kernel and reduce_partials_kernel on `stream`; returns
-// cudaGetLastError() as an int.  out is [num_prims * 14 + 21] float32: dtab
-// [P, 14] row-major, then the 21 scalars.
+// Blocks of soft_bwd_kernel's persistent grid for n pixels at spp samples on
+// the current device: the blocks the card holds at once, at most one per
+// four 32-item tiles.  The wrapper sizes the partials [blocks, num_prims * 14
+// + 21] with it and passes it to grt_soft_bwd; 0 means the occupancy query
+// failed.
+int grt_soft_bwd_blocks(int n, int spp, int num_prims) {
+  if (n <= 0 || spp <= 0 || (long long)n * spp > INT32_MAX || num_prims <= 0
+      || num_prims > MAX_PRIMS) {
+    return 0;
+  }
+  const int tiles = (int)(((long long)n * spp + 31) / 32);
+  return grt::persistent_blocks(soft_bwd_kernel, BLOCK_THREADS, soft_bwd_smem(num_prims),
+                                tiles, (size_t)num_prims * NTAB + NSCAL);
+}
+
+// Launches soft_bwd_kernel on `blocks` blocks (grt_soft_bwd_blocks) and
+// reduce_partials_kernel on `stream`; returns cudaGetLastError() as an int.
+// out is [num_prims * 14 + 21] float32: dtab [P, 14] row-major, then the 21
+// scalars.
 int grt_soft_bwd(const float* g, const int32_t* codes, const int32_t* offsets,
                  const float* table, const float* cam, const float* light,
                  float* partials, float* out, int n, int width, int height, int spp,
                  int num_prims, int num_tris, int strat_k, float inv_k,
-                 float half_extent, float kappa, void* stream) {
+                 float half_extent, float kappa, int blocks, void* stream) {
   SoftParams p;
   p.g = g; p.codes = codes; p.offsets = offsets; p.table = table; p.cam = cam;
   p.light = light; p.partials = partials;
   p.n = n; p.width = width; p.height = height; p.spp = spp; p.num_prims = num_prims;
   p.num_tris = num_tris; p.strat_k = strat_k; p.inv_k = inv_k;
   p.half_extent = half_extent; p.kappa = kappa;
-  if (n <= 0 || spp <= 0 || num_tris <= 0 || num_prims <= num_tris) {
+  if (n <= 0 || spp <= 0 || (long long)n * spp > INT32_MAX || num_tris <= 0
+      || num_prims <= num_tris || num_prims > MAX_PRIMS || blocks <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = sizeof(float) * ((size_t)NROWS * num_prims + NSCAL
-                                       + (size_t)WARPS * num_prims * NTAB
-                                       + (size_t)WARPS * NSCAL);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const int grid = grt_soft_bwd_blocks(n);
+  const size_t smem = soft_bwd_smem(num_prims);
   cudaStream_t st = (cudaStream_t)stream;
-  soft_bwd_kernel<<<grid, BLOCK_THREADS, smem, st>>>(p);
+  const cudaError_t err = grt::allow_smem(soft_bwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  soft_bwd_kernel<<<blocks, BLOCK_THREADS, smem, st>>>(p);
   int code = (int)cudaGetLastError();
   if (code != 0) return code;
-  grt::launch_reduce_partials(partials, grid, num_prims * NTAB + NSCAL, out, st);
+  grt::launch_reduce_partials(partials, blocks, num_prims * NTAB + NSCAL, out, st);
   return (int)cudaGetLastError();
 }
 

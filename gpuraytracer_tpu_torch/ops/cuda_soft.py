@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 from types import SimpleNamespace
+from typing import Optional
 
 import torch
 
@@ -54,7 +55,8 @@ from ..utils.host import resolve_device
 from . import _build
 from .cuda_path import (STATIC_TIER_MAX, PackedScene, _camera_jitter,
                         _pack_inputs, _raise_on_launch_error, _require,
-                        _stratified_k, render_path_cuda_impl, shadow_indices)
+                        _stratified_k, plane_ahead, plane_within,
+                        render_path_cuda_impl, shadow_indices)
 from .cuda_shade import NROWS_TAB_SPH, NTAB_SPH, _pack_diff_inputs
 
 # code2 packing (int32; every field exact):
@@ -75,8 +77,12 @@ MAX_SPHERES = (1 << 7) - 1  # s* + 1 must fit the 7 bits above bit 24
 
 NSCAL_SOFT = 21  # camera: pos, hu, hv, wb; light: center, color, normal
 _BIG = 1e30
-_SMEM_LIMIT = 48 * 1024  # bytes of shared memory either kernel may stage
-_KERNEL_WARPS = 4        # warps per block of soft_bwd_kernel
+_SMEM_LIMIT = 48 * 1024  # bytes of shared memory silh_kernel may stage
+_KERNEL_THREADS = 128    # threads per block of either kernel
+_KERNEL_WARPS = _KERNEL_THREADS // 32
+# The most primitives the silhouette path takes: the static tier's triangles
+# and the spheres the record's 7 bits can name.
+MAX_PRIMS = STATIC_TIER_MAX + MAX_SPHERES
 
 # Kernel launches since the process started (or since a caller reset them):
 # each wrapper adds one where it launches its kernel and nowhere else.
@@ -93,24 +99,95 @@ def _check_scene(scene: Scene) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The kernels' launch plans (mirrors of the C formulas in
+# csrc/soft_kernels.cu; chip_smoke.py holds the exported functions against
+# them on the card)
+# ---------------------------------------------------------------------------
+
+def silh_smem_bytes(num_tris: int, n_shadow: int, num_spheres: int) -> int:
+    """Shared memory of one block of K6 (``grt_silh_smem``): the triangle
+    table and the occluder list (12 floats a triangle), the spheres (4) and
+    the triangles' is_emissive. Raises past the 48 KiB it may stage."""
+    smem = 4 * (12 * (num_tris + n_shadow) + 4 * num_spheres + num_tris)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"scene tables need {smem} B of shared memory; the "
+                         f"kernel stages at most {_SMEM_LIMIT} B")
+    return smem
+
+
+def silh_blocks(n: int, spp: int) -> int:
+    """Blocks of K6 (``grt_silh_blocks``): one thread per (sample, pixel)
+    item, ``_KERNEL_THREADS`` a block."""
+    return -(-n * spp // _KERNEL_THREADS)
+
+
+def soft_bwd_smem_bytes(num_prims: int) -> int:
+    """Shared memory of one block of K7 (``grt_soft_bwd_smem``): the table
+    [P][16], the 21 scalars, one [P][14] table and 21 scalars per warp.
+    Above 48 KiB the launch opts in. Raises past ``MAX_PRIMS`` primitives."""
+    if not 0 < num_prims <= MAX_PRIMS:
+        raise ValueError(f"{num_prims} primitives: the silhouette backward "
+                         f"takes 1 to {MAX_PRIMS}")
+    return 4 * (NROWS_TAB_SPH * num_prims + NSCAL_SOFT
+                + _KERNEL_WARPS * (num_prims * NTAB_SPH + NSCAL_SOFT))
+
+
+def soft_bwd_blocks(n: int, spp: int, blocks_per_sm: int, sms: int) -> int:
+    """Blocks of K7's persistent grid (``grt_soft_bwd_blocks``) on a card of
+    ``sms`` SMs that hold ``blocks_per_sm`` blocks each: all of them, at
+    most one per ``_KERNEL_WARPS`` tiles of 32 (sample, pixel) items. The
+    partials are one row per block."""
+    tiles = -(-n * spp // 32)
+    return max(1, min(sms * blocks_per_sm, -(-tiles // _KERNEL_WARPS)))
+
+
+# ---------------------------------------------------------------------------
 # K6: the silhouette records
 # ---------------------------------------------------------------------------
 
 def silh_records_plain(offsets: torch.Tensor, packed: PackedScene,
-                       shadow_idx: torch.Tensor,
-                       config: RenderConfig) -> torch.Tensor:
+                       shadow_idx: torch.Tensor, config: RenderConfig,
+                       pix: Optional[torch.Tensor] = None,
+                       stats: Optional[dict] = None) -> torch.Tensor:
     """Plain PyTorch version of ``silh_kernel``: the ``code2`` record of
     every (sample, pixel), [spp, n] int32, for the pixels whose Halton
-    offsets are ``offsets`` [n] (the whole frame, in order). The arithmetic
-    and its order are the kernel's; pixels go through in chunks of
-    ``config.pixel_chunk``."""
+    offsets are ``offsets`` [n]: the whole frame in order, or the pixels
+    ``pix`` [n]. The arithmetic and its order are the kernel's; pixels go
+    through in chunks of ``config.pixel_chunk``. ``stats``: a dict to which
+    the shadow probes add their counts as the kernel runs them (the
+    prefiltered loop to the first occluder): probes that reach the light
+    (``reached``) and that are blocked (``blocked``), and the triangle tests
+    of the probes that reach the light (``triangles``, every occluder) and
+    of those the ones that pass both prefilters (``passed``)."""
+    rid = (torch.arange(offsets.shape[0], device=offsets.device)
+           if pix is None else pix)
     return torch.cat([
-        _silh_chunk(offsets[s:s + config.pixel_chunk], s, packed, shadow_idx,
-                    config)
+        _silh_chunk(offsets[s:s + config.pixel_chunk],
+                    rid[s:s + config.pixel_chunk], packed, shadow_idx, config,
+                    stats)
         for s in range(0, offsets.shape[0], config.pixel_chunk)], dim=-1)
 
 
-def _silh_chunk(offsets, rid_base, packed, shadow_idx, config):
+def _count_probes(stats, geo_shadow, h, ld, t_max, blocked):
+    """``silh_records_plain``'s probe counts (``stats``) of one probe per
+    lane from ``h`` toward ``ld``."""
+    reached = ~blocked
+    stats["reached"] = stats.get("reached", 0) + int(reached.sum())
+    stats["blocked"] = stats.get("blocked", 0) + int(blocked.sum())
+    n, c0 = geo_shadow[0], geo_shadow[1]
+    den = (ld[:, None, 0] * n[:, 0] + ld[:, None, 1] * n[:, 1]
+           + ld[:, None, 2] * n[:, 2])
+    num = c0 - (h[:, None, 0] * n[:, 0] + h[:, None, 1] * n[:, 1]
+                + h[:, None, 2] * n[:, 2])
+    passes = (plane_ahead(den, num)
+              & plane_within(den, num, torch.clamp_min(t_max, 1e-3)[:, None]))
+    stats["triangles"] = (stats.get("triangles", 0)
+                          + int(reached.sum()) * n.shape[0])
+    stats["passed"] = (stats.get("passed", 0)
+                       + int((passes & reached[:, None]).sum()))
+
+
+def _silh_chunk(offsets, rid, packed, shadow_idx, config, stats=None):
     f32 = torch.float32
     dev = offsets.device
     W, H = config.width, config.height
@@ -131,7 +208,7 @@ def _silh_chunk(offsets, rid_base, packed, shadow_idx, config):
     cam = packed.cam
     lc = packed.light[0:3]
     he = smp._f32(config.area_light_half_extent)
-    rid = rid_base + torch.arange(n, dtype=torch.int64, device=dev)
+    rid = rid.to(torch.int64)
     px = (rid % W).to(f32)
     py = (rid // W).to(f32)
     # Divisors as 0-dim tensors: PyTorch divides by a Python scalar through
@@ -156,7 +233,10 @@ def _silh_chunk(offsets, rid_base, packed, shadow_idx, config):
         t_max = dist - 1e-3
         _, blocked = triangle_candidates(*geo_shadow, h, ld, 0.0, t_max)
         _, blocked_s = sphere_candidates(sph_c, sph_r, h, ld, 0.0, t_max)
-        return blocked.any(dim=-1) | blocked_s.any(dim=-1)
+        blocked = blocked.any(dim=-1) | blocked_s.any(dim=-1)
+        if stats is not None:
+            _count_probes(stats, geo_shadow, h, ld, t_max, blocked)
+        return blocked
 
     codes = []
     for s in range(config.spp):
@@ -240,10 +320,15 @@ def _library() -> ctypes.CDLL:
             [_PTR] * 7 + [_INT] * 8 + [_FLT, _FLT, _PTR])
         lib.grt_silh_records.restype = _INT
         lib.grt_soft_bwd.argtypes = (
-            [_PTR] * 8 + [_INT] * 7 + [_FLT, _FLT, _FLT, _PTR])
+            [_PTR] * 8 + [_INT] * 7 + [_FLT, _FLT, _FLT, _INT, _PTR])
         lib.grt_soft_bwd.restype = _INT
-        lib.grt_soft_bwd_blocks.argtypes = [_INT]
-        lib.grt_soft_bwd_blocks.restype = _INT
+        for name, nargs in (("grt_silh_smem", 3), ("grt_silh_blocks", 2),
+                            ("grt_silh_blocks_per_sm", 3),
+                            ("grt_soft_bwd_smem", 1),
+                            ("grt_soft_bwd_blocks_per_sm", 1),
+                            ("grt_soft_bwd_blocks", 3)):
+            getattr(lib, name).argtypes = [_INT] * nargs
+            getattr(lib, name).restype = _INT
     return lib
 
 
@@ -266,10 +351,7 @@ def silh_records_kernel(offsets: torch.Tensor, packed: PackedScene,
         raise ValueError(f"{T} triangles and {S} spheres: the kernel takes "
                          f"at most {STATIC_TIER_MAX} triangles and 1 to "
                          f"{MAX_SPHERES} spheres")
-    smem = 4 * (12 * (T + n_shadow) + T + 4 * S)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"scene tables need {smem} B of shared memory; the "
-                         f"kernel stages at most {_SMEM_LIMIT} B")
+    silh_smem_bytes(T, n_shadow, S)
     ptrs = [
         _require(offsets, "offsets", i32, (n,), dev),
         _require(packed.cam, "cam", f32, (12,), dev),
@@ -714,24 +796,23 @@ def soft_bwd_kernel(g: torch.Tensor, codes: torch.Tensor,
     if not 0 < num_tris < P:
         raise ValueError(f"{num_tris} triangles of {P} primitives: the "
                          "table needs triangles and spheres")
-    smem = 4 * (NROWS_TAB_SPH * P + NSCAL_SOFT
-                + _KERNEL_WARPS * (P * NTAB_SPH + NSCAL_SOFT))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"the parameter table needs {smem} B of shared "
-                         f"memory; the kernel stages at most {_SMEM_LIMIT} B")
+    soft_bwd_smem_bytes(P)
     lib = _library()
     count = P * NTAB_SPH + NSCAL_SOFT
-    partials = torch.empty((lib.grt_soft_bwd_blocks(n), count),
-                           dtype=torch.float32, device=dev)
-    out = torch.empty(count, dtype=torch.float32, device=dev)
     k = _stratified_k(config)
     with torch.cuda.device(dev):
+        blocks = lib.grt_soft_bwd_blocks(n, config.spp, P)
+        if blocks <= 0:
+            raise RuntimeError("soft_bwd_kernel: the occupancy query failed")
+        partials = torch.empty((blocks, count), dtype=torch.float32,
+                               device=dev)
+        out = torch.empty(count, dtype=torch.float32, device=dev)
         err = lib.grt_soft_bwd(
             g.data_ptr(), codes.data_ptr(), offsets.data_ptr(),
             table.data_ptr(), cam_vec.data_ptr(), light_vec.data_ptr(),
             partials.data_ptr(), out.data_ptr(), n, config.width,
             config.height, config.spp, P, num_tris, k, 1.0 / k if k else 0.0,
-            config.area_light_half_extent, smp._f32(kappa),
+            config.area_light_half_extent, smp._f32(kappa), blocks,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on_launch_error(err, "soft_bwd_kernel")
     LAUNCHES["soft_bwd_kernel"] += 1

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Compare the variant-B kernels of two checkouts on one NVIDIA GPU.
+"""Compare the variant-B and silhouette kernels of two checkouts on one
+NVIDIA GPU.
 
     python3 tools/compare_trees.py PARENT_DIR
 
 PARENT_DIR holds an earlier commit's ``gpuraytracer_tpu_torch`` package
 (unpacked from ``git archive``). A slice that redesigns a kernel runs this
 once, to show that the kernels it left alone compile to the parent's SASS
-and that the redesigned ones make the parent's decisions or sums:
+and that the redesigned ones (``REDESIGNED``) make the parent's decisions or
+sums:
 
   * K2's and K2g's images and records at the shapes of paths A-D, K and L
     (hdr, records_only, records + draws read + cull) must be equal by
@@ -17,11 +19,21 @@ and that the redesigned ones make the parent's decisions or sums:
     regenerated) on those records and a seeded cotangent are
     compared by sha256, and where they differ, per output group, the
     largest difference beside ``chip_smoke.compare_grads``' limit;
-  * every kernel other than ``shade_bwd_kernel`` and
-    ``shade_bwd_grouped_kernel`` must compile to the same SASS
-    (``cuobjdump -sass``); a kernel that only this checkout has is listed;
-  * K2 at path A (hdr), K3 at D and E and K3g at K and L are timed in each,
-    in turns: parent, this, this, parent.
+  * K6's records (``chip_smoke.SoftInputs``: the sphere scene, direct
+    lighting) at path J's shape (256 x 256 x 4), at 128 x 96 x 4 with and
+    without the occluder cull, at 800 x 600 x 16 and at the recovery's 32 x
+    32 x 2 must be equal by sha256; K7's outputs on those records and a
+    seeded cotangent (without the cull) are compared by sha256, and where
+    they differ, per output group, the largest difference beside
+    ``chip_smoke.compare_scaled``'s limit (without its one-ulp term), which
+    it must not pass;
+  * every kernel other than those named in ``REDESIGNED`` must compile to
+    the same SASS (``cuobjdump -sass``); a kernel that only this checkout
+    has is listed;
+  * K2 at path A (hdr), K3 at D and E, K3g at K and L, and K6 and K7 at J,
+    at the recovery and at 800 x 600 x 16 are timed in each, in turns:
+    parent, this, this, parent; K6 and K7 also by the profiler's device
+    time.
 
 Each checkout runs ``--fingerprint`` in a process of its own with its
 package first on the path and ``chip_smoke.py``'s helpers from this
@@ -41,6 +53,11 @@ import tempfile
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
+# The kernels whose SASS may differ from the parent's: those the slice
+# redesigns.
+REDESIGNED = ("silh_kernel", "soft_bwd_kernel")
+# Launches of K6 and K7 in one profiler window.
+PROFILED_LAUNCHES = 20
 
 
 def sha(t) -> str:
@@ -48,11 +65,12 @@ def sha(t) -> str:
 
 
 def fingerprint(outdir: Path) -> dict:
-    """K2's, K2g's, K3's and K3g's outputs in the checkout whose package this
-    process imports, through the wrappers every version of the port has:
-    sha256 of the images, records and cotangents (the cotangents also saved
-    under ``outdir``), the times of K2 at A, K3 at D and E and K3g at K and
-    L, the built libraries."""
+    """K2's, K2g's, K3's, K3g's, K6's and K7's outputs in the checkout whose
+    package this process imports, through the wrappers every version of the
+    port has: sha256 of the images, records and cotangents (the cotangents
+    also saved under ``outdir``), the times of K2 at A, K3 at D and E, K3g
+    at K and L and K6 and K7 at J, at the recovery and at 800 x 600 x 16,
+    the built libraries."""
     import torch
 
     import chip_smoke as cs
@@ -62,7 +80,7 @@ def fingerprint(outdir: Path) -> dict:
     from gpuraytracer_tpu_torch.scene import cornell_box_tessellated
     from gpuraytracer_tpu_torch.types import RenderConfig
 
-    out = {"hashes": {}, "ms": {}}
+    out = {"hashes": {}, "ms": {}, "device_ms": {}}
     dev = torch.device("cuda")
     for label, size, mode in (
             ("A", cs.FRAME, "hdr"), ("A", cs.FRAME, "records_only"),
@@ -120,6 +138,27 @@ def fingerprint(outdir: Path) -> dict:
         if label != "S":
             out["ms"][f"{'K3g' if tess else 'K3'} {label}"] = cs.time_ms(lambda: sh.kernel())
         del sh
+        torch.cuda.empty_cache()
+    for label, size, cull in (("J", cs.SOFT_J, False), ("small", cs.SOFT_SIZES[0], False),
+                              ("small", cs.SOFT_SIZES[0], True),
+                              ("frame", cs.SOFT_SIZES[-1], False),
+                              ("recovery", cs.SOFT_RECOVERY, False)):
+        inp = cs.SoftInputs(cs.soft_cfg(size), cull)
+        out["hashes"][f"K6 {label}{', cull' if cull else ''} records"] = sha(inp.codes)
+        if not cull:
+            got = inp.bwd_kernel()
+            out["hashes"][f"K7 {label} cotangents"] = sha(torch.cat([got[0].flatten(),
+                                                                    got[1]]))
+            torch.save([t.cpu() for t in got], outdir / f"K7 {label}.pt")
+        if label in ("J", "recovery", "frame"):
+            for kernel, fn, name in (("K6", inp.silh_kernel, "silh_kernel"),
+                                     ("K7", inp.bwd_kernel, "soft_bwd_kernel")):
+                out["ms"][f"{kernel} {label}"] = cs.time_ms(fn)
+                cs.device_busy(lambda: [fn() for _ in range(PROFILED_LAUNCHES)])
+                out["device_ms"][f"{kernel} {label}"] = (
+                    cs.profiled_ms(name) / PROFILED_LAUNCHES,
+                    cs.profiled_ms("reduce_partials") / PROFILED_LAUNCHES)
+        del inp
         torch.cuda.empty_cache()
     out["libraries"] = {lib.path.name.split("-")[0]: str(lib.path)
                         for lib in _build.load_libraries()}
@@ -187,12 +226,16 @@ def _compare(parent: Path, work: Path) -> dict:
         cs.log(f"  {label}: " + ", ".join(
             f"{k} {v[1]:.3f} ms (min {v[0]:.3f}, max {v[2]:.3f})"
             for k, v in r["ms"].items()))
+        cs.log(f"  {label}, device time (kernel, reduction): " + ", ".join(
+            f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in r.get("device_ms", {}).items()))
     equal = {k: first["hashes"][k] == mine["hashes"].get(k)
              for k in first["hashes"]}
     cs.log("  equal by sha256: " + ", ".join(
         f"{k} {'yes' if v else 'NO'}" for k, v in equal.items()))
     # Where the cotangents differ: per group, the largest difference over
-    # compare_grads' limit (atol + rtol * the group's largest magnitude).
+    # compare_grads' limit (atol + rtol * the group's largest magnitude) for
+    # K3 and K3g, over compare_scaled's (atol max(scale, 1) + rtol scale)
+    # for K7.
     cotangents = {}
     for key in sorted(k[:-len(" cotangents")] for k in equal if k.endswith("cotangents")):
         if equal[f"{key} cotangents"]:
@@ -202,12 +245,15 @@ def _compare(parent: Path, work: Path) -> dict:
         ratios = {}
         for name, r in ref.items():
             scale = r.abs().max().item()
-            rtol = (cs.SPHERE_GEOMETRY_RTOL if name in ("d center", "d radius")
-                    else cs.GRAD_RTOL)
-            ratios[name] = (got[name] - r).abs().max().item() / (cs.GRAD_ATOL
-                                                                  + rtol * scale)
+            if key.startswith("K7"):
+                limit = cs.GRAD_ATOL * max(scale, 1.0) + cs.GRAD_RTOL * scale
+            else:
+                limit = cs.GRAD_ATOL + (cs.SPHERE_GEOMETRY_RTOL
+                                        if name in ("d center", "d radius")
+                                        else cs.GRAD_RTOL) * scale
+            ratios[name] = (got[name] - r).abs().max().item() / limit
         cotangents[key] = ratios
-        cs.log(f"  {key}: largest difference over compare_grads' limit: " + ", ".join(
+        cs.log(f"  {key}: largest difference over the limit: " + ", ".join(
             f"{name} {v:.2e}" for name, v in ratios.items()))
     sass, new, listings = {}, [], {}
     for name in _build.SOURCES:
@@ -215,7 +261,7 @@ def _compare(parent: Path, work: Path) -> dict:
         b = sass_by_function(mine["libraries"][f"lib{name}"])
         listings[f"lib{name}"] = (a, b)
         for fn in sorted(set(a) | set(b)):
-            if "shade_bwd_kernel" in fn or "shade_bwd_grouped_kernel" in fn:
+            if any(kernel in fn for kernel in REDESIGNED):
                 continue
             if fn not in a:
                 new.append(f"{name}: {fn}")
@@ -233,7 +279,10 @@ def _compare(parent: Path, work: Path) -> dict:
         cs.log(f"  {key}, first differing lines:\n" + "\n".join(list(diff)[:40]))
     trace = {k: v for k, v in equal.items() if not k.endswith("cotangents")}
     cs.check(all(trace.values()), f"images or records differ from {parent}")
-    cs.check(all(sass.values()), "kernels other than K3 and K3g changed SASS")
+    cs.check(all(sass.values()), f"kernels other than {REDESIGNED} changed SASS")
+    cs.check(all(v <= 1.0 for key, r in cotangents.items() if key.startswith("K7")
+                 for v in r.values()),
+             "K7's outputs differ from the parent's past compare_scaled's limit")
     return dict(ms={label: r["ms"] for label, r in runs}, hashes_equal=equal,
                 cotangents_over_limit=cotangents, sass_equal=sass, new_kernels=new,
                 card=cs.card_name_and_limit())
