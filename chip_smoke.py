@@ -286,6 +286,11 @@ from gpuraytracer_tpu_torch.utils.metrics import mrays_per_s, nominal_rays
 # its own, and their floor is at least twice an operation bound.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# Its SMs and the warp schedulers of each, one warp instruction a clock each.
+SMS, SCHEDULERS = 132, 4
+# K1 (a tenth of a millisecond) is timed over K1_BATCH launches back to back,
+# K1_REPEATS times after K1_WARMUP such batches.
+K1_BATCH, K1_REPEATS, K1_WARMUP = 10, 20, 2
 
 FLIP_SHARE_MAX = 0.005
 HDR_ATOL, HDR_RTOL = 2e-5, 1e-4
@@ -311,9 +316,12 @@ PREFILTER_STRIDE = 13
 SHARE_SPP = 16
 OPS_SPH_CLOSEST, OPS_SPH_SHADOW = 43, 39
 OPS_CAMERA, OPS_SHADE = 30, 130
-# Integer and float operations per Halton digit (multiply-shift divide,
-# remainder, convert, two multiplies, one add).
-OPS_HALTON_DIGIT = 8
+# Operations of a radical inverse as halton.cuh's short form runs it (SASS of
+# draws_kernel): per digit a multiply-high (the quotient), a multiply-add
+# (the remainder), a conversion, a multiply and an add; the first digit needs
+# no add and the last no quotient or remainder (3 fewer a dimension); base 2
+# a bit reversal, a conversion and a multiply.
+OPS_HALTON_DIGIT, OPS_HALTON_SPARED, OPS_HALTON_BASE2 = 5, 3, 3
 
 # Float32 operations of the backward kernel, counted the same way from
 # shade_kernels.cu: one live bounce forward (134) and reversed (255); what a
@@ -867,13 +875,20 @@ def halton_digits(base: int, max_index: int) -> int:
     return max(1, math.ceil(math.log(max_index + 1, base)))
 
 
+def halton_dim_ops(dims, cfg: RenderConfig) -> int:
+    """Operations of the radical inverses at Halton dimensions ``dims`` for
+    one (pixel, sample), at indices below 2^20 + spp."""
+    return sum(OPS_HALTON_BASE2 if PRIMES[d] == 2 else
+               OPS_HALTON_DIGIT * halton_digits(PRIMES[d], (1 << 20) + cfg.spp)
+               - OPS_HALTON_SPARED for d in dims)
+
+
 def halton_ops(cfg: RenderConfig, n: int) -> int:
     """Operations of one frame's radical inverses: the jitter pair and four
-    draws per bounce, per (pixel, sample), at indices below 2^20 + spp."""
+    draws per bounce, per (pixel, sample)."""
     dims = [0, 1] + [2 + 5 * b + k for b in range(cfg.bounces)
                      for k in range(4)]
-    digits = sum(halton_digits(PRIMES[d], (1 << 20) + cfg.spp) for d in dims)
-    return OPS_HALTON_DIGIT * digits * cfg.spp * n
+    return halton_dim_ops(dims, cfg) * cfg.spp * n
 
 
 def roofline(nbytes: int, ops: int):
@@ -889,6 +904,48 @@ def draws_bound(cfg: RenderConfig, n: int):
     once, against the digit arithmetic of the radical inverses."""
     nbytes = 4 * n + 4 * (4 * cfg.bounces + 2) * cfg.spp * n
     return roofline(nbytes, halton_ops(cfg, n))
+
+
+def time_draws(launch):
+    """K1's (min, median, max) ms a launch by CUDA events around K1_BATCH
+    launches back to back (one launch alone would time the host's call as
+    well)."""
+    def batch():
+        for _ in range(K1_BATCH):
+            launch()
+    return tuple(t / K1_BATCH for t in time_ms(batch, repeats=K1_REPEATS, warmup=K1_WARMUP))
+
+
+def draws_device_ms(launch) -> float:
+    """K1's device ms a launch by the profiler, over K1_BATCH launches."""
+    device_busy(lambda: [launch() for _ in range(K1_BATCH)])
+    return profiled_ms("draws_kernel") / K1_BATCH
+
+
+def sm_clock_mhz(fn, launches: int = 10000) -> int:
+    """The SM clock (MHz) nvidia-smi reads while ``launches`` calls of ``fn``
+    run back to back."""
+    for _ in range(launches):
+        fn()
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    torch.cuda.synchronize()
+    return int(mhz)
+
+
+def draws_issue_floor(cfg: RenderConfig, n: int, offsets):
+    """K1's issue floor: the SASS instructions a thread of
+    ``draws_kernel<bounces>`` runs on the short form (``sass_short_path``:
+    straight-line code, the loop form out of line) per (pixel, sample) item,
+    over 32 lanes and SMS x SCHEDULERS issue slots a clock at the SM clock
+    read while the kernel runs."""
+    per_item = len(sass_short_path(_build.load_library("path_kernels").path,
+                                   f"draws_kernelILi{cfg.bounces}E"))
+    mhz = sm_clock_mhz(lambda: cuda_path.pregen_draws_kernel(offsets, cfg))
+    warp_instructions = per_item * cfg.spp * n / 32
+    return dict(sass_per_item=per_item, sm_clock_mhz=mhz,
+                issue_floor_ms=1e3 * warp_instructions / (SMS * SCHEDULERS * mhz * 1e6))
 
 
 def live_lanes(records, packed):
@@ -1541,6 +1598,9 @@ def ptxas_resources(log_text: str):
             for kernel in ("silh_kernel", "soft_bwd_kernel"):
                 if kernel in mangled:
                     name = kernel
+            m = re.search(r"draws_kernelILi(\d)EE", mangled)
+            if m:
+                name = f"draws_kernel<BOUNCES={m.group(1)}>"
             m = re.search(r"mis_kernelILb(\d)EE", mangled)
             if m:
                 name = f"mis_kernel<EMIT={m.group(1)}>"
@@ -1580,6 +1640,61 @@ def ptxas_resources(log_text: str):
     return resources
 
 
+def sass_by_function(lib_path) -> dict:
+    """{mangled kernel name: its SASS text} of a built library. nvcc names a
+    source's anonymous namespace after a hash of the file's path, so that
+    name is replaced by one that two checkouts share; blanks are collapsed."""
+    cuobjdump = str(Path(_build.find_nvcc()).with_name("cuobjdump"))
+    text = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    text = re.sub(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}",
+                  "_GLOBAL__N_", text)
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        # A function's listing ends at a line of dots; what follows the last
+        # one (the rest of the file's listing) is not its code. cuobjdump pads
+        # every line to the widest instruction of the whole file, so runs of
+        # blanks count as one.
+        body = re.split(r"\n\s*\.{5,}\s*(?:\n|$)", body)[0]
+        out[name.strip()] = re.sub(r"[ \t]+", " ", body)
+    return out
+
+
+def sass_opcodes(lib_path, kernel: str) -> dict:
+    """{opcode with its modifiers: count} over the SASS of the kernels of a
+    library whose name holds ``kernel``, NOPs left out."""
+    counts = {}
+    for name, body in sass_by_function(lib_path).items():
+        if kernel not in name:
+            continue
+        for m in re.finditer(r"/\*[0-9a-f]{4,}\*/ (?:@!?U?P[T0-9] )?([A-Z][A-Z0-9_.]*)",
+                             body):
+            if m.group(1) != "NOP":
+                counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts
+
+
+def sass_short_path(lib_path, kernel: str) -> list:
+    """[(address, opcode)] of the SASS a thread of the first kernel whose
+    name holds ``kernel`` runs when it takes every forward conditional
+    branch and never calls out: the instructions before the kernel's
+    out-of-line callee (the target of its first CALL), less each block that
+    such a branch skips. For K1 at the Halton sampler and an index below
+    HALTON_SHORT those blocks are the call to the loop form and the
+    stratified sampler's cell placement. NOPs left out."""
+    body = next(b for name, b in sass_by_function(lib_path).items() if kernel in name)
+    ins = [(int(a, 16), guard, op, rest) for a, guard, op, rest in re.findall(
+        r"/\*([0-9a-f]{4,})\*/ (@!?U?P[T0-9] )?([A-Z][A-Z0-9_.]*)([^;]*);", body)
+        if op != "NOP"]
+    end = min([int(rest.split()[0], 16) for _, _, op, rest in ins if op.startswith("CALL")]
+              or [ins[-1][0] + 16])
+    skipped = [(a + 16, int(rest.split()[0], 16)) for a, guard, op, rest in ins
+               if op == "BRA" and guard and a < end and int(rest.split()[0], 16) > a]
+    return [(a, op) for a, _, op, _ in ins
+            if a < end and not any(lo <= a < hi for lo, hi in skipped)]
+
+
 def phase_build():
     log("== build")
     libs = _build.load_libraries()
@@ -1602,7 +1717,8 @@ def phase_build():
         log(f"  ptxas: {name}: {res['registers']} registers, "
             f"{res['stack_bytes']} B stack, {res['spill_store_bytes']} B "
             f"spill stores, {res['spill_load_bytes']} B spill loads")
-    check(len(resources) == 33, "ptxas did not report the draws kernel, the "
+    check(len(resources) == 36, "ptxas did not report the draws kernel's four "
+          "instantiations (1 to 4 bounces), the "
           "three static trace-kernel instantiations, the six grouped ones "
           "(with and without the wide sweep), the eight "
           "backward-kernel instantiations (static and grouped), the three "
@@ -1646,6 +1762,46 @@ def check_glue(tag, sh: ShadeInputs):
           f"{sorted(got)}, expected {sorted(ref)}")
     compare_groups(f"glue {tag} scene gradients", got, ref, GRAD_ATOL,
                    GRAD_RTOL, SPHERE_GEOMETRY_RTOL, nudged)
+
+
+# K1's exhaustive check: one sample at four bounces (dims 0-5, 7-10, 12-15,
+# 17-20: every dimension a render draws from), at every index below
+# EXHAUSTIVE_SPAN, at as many seeded random int32 offsets (the kernel reads an
+# offset as uint32, so they reach 2^32 - 1), and at every base's boundaries
+# B^k - 1 and B^k below 2^32, with 2^32 - 1 itself.
+EXHAUSTIVE_SPAN = 1 << 22
+EXHAUSTIVE_SEED = 13
+
+
+def halton_boundaries() -> list:
+    """B^k - 1 and B^k below 2^32 for every prime base, and 2^32 - 1."""
+    out = [(1 << 32) - 1]
+    for b in PRIMES:
+        p = b
+        while p < (1 << 32):
+            out += [p - 1, p]
+            p *= b
+    return out
+
+
+def check_draws_exhaustive():
+    """K1's six planes bit-equal to the plain version's on the card at the
+    indices above, at one sample and four bounces."""
+    cfg = RenderConfig(width=1, height=1, spp=1, bounces=4)
+    gen = torch.Generator(device="cuda").manual_seed(EXHAUSTIVE_SEED)
+    bounds = torch.tensor(halton_boundaries(), dtype=torch.int64, device="cuda")
+    offsets = torch.cat([
+        torch.arange(EXHAUSTIVE_SPAN, dtype=torch.int32, device="cuda"),
+        torch.randint(-(1 << 31), 1 << 31, (EXHAUSTIVE_SPAN,), generator=gen,
+                      dtype=torch.int32, device="cuda"),
+        (bounds - (bounds >= (1 << 31)).long() * (1 << 32)).to(torch.int32)])
+    start = time.perf_counter()
+    compare_draws(f"K1 exhaustive: {offsets.numel()} indices (all below "
+                  f"{EXHAUSTIVE_SPAN}, as many random uint32, the bases' "
+                  "boundaries), 1 sample x 4 bounces",
+                  cuda_path.pregen_draws_kernel(offsets, cfg),
+                  cuda_path.pregen_draws_plain(offsets, cfg))
+    log(f"  K1 exhaustive check took {time.perf_counter() - start:.1f} s")
 
 
 def phase_small():
@@ -1710,6 +1866,7 @@ def phase_small():
                 plain_ms["k_emit"] = time_ms(
                     lambda: inp.kernel(draws_k, emit=True), repeats=5)
     check_static_limit()
+    check_draws_exhaustive()
     for key in ("draws", "hdr", "emit", "bwd"):
         log(f"  128 x 96 x 4 spp, cornell: {key}: plain "
             f"{plain_ms[key][1]:.3f} ms, kernel "
@@ -2185,10 +2342,8 @@ def silh_bound(inp: SoftInputs):
     blocked = int(occ_b.sum() + occ_s.sum())
     reached = 2 * cfg.spp * n - blocked
     share = silh_probe_counts(inp)["passed"]
-    digits = sum(halton_digits(PRIMES[d], (1 << 20) + cfg.spp)
-                 for d in range(4))
     lane = (t * OPS_TRI_CLOSEST + s * OPS_SPH_CLOSEST + OPS_SILH_LANE
-            + OPS_HALTON_DIGIT * digits)
+            + halton_dim_ops(range(4), cfg))
     passed = int(reached * n_shadow * share)
     ops = (cfg.spp * n * lane
            + reached * (n_shadow * OPS_TRI_PREFILTER + s * OPS_SPH_SHADOW)
@@ -2226,9 +2381,7 @@ def soft_bwd_bound(inp: SoftInputs):
         potential=int(pot.sum()), background=int(bg_needed.sum()),
         background_surface=int((bg_needed & surf).sum()),
         background_reversed=int((~front & surf & ~occ_b).sum()))
-    digits = sum(halton_digits(PRIMES[d], (1 << 20) + cfg.spp)
-                 for d in range(4))
-    ops = (counts["lanes"] * (OPS_K7_CAMERA + OPS_HALTON_DIGIT * digits)
+    ops = (counts["lanes"] * (OPS_K7_CAMERA + halton_dim_ops(range(4), cfg))
            + counts["sphere"] * (OPS_K7_SPHERE_FWD + OPS_K7_SHADE_FWD)
            + counts["front"] * OPS_K7_SPHERE_REV
            + counts["front_lit"] * OPS_K7_SHADE_REV
@@ -3037,6 +3190,39 @@ def mis_rows(launches, resources):
     return rows, plain
 
 
+def k1_row(inp: TraceInputs, launches: int, resources):
+    """K1 at ``inp``'s shape (path C's): its planes against the plain
+    version's, its time by CUDA events over K1_BATCH launches, its bound,
+    issue floor, occupancy and ptxas resources; and both sets of planes.
+    (Device time is left to ``--split K1`` and ``tools/compare_trees.py``:
+    a profiler window this late in a full run misses launches.)"""
+    cfg, n = inp.cfg, inp.cfg.num_pixels
+    draws_k = cuda_path.pregen_draws_kernel(inp.offsets_i32, cfg)
+    draws_p = cuda_path.pregen_draws_plain(inp.offsets, cfg)
+    err = compare_draws("K1 at C", draws_k, draws_p)
+    p_ms = time_ms(lambda: cuda_path.pregen_draws_plain(inp.offsets, cfg),
+                   repeats=2, warmup=0)
+    k_ms = time_draws(lambda: cuda_path.pregen_draws_kernel(inp.offsets_i32, cfg))
+    bound, by = draws_bound(cfg, n)
+    issue = draws_issue_floor(cfg, n, inp.offsets_i32)
+    per_sm = cuda_path._library().grt_draws_blocks_per_sm(cfg.bounces)
+    check(per_sm > 0, "the draws kernel's occupancy query failed")
+    row = dict(
+        name="draws_kernel", route="cuda",
+        source="gpuraytracer_tpu_torch/ops/csrc/path_kernels.cu",
+        replaces="gpuraytracer_tpu/ops/pallas_path.py:275",
+        shape="C: 512x512 x 16 spp x 3 bounces",
+        launches=launches, max_abs_err=err,
+        ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2], plain_ms=p_ms[1],
+        bound_ms=bound, bound_by=by, library_ms=None, blocks_per_sm=per_sm, **issue,
+        **resource_fields(resources[f"draws_kernel<BOUNCES={cfg.bounces}>"]))
+    log(f"  draws_kernel at C: {k_ms[1]:.4f} ms (min {k_ms[0]:.4f}, max "
+        f"{k_ms[2]:.4f}), bound {bound:.4f} ms by {by}, issue floor "
+        f"{issue['issue_floor_ms']:.4f} ms ({issue['sass_per_item']} "
+        f"instructions an item at {issue['sm_clock_mhz']} MHz)")
+    return row, draws_k, draws_p
+
+
 def phase_full(launches, plain_small, resources):
     log("== full: kernels at the main paths' shapes")
     rows = []
@@ -3045,22 +3231,8 @@ def phase_full(launches, plain_small, resources):
     cfg = RenderConfig(**BENCH)
     n = cfg.num_pixels
     inp = TraceInputs("cornell", cfg, cull=True)
-    draws_k = cuda_path.pregen_draws_kernel(inp.offsets_i32, cfg)
-    draws_p = cuda_path.pregen_draws_plain(inp.offsets, cfg)
-    err = compare_draws("K1 at C", draws_k, draws_p)
-    k_ms = time_ms(lambda: cuda_path.pregen_draws_kernel(inp.offsets_i32,
-                                                         cfg))
-    p_ms = time_ms(lambda: cuda_path.pregen_draws_plain(inp.offsets, cfg),
-                   repeats=2, warmup=0)
-    bound, by = draws_bound(cfg, n)
-    rows.append(dict(
-        name="draws_kernel", route="cuda",
-        source="gpuraytracer_tpu_torch/ops/csrc/path_kernels.cu",
-        replaces="gpuraytracer_tpu/ops/pallas_path.py:275",
-        shape="C: 512x512 x 16 spp x 3 bounces",
-        launches=launches["C"]["draws_kernel"], max_abs_err=err,
-        ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2], plain_ms=p_ms[1],
-        bound_ms=bound, bound_by=by, library_ms=None))
+    row, draws_k, draws_p = k1_row(inp, launches["C"]["draws_kernel"], resources)
+    rows.append(row)
 
     hdr_k, rec_k = inp.kernel(draws_k, emit=True)
     hdr_p, rec_p = inp.plain(draws_p, emit=True, whole_frame=True)
@@ -3388,6 +3560,8 @@ def phase_grouped_path(label, scene_kw, steps):
     occluders = potential_occluders(scene, cfg)
     occ_s = time.perf_counter() - start
     draws = cuda_path.pregen_draws(cfg)
+    compare_draws(f"K1 at {label}", draws,
+                  cuda_path.pregen_draws_plain(pixel_rng_offsets(cfg, "cuda"), cfg))
     log(f"  {label}: occluder cull keeps {sum(occluders)} of {n_tris} "
         f"triangles in the shadow table ({occ_s:.2f} s on the host)")
     reset_launches()
@@ -4259,7 +4433,126 @@ def k7_blocks(n):
             f"constexpr int BWD_MIN_BLOCKS = {n};")
 
 
+K1_ITEM = ("  float x = halton_at<0, SHORT>(ih);\n"
+           "  float y = halton_at<1, SHORT>(ih);")
+K1_BOUNCE = [f"  {plane}[o] = halton_at<2 + 5 * B + {k}, SHORT>(ih);"
+             for k, plane in enumerate(("nee0", "nee1", "cos0", "cos1"))]
+K1_PRODUCT = "  const float t = __fmul_rn(f, __uint2float_rn(i - q * B));"
+K1_EDITS = {
+    "stores alone": [("path_kernels.cu", K1_ITEM, "  float x = 0.25f;\n  float y = 0.75f;"),
+                     *[("path_kernels.cu", line, line.split("=")[0] + f"= 0.{k + 1}f;")
+                       for k, line in enumerate(K1_BOUNCE)]],
+    "streaming stores": [
+        *[("path_kernels.cu", line, f"  __stcs({plane} + o, " + line.split("= ")[1][:-1] + ");")
+          for plane, line in zip(("nee0", "nee1", "cos0", "cos1"), K1_BOUNCE)],
+        ("path_kernels.cu", "  jx[sn] = x;\n  jy[sn] = y;\n  bounce_planes",
+         "  __stcs(jx + sn, x);\n  __stcs(jy + sn, y);\n  bounce_planes")],
+    # The digit's product by its weight, fl(f d), in two other forms that
+    # give the same bits: d converted by an OR into 2^23's significand and a
+    # subtract, then multiplied; or that OR and one fused multiply-add by f
+    # less f 2^23, which rounds the exact f d once.
+    "OR, subtract, multiply": [(
+        "halton.cuh", K1_PRODUCT, "  const float t = __fmul_rn(f, __fsub_rn(__uint_as_float("
+        "0x4B000000u | (i - q * B)), 8388608.0f));")],
+    "OR, fused multiply-add": [(
+        "halton.cuh", K1_PRODUCT, "  const float t = __fmaf_rn(f, __uint_as_float(0x4B000000u "
+        "| (i - q * B)), -f * 8388608.0f);")],
+    "loop inline": [("path_kernels.cu", "__device__ __noinline__ void draws_item_loop(",
+                     "__device__ __forceinline__ void draws_item_loop(")],
+}
+
+
+# Step 0 of K1's redesign: edits of the previous K1 (one thread per item, the
+# digit loop at a runtime dimension), each taking out one suspect. split()
+# takes these in place of SPLIT_EDITS' K1 entries when the package it runs
+# holds that source (halton.cuh without the short form): run with the older
+# package first on the path, ``PYTHONPATH=OLD python3 -P chip_smoke.py --split
+# K1``.
+K1_LOOP_STEP = "    r = __fadd_rn(r, __fmul_rn(f, (float)(i - q * B)));"
+K1_FIXED_DIGITS = ("halton.cuh", "  while (i > 0u) {",
+                   "  constexpr int N = B == 2 ? 21 : B == 3 ? 13 : B == 5 ? 9 : "
+                   "B == 7 ? 8 : B <= 13 ? 6 : B <= 31 ? 5 : 4;\n"
+                   "#pragma unroll\n  for (int k = 0; k < N; ++k) {")
+K1_THREE_BOUNCES = ("path_kernels.cu", "  for (int b = 0; b < bounces; ++b) {",
+                    "#pragma unroll\n  for (int b = 0; b < 3; ++b) {")
+K1_OR = ("halton.cuh", K1_LOOP_STEP, K1_LOOP_STEP.replace(
+    "(float)(i - q * B)", "__fsub_rn(__int_as_float(0x4B000000u | (i - q * B)), 8388608.0f)"))
+K1_F_CONSTANT = ("halton.cuh", "    f = __fmul_rn(f, inv_b);", "    f = inv_b;")
+SPLIT_EDITS_LOOP_K1 = {
+    "K1 (loop form), the stores alone (constant values)": ("K1", "path_kernels", [
+        ("path_kernels.cu", "camera_jitter(ih, spp, strat_k, inv_k, &x, &y);",
+         "x = 0.25f; y = 0.75f;"),
+        *[("path_kernels.cu", f"halton(ih, 2 + 5 * b + {k});", f"0.{k + 1}f;")
+          for k in range(4)]]),
+    "K1 (loop form), the digit converted by an OR into 2^23 and a subtract": (
+        "K1", "path_kernels", [K1_OR]),
+    "K1 (loop form), f a constant (the chain of multiplies taken out)": (
+        "K1", "path_kernels", [K1_F_CONSTANT]),
+    "K1 (loop form), the digit loop at a fixed count": ("K1", "path_kernels", [K1_FIXED_DIGITS]),
+    "K1 (loop form), the dimensions compile-time constants (the bounce loop unrolled at 3)": (
+        "K1", "path_kernels", [K1_THREE_BOUNCES]),
+    "K1 (loop form), fixed digits and compile-time dimensions": (
+        "K1", "path_kernels", [K1_FIXED_DIGITS, K1_THREE_BOUNCES]),
+    "K1 (loop form), fixed digits, compile-time dimensions, conversion by OR": (
+        "K1", "path_kernels", [K1_FIXED_DIGITS, K1_THREE_BOUNCES, K1_OR]),
+    "K1 (loop form), fixed digits, compile-time dimensions, f a constant": (
+        "K1", "path_kernels", [K1_FIXED_DIGITS, K1_THREE_BOUNCES, K1_F_CONSTANT]),
+}
+
+
+K1_PRODUCT_FORMS = (("an OR, a subtract and a multiply", "OR, subtract, multiply"),
+                    ("an OR and a fused multiply-add", "OR, fused multiply-add"))
+
+
+def k1_threads(n):
+    return [("path_kernels.cu", "constexpr int DRAWS_THREADS = 128;",
+             f"constexpr int DRAWS_THREADS = {n};")]
+
+
+def k1_samples(n):
+    """K1 with n samples of a pixel a thread, the offset read once."""
+    return [
+        ("path_kernels.cu", "  const dim3 grid((n + DRAWS_THREADS - 1) / DRAWS_THREADS, spp);",
+         f"  const dim3 grid((n + DRAWS_THREADS - 1) / DRAWS_THREADS, (spp + {n - 1}) / {n});"),
+        ("path_kernels.cu", "  const int s = blockIdx.y;\n  if (i >= n) return;\n"
+         "  const uint32_t ih = (uint32_t)offsets[i] + (uint32_t)s;\n",
+         "  if (i >= n) return;\n  const uint32_t offset = (uint32_t)offsets[i];\n"
+         f"  for (int s = blockIdx.y * {n}; s < min(spp, ((int)blockIdx.y + 1) * {n}); ++s) {{\n"
+         "  const uint32_t ih = offset + (uint32_t)s;\n"),
+        ("path_kernels.cu", "    draws_item_loop<BOUNCES>(ih, spp, strat_k, inv_k, sn, o, n, "
+         "nee0, nee1, cos0, cos1, jx,\n                             jy);\n  }\n}",
+         "    draws_item_loop<BOUNCES>(ih, spp, strat_k, inv_k, sn, o, n, "
+         "nee0, nee1, cos0, cos1, jx,\n                             jy);\n  }\n  }\n}")]
+
+
+# The kernels that regenerate draws (K2 and K2g in hdr and records_only
+# modes, K3 and K3g with draws regenerated, K6, K7) on the digit loop, the
+# radical inverse before this form: every index takes the loop form.
+HALTON_LOOP = [
+    ("halton.cuh", "  return i < HALTON_SHORT ? radical_inverse_short<B>(i) : "
+     "radical_inverse_loop<B>(i);", "  return radical_inverse_loop<B>(i);"),
+    ("halton.cuh", "  if (i < HALTON_SHORT) {\n    bounce_draws_at<true>(i, b, u);",
+     "  if (false) {\n    bounce_draws_at<true>(i, b, u);")]
+
+
 SPLIT_EDITS = {
+    "K1, the stores alone (constant values)": ("K1", "path_kernels", K1_EDITS["stores alone"]),
+    "K1 with streaming stores (st.global.cs)": ("K1", "path_kernels",
+                                                K1_EDITS["streaming stores"]),
+    **{f"K1, the digit product by {how}": ("K1", "path_kernels", K1_EDITS[edit])
+       for how, edit in K1_PRODUCT_FORMS},
+    "K1, the loop form inline": ("K1", "path_kernels", K1_EDITS["loop inline"]),
+    **{f"K1 in blocks of {n}": ("K1", "path_kernels", k1_threads(n)) for n in (256, 512)},
+    **{f"K1 at {n} samples a thread": ("K1", "path_kernels", k1_samples(n))
+       for n in (2, 4, 8, 16)},
+    **{f"{k}, the digit product by {how}": (k, lib, K1_EDITS[edit])
+       for k, lib in (("K2", "path_kernels"), ("K3", "shade_kernels"),
+                      ("K6", "soft_kernels"), ("K7", "soft_kernels"))
+       for how, edit in K1_PRODUCT_FORMS},
+    **{f"{k} on the loop form of the radical inverse": (k, lib, HALTON_LOOP)
+       for k, lib in (("K2", "path_kernels"), ("K2g", "path_kernels"),
+                      ("K3", "shade_kernels"), ("K3g", "shade_kernels"),
+                      ("K6", "soft_kernels"), ("K7", "soft_kernels"))},
     "K2 without the prefilters (every probe tests every occluder)": (
         "K2", "path_kernels", [K2_EDITS["probe plain"]]),
     "K2, the probe without the prefilters, to its first occluder": (
@@ -4385,14 +4678,17 @@ def split_builds(edits):
 
 
 # The ptxas names of each kernel's instantiations.
-SPLIT_PTXAS = {"K2": "path_kernel<", "K2g": "path_grouped_kernel<",
+SPLIT_PTXAS = {"K1": "draws_kernel", "K2": "path_kernel<", "K2g": "path_grouped_kernel<",
                "K4": "mis_kernel<", "K4g": "mis_grouped_kernel<",
                "K5": "mis_bwd_kernel<", "K5g": "mis_bwd_grouped_kernel<",
                "K3": "shade_bwd_kernel<", "K3g": "shade_bwd_grouped_kernel<",
                "K6": "silh_kernel", "K7": "soft_bwd_kernel"}
+# Timed runs per build in split() where not 3, and launches a run where not 1.
+SPLIT_REPEATS = {"K1": K1_REPEATS}
+SPLIT_BATCH = {"K1": K1_BATCH}
 # The kernels split() also times by the profiler's device time, apart from
 # their reduction: the name the profiler gives each.
-SPLIT_PROFILED = {"K3g": "shade_bwd_grouped", "K6": "silh_kernel",
+SPLIT_PROFILED = {"K1": "draws_kernel", "K3g": "shade_bwd_grouped", "K6": "silh_kernel",
                   "K7": "soft_bwd_kernel"}
 
 
@@ -4454,7 +4750,7 @@ def scatter_rounds(sh: ShadeInputs):
     return out
 
 
-def split(kernels=None):
+def split(kernels=None, only=None):
     """The trace, MIS and backward kernels unedited and with each part of
     SPLIT_EDITS taken out or changed, in turns (unedited first and last): K2
     at A and B (hdr) and C (records + draws + cull), K2g at K and L (records
@@ -4462,8 +4758,10 @@ def split(kernels=None):
     (both scenes), K4g and K5g at M and N, K3 at D and E and K3g at K and L
     (draws read, as those paths launch them), K6 and K7 at J, at the
     recovery and at 800 x 600 x 16 (no cull, as J and the recovery launch
-    them). ``kernels``: only these (all by default); a redesign slice
-    splits its own kernels alone."""
+    them), K3 and K3g also with draws regenerated, K2g also in hdr mode at
+    K, K1 at C. ``kernels``: only these (all by default); a redesign slice
+    splits its own kernels alone. ``only``: the edits whose description
+    holds this text."""
     kernels = set(kernels or SPLIT_PTXAS)
     log("== split: the kernels with one part taken out or changed: "
         + ", ".join(sorted(kernels)))
@@ -4471,8 +4769,11 @@ def split(kernels=None):
     own = {name: _build.load_library(name)
            for name in ("path_kernels", "mis_kernels", "mis_bwd_kernels",
                         "shade_kernels", "soft_kernels")}
-    variants = split_builds({what: e for what, e in SPLIT_EDITS.items()
-                             if e[0] in kernels})
+    edits = dict(SPLIT_EDITS)
+    if "radical_inverse_short" not in (_build.CSRC_DIR / "halton.cuh").read_text():
+        edits = {w: e for w, e in edits.items() if e[0] != "K1"} | SPLIT_EDITS_LOOP_K1
+    variants = split_builds({what: e for what, e in edits.items()
+                             if e[0] in kernels and (only is None or only in what)})
     out = {"ptxas": {}}
     for name, lib in own.items():
         res = {fn: (r["registers"], r["stack_bytes"], r["spill_store_bytes"])
@@ -4489,22 +4790,45 @@ def split(kernels=None):
         out["ptxas"][what] = res
         log(f"  {what}: registers, stack, spill stores " + ", ".join(
             f"{name} {r}" for name, r in res.items()) + f"; built in {lib.seconds:.1f} s")
+    if "K1" in kernels:
+        # K1's SASS: its instructions (the straight-line part is what a
+        # thread executes) and the opcodes of its digit arithmetic.
+        for what, lib in ([("K1 unedited", own["path_kernels"])]
+                          + [(w, lib) for w, (k, _, lib) in variants.items() if k == "K1"]):
+            ops = sass_opcodes(lib.path, "draws_kernel")
+            out.setdefault("K1 sass", {})[what] = ops
+            log(f"  {what}: SASS {sum(ops.values())} instructions; " + ", ".join(
+                f"{op} {c}" for op, c in sorted(ops.items(), key=lambda kv: -kv[1])))
 
     def turns(key, kernel, name, fn):
         order = ([(f"{kernel} unedited", own[name])]
                  + [(w, lib) for w, (k, n, lib) in variants.items() if k == kernel]
                  + [(f"{kernel} unedited, again", own[name])])
+        first = None
         for what, lib in order:
             _build._LOADED[name] = lib
-            ms = time_ms(fn, repeats=3)
+            batch = SPLIT_BATCH.get(kernel, 1)
+
+            def run(launches=batch):
+                for _ in range(launches):
+                    fn()
+            ms = tuple(t / batch for t in time_ms(run, repeats=SPLIT_REPEATS.get(kernel, 3),
+                                                 warmup=K1_WARMUP if kernel == "K1" else 1))
             out.setdefault(key, {})[what] = ms
+            if kernel == "K1":
+                # Which edits keep the bits: the planes against the unedited build's.
+                got = fn()
+                first = first or got
+                same = all(torch.equal(a, b) for a, b in zip(got, first))
+                out.setdefault(key + " bit-equal to the unedited build", {})[what] = same
+                log(f"  {key}: {what}: planes bit-equal to the unedited build: {same}")
             part = ""
             if kernel in SPLIT_PROFILED:
                 # The kernel and its reduction apart, by device time under the
                 # profiler.
-                device_busy(lambda: [fn() for _ in range(3)])
-                parts = (profiled_ms(SPLIT_PROFILED[kernel]) / 3,
-                         profiled_ms("reduce_") / 3)
+                device_busy(lambda: run(3 * batch))
+                parts = (profiled_ms(SPLIT_PROFILED[kernel]) / (3 * batch),
+                         profiled_ms("reduce_") / (3 * batch))
                 out.setdefault(key + " kernel / reduction", {})[what] = parts
                 part = f"; profiled: kernel {parts[0]:.4f} ms, reduction {parts[1]:.4f} ms"
             log(f"  {key}: {what}: {ms[1]:.3f} ms (min {ms[0]:.3f}, max {ms[2]:.3f})"
@@ -4522,7 +4846,10 @@ def split(kernels=None):
         out.setdefault("scatter_rounds", {})[key] = rounds
         log(f"  {key}: distinct primitives per live warp-bounce, and the most "
             f"lanes on one, by bounce: {rounds}")
-        return key, {"K3g" if tess else "K3": ("shade_kernels", sh.kernel)}
+        name = "K3g" if tess else "K3"
+        return key, {name: ("shade_kernels", sh.kernel),
+                     f"{name} regenerated": ("shade_kernels",
+                                             lambda: sh.kernel(regenerate=True))}
 
     def trace(label, scene_name, size, cull):
         inp = TraceInputs(scene_name, RenderConfig(**size), cull=cull)
@@ -4536,13 +4863,23 @@ def split(kernels=None):
         inp = TraceInputs(None, cfg, cull=True, grouped=True, scene=(
             cornell_box_tessellated(resolution=cfg.resolution, **tess)))
         draws = cuda_path.pregen_draws_kernel(inp.offsets_i32, cfg)
-        return f"{label} tess-{inp.num_tris}", {
-            "K2g": ("path_kernels", lambda: inp.kernel(draws, emit=True))}
+        fns = {"K2g": ("path_kernels", lambda: inp.kernel(draws, emit=True))}
+        if label == "K":
+            fns["K2g hdr"] = ("path_kernels", lambda: inp.kernel())
+        return f"{label} tess-{inp.num_tris}", fns
 
     def mis(label, scene_name, size, emit, cull):
         inp = MisInputs(scene_name, RenderConfig(integrator="mis", **size), cull=cull)
         return f"{label} {scene_name}", {
             "K4": ("mis_kernels", lambda: inp.kernel(emit=emit))}
+
+    def draws(label, size):
+        # K and L draw at C's shape (512 x 512 x 16 x 3 from the same
+        # offsets): this one shape times K1 for all three.
+        cfg = RenderConfig(**size)
+        offsets = pixel_rng_offsets(cfg, "cuda").to(torch.int32).contiguous()
+        return f"{label} {cfg.width}x{cfg.height} x {cfg.spp} x {cfg.bounces}", {
+            "K1": ("path_kernels", lambda: cuda_path.pregen_draws_kernel(offsets, cfg))}
 
     def mis_bwd(scene_name):
         bw = MisBwdInputs(scene_name, RenderConfig(integrator="mis", **MIS_BENCH))
@@ -4572,6 +4909,7 @@ def split(kernels=None):
             "K5g": ("mis_bwd_kernels", bw.kernel)}
 
     shapes = [
+        ({"K1"}, lambda: draws("C (and K, L)", BENCH)),
         ({"K3"}, lambda: backward("D", "cornell", BENCH, None)),
         ({"K3"}, lambda: backward("E", "cornell-spheres", INVERSE, None)),
         ({"K3g"}, lambda: backward("K", None, BENCH, TESS_K)),
@@ -4595,9 +4933,10 @@ def split(kernels=None):
         if not timed & kernels:
             continue
         key, fns = make()
-        for kernel, (name, fn) in fns.items():
+        for what, (name, fn) in fns.items():
+            kernel, _, mode = what.partition(" ")
             if kernel in kernels:
-                turns(key, kernel, name, fn)
+                turns(f"{key} {mode}".strip(), kernel, name, fn)
         del fns, fn
         torch.cuda.empty_cache()
     log(f"  split took {time.perf_counter() - started:.1f} s")
@@ -4715,14 +5054,18 @@ def main() -> int:
               "is False", file=sys.stderr)
         return 1
     args = sys.argv[1:]
+    only = None
+    if args[:1] == ["--split"] and "--only" in args[:-1]:
+        at = args.index("--only")
+        only, args = args[at + 1], args[:at] + args[at + 2:]
     if not (args in ([], ["--count-drift"])
             or (args[:1] == ["--split"] and set(args[1:]) <= set(SPLIT_PTXAS))):
         print("usage: python3 chip_smoke.py [--count-drift | --split "
-              f"[{' '.join(SPLIT_PTXAS)} ...]]", file=sys.stderr)
+              f"[{' '.join(SPLIT_PTXAS)} ...] [--only TEXT]]", file=sys.stderr)
         return 2
     if args:
         if args[0] == "--split":
-            result = {"split_ms": split(args[1:])}
+            result = {"split_ms": split(args[1:], only)}
         else:
             result = {"count_drift": count_drift()}
         print(json.dumps(result), flush=True)

@@ -19,13 +19,15 @@
 // with the pixel axis minor-most.
 //
 // Bound on this card: BYTES.  The kernel writes (4*bounces + 2) * spp * N
-// floats and reads N offsets; the radical inverses cost a few hundred integer
-// and float operations per (pixel, sample), far below what the memory system
-// needs for the 4*(4*bounces+2) bytes they produce.  Design: one thread per
-// (pixel, sample) with neighbouring threads on neighbouring pixels, so every
-// store of a warp is one contiguous 128-byte line; digit extraction is uint32
-// / and % by a compile-time base (the compiler turns them into multiply-shift),
-// and the digit loop ends when the index is exhausted.
+// floats and reads N offsets.  Design: one thread per (pixel, sample) with
+// neighbouring threads on neighbouring pixels, so every store of a warp is
+// one contiguous 128-byte line; the kernel is templated on the bounce count,
+// so that every Halton dimension is a compile-time constant, and an item
+// whose index is below HALTON_SHORT (every item of a render) takes
+// halton.cuh's short form of each radical inverse: straight-line code, a
+// fixed digit count, constant weights, one multiply-high a quotient, base 2
+// a bit reversal (436 SASS instructions an item at three bounces).  Its
+// stores alone take within 5-7 % of the kernel's time on the card (PERF.md).
 //
 // ---------------------------------------------------------------------------
 // path_kernel          replaces  gpuraytracer_tpu/ops/pallas_path.py:_path_kernel
@@ -108,17 +110,19 @@
 namespace {
 
 using grt::any_triangle_filtered;
+using grt::bounce_draws;
 using grt::camera_jitter;
 using grt::closest_grouped_warp;
 using grt::closest_grouped_wide;
 using grt::closest_triangle;
 using grt::FULL_WARP;
 using grt::GEO_ROWS;
-using grt::halton;
+using grt::halton_at;
 using grt::occluded;
 using grt::occluded_grouped_warp;
 using grt::SPH_ROWS;
 using grt::sphere_roots;
+using grt::stratify;
 using grt::SUPER;
 
 constexpr int OCC_BIT = 1 << 20;
@@ -127,6 +131,7 @@ constexpr float RAY_TMIN = 1e-3f;
 constexpr float RAY_TMAX = 1e3f;
 constexpr int ATTR_ROWS = 13;   // normal, diffuse, emissive, is_emissive, sphere center
 constexpr int BLOCK_THREADS = 128;
+constexpr int DRAWS_THREADS = 128;    // draws_kernel's blocks
 constexpr int STATIC_MIN_BLOCKS = 9;    // the static tier's blocks per SM: 56 registers
 constexpr int GROUPED_THREADS = 384;    // the grouped tier's persistent blocks
 constexpr int GROUPED_WARPS = GROUPED_THREADS / 32;
@@ -137,8 +142,55 @@ constexpr int GROUPED_MIN_BLOCKS_WIDE = 3;
 constexpr size_t STATIC_SMEM_BYTES = 48 * 1024;  // the static tier stages at most this
 constexpr size_t MAX_SMEM_BYTES = 227 * 1024;    // one block's most on sm_90
 
-__global__ void __launch_bounds__(BLOCK_THREADS)
-draws_kernel(const int32_t* __restrict__ offsets, int n, int spp, int bounces,
+// Bounce B's four planes of one (pixel, sample) item, at plane offset o, then
+// the next bounce's, n floats on.
+template <int B, int BOUNCES, bool SHORT>
+__device__ __forceinline__ void bounce_planes(uint32_t ih, size_t o, int n,
+                                             float* __restrict__ nee0, float* __restrict__ nee1,
+                                             float* __restrict__ cos0, float* __restrict__ cos1) {
+  nee0[o] = halton_at<2 + 5 * B + 0, SHORT>(ih);
+  nee1[o] = halton_at<2 + 5 * B + 1, SHORT>(ih);
+  cos0[o] = halton_at<2 + 5 * B + 2, SHORT>(ih);
+  cos1[o] = halton_at<2 + 5 * B + 3, SHORT>(ih);
+  if constexpr (B + 1 < BOUNCES) {
+    bounce_planes<B + 1, BOUNCES, SHORT>(ih, o + n, n, nee0, nee1, cos0, cos1);
+  }
+}
+
+// One (pixel, sample) item at Halton index ih: the jitter pair at sn, the
+// bounces' planes from o on.
+template <int BOUNCES, bool SHORT>
+__device__ __forceinline__ void draws_item(uint32_t ih, int spp, int strat_k, float inv_k,
+                                           size_t sn, size_t o, int n,
+                                           float* __restrict__ nee0, float* __restrict__ nee1,
+                                           float* __restrict__ cos0, float* __restrict__ cos1,
+                                           float* __restrict__ jx, float* __restrict__ jy) {
+  float x = halton_at<0, SHORT>(ih);
+  float y = halton_at<1, SHORT>(ih);
+  stratify(ih, spp, strat_k, inv_k, &x, &y);
+  jx[sn] = x;
+  jy[sn] = y;
+  bounce_planes<0, BOUNCES, SHORT>(ih, o, n, nee0, nee1, cos0, cos1);
+}
+
+// The loop form of an item whose index is at or above HALTON_SHORT, out of
+// line: no render makes such an index.
+template <int BOUNCES>
+__device__ __noinline__ void draws_item_loop(uint32_t ih, int spp, int strat_k, float inv_k,
+                                             size_t sn, size_t o, int n, float* nee0,
+                                             float* nee1, float* cos0, float* cos1, float* jx,
+                                             float* jy) {
+  draws_item<BOUNCES, false>(ih, spp, strat_k, inv_k, sn, o, n, nee0, nee1, cos0, cos1, jx,
+                             jy);
+}
+
+// One thread per (pixel i, sample blockIdx.y); every dimension a compile-time
+// constant.  An item whose index is below HALTON_SHORT (every item of a
+// render) takes the short form of all its radical inverses (fourteen at
+// three bounces): straight-line code whose chains the compiler interleaves.
+template <int BOUNCES>
+__global__ void __launch_bounds__(DRAWS_THREADS)
+draws_kernel(const int32_t* __restrict__ offsets, int n, int spp,
              int strat_k, float inv_k,
              float* __restrict__ nee0, float* __restrict__ nee1,
              float* __restrict__ cos0, float* __restrict__ cos1,
@@ -147,17 +199,14 @@ draws_kernel(const int32_t* __restrict__ offsets, int n, int spp, int bounces,
   const int s = blockIdx.y;
   if (i >= n) return;
   const uint32_t ih = (uint32_t)offsets[i] + (uint32_t)s;
-  float x, y;
-  camera_jitter(ih, spp, strat_k, inv_k, &x, &y);
   const size_t sn = (size_t)s * n + i;
-  jx[sn] = x;
-  jy[sn] = y;
-  for (int b = 0; b < bounces; ++b) {
-    const size_t o = ((size_t)s * bounces + b) * n + i;
-    nee0[o] = halton(ih, 2 + 5 * b + 0);
-    nee1[o] = halton(ih, 2 + 5 * b + 1);
-    cos0[o] = halton(ih, 2 + 5 * b + 2);
-    cos1[o] = halton(ih, 2 + 5 * b + 3);
+  const size_t o = (size_t)s * BOUNCES * n + i;
+  if (ih < grt::HALTON_SHORT) {
+    draws_item<BOUNCES, true>(ih, spp, strat_k, inv_k, sn, o, n, nee0, nee1, cos0, cos1, jx,
+                              jy);
+  } else {
+    draws_item_loop<BOUNCES>(ih, spp, strat_k, inv_k, sn, o, n, nee0, nee1, cos0, cos1, jx,
+                             jy);
   }
 }
 
@@ -336,10 +385,10 @@ __device__ __forceinline__ void trace_pixel(const PathParams& p, const Tables& s
         u_nee0 = p.nee0[o]; u_nee1 = p.nee1[o];
         u0 = p.cos0[o]; u1 = p.cos1[o];
       } else {
-        u_nee0 = halton(ih, 2 + 5 * bounce + 0);
-        u_nee1 = halton(ih, 2 + 5 * bounce + 1);
-        u0 = halton(ih, 2 + 5 * bounce + 2);
-        u1 = halton(ih, 2 + 5 * bounce + 3);
+        float u[4];
+        bounce_draws(ih, bounce, u);
+        u_nee0 = u[0]; u_nee1 = u[1];
+        u0 = u[2]; u1 = u[3];
       }
       const float w0 = u_nee0 * 2.0f - 1.0f;
       const float w1 = u_nee1 * 2.0f - 1.0f;
@@ -561,10 +610,32 @@ int grt_pregen_draws(const int32_t* offsets, int n, int spp, int bounces,
                      float* cos0, float* cos1, float* jx, float* jy,
                      void* stream) {
   if (n <= 0 || spp <= 0 || spp > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + BLOCK_THREADS - 1) / BLOCK_THREADS, spp);
-  draws_kernel<<<grid, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
-      offsets, n, spp, bounces, strat_k, inv_k, nee0, nee1, cos0, cos1, jx, jy);
+  const dim3 grid((n + DRAWS_THREADS - 1) / DRAWS_THREADS, spp);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (bounces) {  // at most 4: the prime bases end at dimension 23
+    case 1: draws_kernel<1><<<grid, DRAWS_THREADS, 0, st>>>(
+        offsets, n, spp, strat_k, inv_k, nee0, nee1, cos0, cos1, jx, jy); break;
+    case 2: draws_kernel<2><<<grid, DRAWS_THREADS, 0, st>>>(
+        offsets, n, spp, strat_k, inv_k, nee0, nee1, cos0, cos1, jx, jy); break;
+    case 3: draws_kernel<3><<<grid, DRAWS_THREADS, 0, st>>>(
+        offsets, n, spp, strat_k, inv_k, nee0, nee1, cos0, cos1, jx, jy); break;
+    case 4: draws_kernel<4><<<grid, DRAWS_THREADS, 0, st>>>(
+        offsets, n, spp, strat_k, inv_k, nee0, nee1, cos0, cos1, jx, jy); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
+}
+
+// Blocks of draws_kernel at `bounces` that one SM of the current device
+// holds; 0 where the query fails or bounces is not 1 to 4.
+int grt_draws_blocks_per_sm(int bounces) {
+  switch (bounces) {
+    case 1: return grt::blocks_per_sm(draws_kernel<1>, DRAWS_THREADS, 0);
+    case 2: return grt::blocks_per_sm(draws_kernel<2>, DRAWS_THREADS, 0);
+    case 3: return grt::blocks_per_sm(draws_kernel<3>, DRAWS_THREADS, 0);
+    case 4: return grt::blocks_per_sm(draws_kernel<4>, DRAWS_THREADS, 0);
+    default: return 0;
+  }
 }
 
 // Shared memory bytes of the static tier (ops/cuda_path.static_smem_bytes

@@ -91,7 +91,7 @@
 namespace {
 
 using grt::camera_jitter;
-using grt::halton;
+using grt::bounce_draws;
 using grt::warp_scatter_peers;
 using grt::warp_sum;
 
@@ -515,7 +515,7 @@ __device__ __forceinline__ void shade_pixel(const ShadeParams& p,
         if (code % OCC_BIT == 0) break;           // a miss: the path is dead
         float u[4];
         if (RNG) {
-          for (int k = 0; k < 4; ++k) u[k] = halton(ih, 2 + 5 * b + k);
+          bounce_draws(ih, b, u);
         } else {
           u[0] = p.nee0[idx]; u[1] = p.nee1[idx];
           u[2] = p.cos0[idx]; u[3] = p.cos1[idx];

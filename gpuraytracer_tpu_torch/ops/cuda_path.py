@@ -327,6 +327,8 @@ def _library() -> ctypes.CDLL:
         lib.grt_path_trace.argtypes = (
             [_PTR] * 22 + [_INT] * 12 + [_FLT, _FLT, _INT, _INT, _INT, _PTR])
         lib.grt_path_trace.restype = _INT
+        lib.grt_draws_blocks_per_sm.argtypes = [_INT]
+        lib.grt_draws_blocks_per_sm.restype = _INT
         lib.grt_path_static_smem.argtypes = [_INT] * 3
         lib.grt_path_static_smem.restype = _INT
         lib.grt_path_grouped_smem.argtypes = [_INT] * 3

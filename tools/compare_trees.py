@@ -7,33 +7,34 @@ NVIDIA GPU.
 PARENT_DIR holds an earlier commit's ``gpuraytracer_tpu_torch`` package
 (unpacked from ``git archive``). A slice that redesigns a kernel runs this
 once, to show that the kernels it left alone compile to the parent's SASS
-and that the redesigned ones (``REDESIGNED``) make the parent's decisions or
-sums:
+and that the redesigned one (``REDESIGNED``, K1) and the kernels that share
+its radical inverse (``HALTON_CONSUMERS``: K2, K2g, K3, K3g, K6, K7) give the
+parent's bits:
 
+  * K1's six draw planes at path C's shape (512 x 512 x 16 x 3) and at 128 x
+    96 x 4 x 3 with both samplers must be equal by sha256 in both
+    checkouts;
   * K2's and K2g's images and records at the shapes of paths A-D, K and L
     (hdr, records_only, records + draws read + cull) must be equal by
-    sha256 in both checkouts;
+    sha256;
   * the backward's outputs (K3 at D and E and at S, the static tier's
     limit with spheres: ``chip_smoke.spheres_at_static_limit`` in view at
     128 x 96 x 4 spp; K3g at K and L; draws read, at D, E and S also
-    regenerated) on those records and a seeded cotangent are
-    compared by sha256, and where they differ, per output group, the
-    largest difference beside ``chip_smoke.compare_grads``' limit;
+    regenerated) on those records and a seeded cotangent must be equal by
+    sha256; where they differ, per output group, the largest difference
+    beside ``chip_smoke.compare_grads``' limit is printed;
   * K6's records (``chip_smoke.SoftInputs``: the sphere scene, direct
     lighting) at path J's shape (256 x 256 x 4), at 128 x 96 x 4 with and
     without the occluder cull, at 800 x 600 x 16 and at the recovery's 32 x
-    32 x 2 must be equal by sha256; K7's outputs on those records and a
-    seeded cotangent (without the cull) are compared by sha256, and where
-    they differ, per output group, the largest difference beside
-    ``chip_smoke.compare_scaled``'s limit (without its one-ulp term), which
-    it must not pass;
-  * every kernel other than those named in ``REDESIGNED`` must compile to
-    the same SASS (``cuobjdump -sass``); a kernel that only this checkout
-    has is listed;
-  * K2 at path A (hdr), K3 at D and E, K3g at K and L, and K6 and K7 at J,
-    at the recovery and at 800 x 600 x 16 are timed in each, in turns:
-    parent, this, this, parent; K6 and K7 also by the profiler's device
-    time.
+    32 x 2, and K7's outputs on those records and a seeded cotangent
+    (without the cull), must be equal by sha256;
+  * every kernel other than those named in ``REDESIGNED`` and
+    ``HALTON_CONSUMERS`` must compile to the same SASS (``cuobjdump
+    -sass``); for those, whether the SASS changed is printed; a function
+    that only this checkout has is listed;
+  * K1 at C, K2 at A and B (hdr), K3 at D (draws read and regenerated), K2g
+    at K (hdr), and K6 and K7 at J (also by the profiler's device time) are
+    timed in each, in turns: parent, this, this, parent.
 
 Each checkout runs ``--fingerprint`` in a process of its own with its
 package first on the path and ``chip_smoke.py``'s helpers from this
@@ -45,7 +46,6 @@ import difflib
 import hashlib
 import json
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -53,9 +53,12 @@ import tempfile
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
-# The kernels whose SASS may differ from the parent's: those the slice
-# redesigns.
-REDESIGNED = ("silh_kernel", "soft_bwd_kernel")
+# The kernels whose SASS may differ from the parent's: the one the slice
+# redesigns, and those that share its radical inverse (halton.cuh), whose
+# outputs must still be the parent's bits.
+REDESIGNED = ("draws_kernel",)
+HALTON_CONSUMERS = ("path_kernel", "path_grouped_kernel", "shade_bwd_kernel",
+                    "shade_bwd_grouped_kernel", "silh_kernel", "soft_bwd_kernel")
 # Launches of K6 and K7 in one profiler window.
 PROFILED_LAUNCHES = 20
 
@@ -65,12 +68,12 @@ def sha(t) -> str:
 
 
 def fingerprint(outdir: Path) -> dict:
-    """K2's, K2g's, K3's, K3g's, K6's and K7's outputs in the checkout whose
-    package this process imports, through the wrappers every version of the
-    port has: sha256 of the images, records and cotangents (the cotangents
-    also saved under ``outdir``), the times of K2 at A, K3 at D and E, K3g
-    at K and L and K6 and K7 at J, at the recovery and at 800 x 600 x 16,
-    the built libraries."""
+    """K1's, K2's, K2g's, K3's, K3g's, K6's and K7's outputs in the checkout
+    whose package this process imports, through the wrappers every version
+    of the port has: sha256 of the draw planes, images, records and
+    cotangents (the cotangents also saved under ``outdir``), the times of K1
+    at C, K2 at A and B, K3 at D, K2g at K and K6 and K7 at J, the built
+    libraries."""
     import torch
 
     import chip_smoke as cs
@@ -82,6 +85,19 @@ def fingerprint(outdir: Path) -> dict:
 
     out = {"hashes": {}, "ms": {}, "device_ms": {}}
     dev = torch.device("cuda")
+    for label, size, sampler in (("C", cs.BENCH, "halton"), ("small", cs.SMALL, "halton"),
+                                 ("small", cs.SMALL, "stratified")):
+        cfg = RenderConfig(sampler=sampler, **size)
+        offsets = pixel_rng_offsets(cfg, dev).to(torch.int32).contiguous()
+        planes = cuda_path.pregen_draws_kernel(offsets, cfg)
+        out["hashes"][f"K1 {label} {sampler} planes"] = sha(torch.stack(planes[4:]))
+        out["hashes"][f"K1 {label} {sampler} bounce planes"] = sha(torch.stack(planes[:4]))
+        if label == "C":
+            def k1():
+                return cuda_path.pregen_draws_kernel(offsets, cfg)
+            out["ms"]["K1 C"] = cs.time_draws(k1)
+            out["device_ms"]["K1 C"] = (cs.draws_device_ms(k1), 0.0)
+        del planes
     for label, size, mode in (
             ("A", cs.FRAME, "hdr"), ("A", cs.FRAME, "records_only"),
             ("B", cs.FRAME, "hdr"), ("B", cs.FRAME, "records_only"),
@@ -116,8 +132,10 @@ def fingerprint(outdir: Path) -> dict:
         if rec is not None:
             out["hashes"][key + " records"] = sha(rec)
         del hdr, rec
-        if key == "A hdr":
+        if key in ("A hdr", "B hdr"):
             out["ms"]["K2 " + key] = cs.time_ms(launch)
+        if key == "K hdr":
+            out["ms"]["K2g " + key] = cs.time_ms(launch)
         del packed, draws
         torch.cuda.empty_cache()
     for label, scene_name, size, tess in (
@@ -135,8 +153,10 @@ def fingerprint(outdir: Path) -> dict:
             out["hashes"][f"{key} cotangents"] = sha(torch.cat([got[0].flatten(),
                                                                  got[1]]))
             torch.save([t.cpu() for t in got], outdir / f"{key}.pt")
-        if label != "S":
-            out["ms"][f"{'K3g' if tess else 'K3'} {label}"] = cs.time_ms(lambda: sh.kernel())
+        if label == "D":
+            for mode in ("read", "regenerated"):
+                out["ms"][f"K3 D draws {mode}"] = cs.time_ms(
+                    lambda: sh.kernel(regenerate=mode == "regenerated"))
         del sh
         torch.cuda.empty_cache()
     for label, size, cull in (("J", cs.SOFT_J, False), ("small", cs.SOFT_SIZES[0], False),
@@ -150,7 +170,7 @@ def fingerprint(outdir: Path) -> dict:
             out["hashes"][f"K7 {label} cotangents"] = sha(torch.cat([got[0].flatten(),
                                                                     got[1]]))
             torch.save([t.cpu() for t in got], outdir / f"K7 {label}.pt")
-        if label in ("J", "recovery", "frame"):
+        if label == "J":
             for kernel, fn, name in (("K6", inp.silh_kernel, "silh_kernel"),
                                      ("K7", inp.bwd_kernel, "soft_bwd_kernel")):
                 out["ms"][f"{kernel} {label}"] = cs.time_ms(fn)
@@ -162,29 +182,6 @@ def fingerprint(outdir: Path) -> dict:
         torch.cuda.empty_cache()
     out["libraries"] = {lib.path.name.split("-")[0]: str(lib.path)
                         for lib in _build.load_libraries()}
-    return out
-
-
-def sass_by_function(lib_path: str) -> dict:
-    """{mangled kernel name: its SASS text} of a built library. nvcc names a
-    source's anonymous namespace after a hash of the file's path, so that
-    name is replaced by one the two checkouts share; blanks are collapsed."""
-    from gpuraytracer_tpu_torch.ops import _build
-
-    cuobjdump = str(Path(_build.find_nvcc()).with_name("cuobjdump"))
-    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
-                          text=True, check=True).stdout
-    text = re.sub(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}",
-                  "_GLOBAL__N_", text)
-    out = {}
-    for part in text.split("Function : ")[1:]:
-        name, _, body = part.partition("\n")
-        # A function's listing ends at a line of dots; what follows the last
-        # one (the rest of the file's listing) is not its code. cuobjdump pads
-        # every line to the widest instruction of the whole file, so runs of
-        # blanks count as one.
-        body = re.split(r"\n\s*\.{5,}\s*(?:\n|$)", body)[0]
-        out[name.strip()] = re.sub(r"[ \t]+", " ", body)
     return out
 
 
@@ -224,7 +221,7 @@ def _compare(parent: Path, work: Path) -> dict:
     first, mine = runs[0][1], runs[1][1]
     for label, r in runs:
         cs.log(f"  {label}: " + ", ".join(
-            f"{k} {v[1]:.3f} ms (min {v[0]:.3f}, max {v[2]:.3f})"
+            f"{k} {v[1]:.4f} ms (min {v[0]:.4f}, max {v[2]:.4f})"
             for k, v in r["ms"].items()))
         cs.log(f"  {label}, device time (kernel, reduction): " + ", ".join(
             f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in r.get("device_ms", {}).items()))
@@ -255,21 +252,24 @@ def _compare(parent: Path, work: Path) -> dict:
         cotangents[key] = ratios
         cs.log(f"  {key}: largest difference over the limit: " + ", ".join(
             f"{name} {v:.2e}" for name, v in ratios.items()))
-    sass, new, listings = {}, [], {}
+    sass, consumers, new, listings = {}, {}, [], {}
     for name in _build.SOURCES:
-        a = sass_by_function(first["libraries"][f"lib{name}"])
-        b = sass_by_function(mine["libraries"][f"lib{name}"])
+        a = cs.sass_by_function(first["libraries"][f"lib{name}"])
+        b = cs.sass_by_function(mine["libraries"][f"lib{name}"])
         listings[f"lib{name}"] = (a, b)
         for fn in sorted(set(a) | set(b)):
-            if any(kernel in fn for kernel in REDESIGNED):
-                continue
             if fn not in a:
                 new.append(f"{name}: {fn}")
-                continue
-            sass[f"{name}: {fn}"] = a.get(fn) == b.get(fn)
+            elif any(kernel in fn for kernel in REDESIGNED + HALTON_CONSUMERS):
+                consumers[f"{name}: {fn}"] = a.get(fn) == b.get(fn)
+            else:
+                sass[f"{name}: {fn}"] = a.get(fn) == b.get(fn)
     cs.log(f"  SASS of {len(sass)} other kernels equal: {sum(sass.values())}; "
            f"differ: {[k for k, v in sass.items() if not v]}; only in this "
            f"checkout: {new}")
+    cs.log(f"  SASS of K1 and the Halton consumers changed: "
+           f"{[k for k, v in consumers.items() if not v]}; unchanged: "
+           f"{[k for k, v in consumers.items() if v]}")
     for key in (k for k, v in sass.items() if not v):
         name, fn = key.split(": ")
         diff = difflib.unified_diff(
@@ -277,14 +277,14 @@ def _compare(parent: Path, work: Path) -> dict:
             listings[f"lib{name}"][1].get(fn, "").splitlines(), "parent", "this",
             lineterm="", n=1)
         cs.log(f"  {key}, first differing lines:\n" + "\n".join(list(diff)[:40]))
-    trace = {k: v for k, v in equal.items() if not k.endswith("cotangents")}
-    cs.check(all(trace.values()), f"images or records differ from {parent}")
-    cs.check(all(sass.values()), f"kernels other than {REDESIGNED} changed SASS")
-    cs.check(all(v <= 1.0 for key, r in cotangents.items() if key.startswith("K7")
-                 for v in r.values()),
-             "K7's outputs differ from the parent's past compare_scaled's limit")
-    return dict(ms={label: r["ms"] for label, r in runs}, hashes_equal=equal,
-                cotangents_over_limit=cotangents, sass_equal=sass, new_kernels=new,
+    cs.check(all(equal.values()), f"draws, images, records or cotangents differ "
+             f"from {parent}: {[k for k, v in equal.items() if not v]}")
+    cs.check(all(sass.values()), f"kernels other than {REDESIGNED + HALTON_CONSUMERS} "
+             "changed SASS")
+    return dict(ms={label: r["ms"] for label, r in runs},
+                device_ms={label: r["device_ms"] for label, r in runs}, hashes_equal=equal,
+                cotangents_over_limit=cotangents, sass_equal=sass,
+                consumer_sass_equal=consumers, new_kernels=new,
                 card=cs.card_name_and_limit())
 
 
