@@ -8,7 +8,9 @@
 Builds the CUDA kernels from the sources in this checkout, holds each against
 its plain PyTorch version on the card, renders six frames through the
 command-line entry point (three with the path tracer, three with the MIS
-integrator) and trains through the library entry points (the main paths:
+integrator), drives the host side (``Renderer``, progressive accumulation and
+checkpoints, the legacy tier, debug checks, profiler traces, the native
+library) and trains through the library entry points (the main paths:
 the path tracer's and the MIS integrator's gradients, the silhouette path's
 sphere-center recovery, and the gradients of both integrators on tessellated
 scenes of 1,002 and 12,802 triangles through the grouped tiers), times the
@@ -37,7 +39,9 @@ recovery and at 800 x 600 x 16 (only the kernels named, where any are).
 Phases
   build   nvcc builds ops/csrc/path_kernels.cu, shade_kernels.cu,
           mis_kernels.cu, mis_bwd_kernels.cu and soft_kernels.cu side by
-          side; registers and spills printed.
+          side; registers and spills printed. Where ``g++`` is found, the
+          native host library (``native.py``) is built here too, so that no
+          timed PNG write pays for its build.
   small   128 x 96, 4 spp, 3 bounces, both scenes, both samplers: draws
           kernel bit-equal to its plain version; trace kernel in its three
           modes against the plain version (records equal except a printed
@@ -66,6 +70,26 @@ Phases
           centers, albedo and emission: the loss is finite and falls. The
           fit is then run twice more, warm: for the steady step time, and
           under ``torch.profiler`` for the share of it the card is busy.
+  host    the host side and the legacy tier: (a) ``Renderer(kernel=
+          "decoupled")`` at C's shape, the draws made once in __init__, one
+          trace launch per draw, two draws bit-equal to each other and to
+          ``render_path_decoupled`` as C calls it, ``draw()``'s PNG a
+          Cornell box; (b) ``Renderer(kernel="cuda")`` with the MIS
+          integrator at 128 x 96 x 2 x 12, one MIS launch per draw; (c)
+          ``draw_accumulate`` through the decoupled route, four batches of
+          16 spp at 512 x 512 saved and loaded after the second, bit-equal
+          to the four frames at seeds 0-3 summed in order; (d) the legacy
+          tier: the reference's 800 x 600 frame at its defaults (30 / 2 /
+          30, sphere light, no_grad; timed), the three light kinds at 48 x 32
+          x 6 / 2 / 6 on the card against the CPU (atol 2e-5 / rtol 1e-4),
+          the gradients at 16 x 16 on the card against the CPU (atol 1e-6 /
+          rtol 1e-4); (e) ``cli.main`` with ``--integrator legacy --scene
+          legacy-box`` at 128 x 96 and with ``--debug-nans`` (path tracer,
+          128 x 96 x 16 spp), both Cornell boxes; (f) ``debug_checks``
+          stops at a NaN on the card; (g) ``profiler_trace`` around a new
+          decoupled Renderer and its first draw names ``draws_kernel`` and
+          ``path_kernel``; (h) where ``g++`` is found, the native library
+          builds and its PNG decodes to the pure-python writer's pixels.
   F, G    ``cli.main([png, "--integrator", "mis", "--kernel", "cuda"])`` at
           the reference's variant-A settings, 800 x 600 x 6 camera rays x 300
           MIS samples, box scene and sphere scene; F once more under
@@ -245,7 +269,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
-import math
 import os
 import re
 import shutil
@@ -260,7 +283,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from gpuraytracer_tpu_torch import cli, image
+from gpuraytracer_tpu_torch import cli, image, native
 from gpuraytracer_tpu_torch.grad import inverse
 from gpuraytracer_tpu_torch.grad.diff_render import render_direct_soft
 from gpuraytracer_tpu_torch.intersect import (RAY_TMAX, RAY_TMIN,
@@ -270,23 +293,35 @@ from gpuraytracer_tpu_torch.ops import (_build, cuda_mis, cuda_mis_bwd,
                                         cuda_path, cuda_shade, cuda_soft,
                                         decoupled)
 from gpuraytracer_tpu_torch.render import pixel_rng_offsets, render_mis
+from gpuraytracer_tpu_torch.render_legacy import render_legacy
+from gpuraytracer_tpu_torch.renderer import Renderer
 from gpuraytracer_tpu_torch.sampling import PRIMES
 from gpuraytracer_tpu_torch.scene import (cornell_box, cornell_box_glossy,
                                           cornell_box_tessellated,
                                           cornell_box_with_spheres,
-                                          make_spheres)
+                                          legacy_cornell, make_spheres)
 from gpuraytracer_tpu_torch.types import RenderConfig
-from gpuraytracer_tpu_torch.utils.metrics import mrays_per_s, nominal_rays
+from gpuraytracer_tpu_torch.utils import checkpoint, debug
+from gpuraytracer_tpu_torch.utils.host import fetch
+from gpuraytracer_tpu_torch.utils.metrics import (
+    OPS_BOX_CLOSEST, OPS_BOX_SHADOW,
+    OPS_BWD_BOUNCE, OPS_BWD_CAMERA, OPS_BWD_SPHERE, OPS_CAMERA,
+    OPS_K5_COS_ON_GEO, OPS_K5_COS_ON_LIGHT, OPS_K5_HOIST, OPS_K5_LIGHT,
+    OPS_K5_SPHERE_HIT, OPS_K5_VNDF_ON_GEO, OPS_K5_VNDF_ON_LIGHT, OPS_K7_BG_HIT, OPS_K7_BG_REV,
+    OPS_K7_BG_SURF, OPS_K7_CAMERA, OPS_K7_COVER, OPS_K7_SHADE_FWD,
+    OPS_K7_SHADE_REV, OPS_K7_SPHERE_FWD, OPS_K7_SPHERE_REV, OPS_MIS_CAMERA,
+    OPS_MIS_SAMPLE, OPS_MIS_SECONDARY, OPS_MIS_SECONDARY_BLOCKED,
+    OPS_SHADE, OPS_SHADOW_RAY, OPS_SILH_LANE, OPS_SPH_CLOSEST, OPS_SPH_SHADOW,
+    OPS_SWEEP_RAY, OPS_TRI_CLOSEST, OPS_TRI_PREFILTER, OPS_TRI_SHADOW,
+    halton_dim_ops, halton_ops, mrays_per_s, nominal_rays, profiler_trace,
+    roofline)
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth and the
-# float32 rate outside the tensor cores. The bounds below are stated against
-# these whatever power limit the card runs at; the limit is printed beside.
-# The float32 rate counts a fused multiply-add as two operations; the kernels
-# are built with -fmad=false, so each of their multiplies and adds issues on
-# its own, and their floor is at least twice an operation bound.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# Its SMs and the warp schedulers of each, one warp instruction a clock each.
+# The H100's published peaks (utils/metrics.H100: 3.35 TB/s of HBM, 67
+# TFLOP/s of float32), the float32 operation counts of the kernels (OPS_*),
+# the radical inverse's count (halton_ops) and roofline() come from
+# utils/metrics.py; the bounds are stated against those peaks whatever power
+# limit the card runs at, and the limit is printed beside.
+# The H100's SMs and the warp schedulers of each, one warp instruction a clock each.
 SMS, SCHEDULERS = 132, 4
 # K1 (a tenth of a millisecond) is timed over K1_BATCH launches back to back,
 # K1_REPEATS times after K1_WARMUP such batches.
@@ -295,40 +330,16 @@ K1_BATCH, K1_REPEATS, K1_WARMUP = 10, 20, 2
 FLIP_SHARE_MAX = 0.005
 HDR_ATOL, HDR_RTOL = 2e-5, 1e-4
 
-# Float32 operations per primitive test, counted from path_kernels.cu (one
-# per multiply, add, divide, compare or select): triangle closest-hit test,
-# triangle any-hit test, sphere closest-hit test, sphere any-hit test; and
-# the camera ray per sample and the shading of one bounce (hit point, light
-# sample, accumulate, cosine bounce; a transcendental counted as one).
-OPS_TRI_CLOSEST, OPS_TRI_SHADOW = 49, 46
-# The part of a triangle test that the static tiers (K2, K4) and K2g's group
-# loops run on every test (trace.cuh: den 5, num 6, |den| >= 1e-12 2, the
-# signs of num and den 2, |num| < |den| t_far (1 + 2^-22) 4); the rest of
-# OPS_TRI_CLOSEST or OPS_TRI_SHADOW runs only on a test that passes both
-# conditions. For the static tiers the share that passes is counted by the
-# plain version on every PREFILTER_STRIDE-th pixel (prime, so that the pixels
-# spread over the frame's columns), K2's at no more than SHARE_SPP samples
-# per pixel (a share, not a count: ``--count-drift`` measures how far it
-# moves at the 400 of paths A and B); K2g's plain sweep counts its passes
-# beside its tests.
-OPS_TRI_PREFILTER = 19
+# A triangle test runs OPS_TRI_PREFILTER operations of its OPS_TRI_CLOSEST or
+# OPS_TRI_SHADOW on every test, the rest only on a test that passes both
+# prefilter conditions (utils/metrics.py). For the static tiers the share
+# that passes is counted by the plain version on every PREFILTER_STRIDE-th
+# pixel (prime, so that the pixels spread over the frame's columns), K2's at
+# no more than SHARE_SPP samples per pixel (a share, not a count:
+# ``--count-drift`` measures how far it moves at the 400 of paths A and B);
+# K2g's plain sweep counts its passes beside its tests.
 PREFILTER_STRIDE = 13
 SHARE_SPP = 16
-OPS_SPH_CLOSEST, OPS_SPH_SHADOW = 43, 39
-OPS_CAMERA, OPS_SHADE = 30, 130
-# Operations of a radical inverse as halton.cuh's short form runs it (SASS of
-# draws_kernel): per digit a multiply-high (the quotient), a multiply-add
-# (the remainder), a conversion, a multiply and an add; the first digit needs
-# no add and the last no quotient or remainder (3 fewer a dimension); base 2
-# a bit reversal, a conversion and a multiply.
-OPS_HALTON_DIGIT, OPS_HALTON_SPARED, OPS_HALTON_BASE2 = 5, 3, 3
-
-# Float32 operations of the backward kernel, counted the same way from
-# shade_kernels.cu: one live bounce forward (134) and reversed (255); what a
-# sphere hit adds (68 + 116); the camera ray per live sample, forward and
-# reversed (29 + 32). Shuffles and adds of the reduction are not counted: they
-# are how this kernel sums, not work the function needs.
-OPS_BWD_BOUNCE, OPS_BWD_SPHERE, OPS_BWD_CAMERA = 389, 184, 61
 
 GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-4
 SPHERE_GEOMETRY_RTOL = 5e-3
@@ -359,28 +370,6 @@ MIS_SCENES = dict(SCENES, **{"cornell-glossy": cornell_box_glossy})
 MIS_SOURCE = "gpuraytracer_tpu_torch/ops/csrc/mis_kernels.cu"
 MIS_REPLACES = "gpuraytracer_tpu/ops/pallas_mis.py:217"
 MIS_HDR_ATOL, MIS_HDR_RTOL = 5e-4, 1e-3   # the integrator's own tolerance
-# Float32 operations of the MIS kernel besides its primitive tests, counted
-# from mis_kernels.cu like the counts above: per camera ray (hash jitter, ray,
-# basis, the stretched view frame); per sample whose primary ray landed on a
-# surface (three directions, seven pdfs, three heuristics, the light sample
-# with its BRDF, two lobe BRDFs); per light sample at a bounce point, reached
-# (with its BRDF) and blocked.
-OPS_MIS_CAMERA, OPS_MIS_SAMPLE = 140, 832
-OPS_MIS_SECONDARY, OPS_MIS_SECONDARY_BLOCKED = 182, 36
-# Float32 operations of the MIS backward kernel per path through it, counted
-# from mis_bwd_kernels.cu (one per multiply, add, divide, square root, compare,
-# min, max or |x|; selects not counted) by running its device functions on the
-# host with a counting float type: the hoisted stage forward and reversed,
-# per camera ray on a surface; strategy 1 per reached light sample; the cosine
-# and VNDF strategies per lobe ray on the light and per lobe ray on geometry
-# whose light sample was reached (with the secondary light sample); what a
-# recorded sphere winner adds (its quadratic and point normal, forward and
-# reversed). A lane whose camera ray missed or landed on the light, a blocked
-# light sample and a lobe ray that left the scene or was blocked need none.
-OPS_K5_HOIST, OPS_K5_LIGHT = 493, 603
-OPS_K5_COS_ON_LIGHT, OPS_K5_COS_ON_GEO = 686, 1241
-OPS_K5_VNDF_ON_LIGHT, OPS_K5_VNDF_ON_GEO = 850, 1405
-OPS_K5_SPHERE_HIT = 139
 MIS_BWD_SOURCE = "gpuraytracer_tpu_torch/ops/csrc/mis_bwd_kernels.cu"
 MIS_BWD_REPLACES = "gpuraytracer_tpu/ops/pallas_mis_bwd.py:1099"
 # The MIS backward against its plain version at a second, mid size.
@@ -408,20 +397,6 @@ RECOVERY_STEPS, RECOVERY_LR = 600, 3.5e2
 # The recovery's steps under the profiler (each profiled step costs about
 # a quarter of a second of the profiler's own host work).
 RECOVERY_PROFILED_STEPS = 10
-# Float32 operations of the silhouette kernels, counted by hand from
-# soft_kernels.cu like the counts above (one per multiply, add, divide,
-# square root, exp, compare, min, max or |x|; selects and negations not
-# counted). silh_kernel per (sample, pixel) besides its primitive tests
-# (OPS_TRI_* / OPS_SPH_*): camera ray and draws, candidate gates, the two
-# probe points, two light samples, the code. soft_bwd_kernel per (sample,
-# pixel): camera ray forward and reversed; a light sample forward and
-# reversed; the sphere layer's quadratic, normal and point forward and
-# reversed; the coverage forward and reversed; the background's plane
-# distance, its point, and their reverse.
-OPS_SILH_LANE = 136
-OPS_K7_CAMERA, OPS_K7_SHADE_FWD, OPS_K7_SHADE_REV = 65, 43, 87
-OPS_K7_SPHERE_FWD, OPS_K7_SPHERE_REV, OPS_K7_COVER = 70, 123, 74
-OPS_K7_BG_HIT, OPS_K7_BG_SURF, OPS_K7_BG_REV = 15, 12, 47
 
 # The grouped tier (more than 64 triangles): the tessellated Cornell box of
 # benchmarks/bench_grouped.py (walls cut into cells, icosphere meshes), at the
@@ -492,15 +467,6 @@ GROUPED_SCENES = {
 }
 ALL_SCENES = dict(SCENES, **GROUPED_SCENES)
 MIS_ALL_SCENES = dict(MIS_SCENES, **GROUPED_SCENES)
-# Float32 operations of the grouped sweep, counted from trace.cuh like the
-# counts above: one padded-box slab test (six subtracts, six multiplies,
-# eleven min / max, the min with the far limit and the compare: 25); in the
-# closest-hit loop each box also makes its far limit from the t_best of that
-# moment (a multiply, an add and a min: 28). Per ray, the three safe
-# reciprocals (an |x|, a compare and a divide each: 9), and for a shadow ray
-# its one far limit (a multiply and an add: 2).
-OPS_BOX_CLOSEST, OPS_BOX_SHADOW = 28, 25
-OPS_SWEEP_RAY, OPS_SHADOW_RAY = 9, 2
 # At path L the plain sweep runs on every L_PIXEL_STRIDE-th pixel: its counts
 # of box and triangle tests there, scaled to the frame, give K2g's bound at L
 # (at K it runs on the whole frame).
@@ -870,34 +836,6 @@ def scene_grads(scene, hdr):
 # ---------------------------------------------------------------------------
 # Bounds
 # ---------------------------------------------------------------------------
-
-def halton_digits(base: int, max_index: int) -> int:
-    return max(1, math.ceil(math.log(max_index + 1, base)))
-
-
-def halton_dim_ops(dims, cfg: RenderConfig) -> int:
-    """Operations of the radical inverses at Halton dimensions ``dims`` for
-    one (pixel, sample), at indices below 2^20 + spp."""
-    return sum(OPS_HALTON_BASE2 if PRIMES[d] == 2 else
-               OPS_HALTON_DIGIT * halton_digits(PRIMES[d], (1 << 20) + cfg.spp)
-               - OPS_HALTON_SPARED for d in dims)
-
-
-def halton_ops(cfg: RenderConfig, n: int) -> int:
-    """Operations of one frame's radical inverses: the jitter pair and four
-    draws per bounce, per (pixel, sample)."""
-    dims = [0, 1] + [2 + 5 * b + k for b in range(cfg.bounces)
-                     for k in range(4)]
-    return halton_dim_ops(dims, cfg) * cfg.spp * n
-
-
-def roofline(nbytes: int, ops: int):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the float32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
-
 
 def draws_bound(cfg: RenderConfig, n: int):
     """Bound of the draws kernel: each offset read once, each draw written
@@ -1727,6 +1665,11 @@ def phase_build():
           "grouped with the wide sweep), the four MIS-backward "
           "instantiations (static and grouped), the silhouette record kernel "
           f"and its backward: {resources}\n{logs}")
+    if shutil.which("g++"):
+        start = time.perf_counter()
+        native.load(strict=True)
+        log(f"  native library {native.library_path().name} loaded in "
+            f"{time.perf_counter() - start:.1f} s (g++ build included)")
     smi = card_name_and_limit()
     log(f"  card: {smi}")
     return resources, smi
@@ -2824,9 +2767,10 @@ def soft_rows(launches_j, launches_recovery, path_j, recovery, resources):
     return rows
 
 
-def check_frame(png_path, debug_path, cfg):
+def check_frame(png_path, debug_path, cfg, ratio=2.0, stat=np.mean):
     """The frame is a Cornell box: right shape, finite rows, red left wall,
-    green right wall, the light's rows brightest."""
+    green right wall (the wall's channel ``ratio`` times the others, in
+    ``stat`` over the wall's pixels), the light's rows brightest."""
     rgb = image.read_png(png_path).astype(np.float64)
     check(rgb.shape == (cfg.height, cfg.width, 3), f"PNG shape {rgb.shape}")
     # Back to linear radiance (image.tonemap: exposure 2, Reinhard, gamma
@@ -2840,11 +2784,12 @@ def check_frame(png_path, debug_path, cfg):
     band = slice(int(0.35 * h), int(0.65 * h))
     # The side walls as the camera sees them: between the image border and
     # the back wall, which spans the middle half of the frame.
-    left = rgb[band, int(0.08 * w):int(0.18 * w)].mean(axis=(0, 1))
-    right = rgb[band, int(0.80 * w):int(0.90 * w)].mean(axis=(0, 1))
-    check(left[0] > 2.0 * left[1] and left[0] > 2.0 * left[2],
+    left = stat(rgb[band, int(0.08 * w):int(0.18 * w)].reshape(-1, 3), axis=0)
+    right = stat(rgb[band, int(0.80 * w):int(0.90 * w)].reshape(-1, 3),
+                 axis=0)
+    check(left[0] > ratio * left[1] and left[0] > ratio * left[2],
           f"left wall is not red: {left}")
-    check(right[1] > 2.0 * right[0] and right[1] > 2.0 * right[2],
+    check(right[1] > ratio * right[0] and right[1] > ratio * right[2],
           f"right wall is not green: {right}")
     lum = rows.mean(axis=1)
     check(int(lum.argmax()) < 0.4 * h,
@@ -3045,6 +2990,316 @@ def phase_inverse():
     return launches, dict(first_call_ms=1e3 * seconds / steps,
                           warm_ms=steady_ms, profiled_ms=wall_ms / steps,
                           device_busy_ms=busy_ms / steps)
+
+
+# ---------------------------------------------------------------------------
+# Phase host: the Renderer, progressive accumulation and checkpoints, the
+# legacy tier, the CLI's new flags, debug checks, profiler traces, native
+# ---------------------------------------------------------------------------
+
+# The legacy tier's sizes: the reference's frame at its defaults (30
+# samples, 2 bounces, 30 nested samples), under torch.no_grad(), the whole
+# frame one pixel chunk (the eager integrator is launch-bound in chunks);
+# card against CPU at a small frame (values) and at the test size (the
+# gradients of tests/test_torch_legacy.py).
+LEGACY_FRAME = dict(width=800, height=600, pixel_chunk=800 * 600)
+LEGACY_SMALL = dict(width=48, height=32, legacy_samples=6, legacy_bounces=2,
+                    legacy_bounce_samples=6, pixel_chunk=48 * 32)
+LEGACY_GRAD = dict(width=16, height=16, legacy_samples=3, legacy_bounces=1,
+                   legacy_bounce_samples=3, pixel_chunk=256)
+HOST_BATCHES, HOST_SAVE_AFTER = 4, 2
+LEGACY_WALL_RATIO = 1.5
+# The share of the legacy frame's pixels that must be lit: the room fills
+# about 85 % of the frame (the rest is outside its open front).
+LEGACY_LIT_SHARE = 0.75
+
+
+def write_debug_rows(path, hdr):
+    image.write_debug_file(path, fetch(hdr))
+
+
+def host_renderer(tmp):
+    """(a) ``Renderer(kernel="decoupled")`` at path C's shape: the one-time
+    work in __init__ (one draws kernel launch), one trace launch per draw,
+    two draws bit-equal to each other and to ``render_path_decoupled`` called
+    as path C calls it; ``draw()`` writes a Cornell box. (b) The MIS
+    integrator through ``kernel="cuda"``: one MIS launch per draw."""
+    cfg = RenderConfig(**BENCH)
+    scene = cornell_box(resolution=cfg.resolution)
+    reset_launches()
+    start = time.perf_counter()
+    r = Renderer(scene, cfg, kernel="decoupled")
+    init_s = time.perf_counter() - start
+    after_init = read_launches()
+    check(after_init == launches_of(draws_kernel=1),
+          f"Renderer.__init__ launches {after_init}: expected the draws "
+          "kernel once")
+    per_draw, frames, draw_s = [], [], []
+    for _ in range(2):
+        reset_launches()
+        start = time.perf_counter()
+        frames.append(r.render_hdr())
+        draw_s.append(time.perf_counter() - start)
+        per_draw.append(read_launches())
+    for counts in per_draw:
+        check(counts == launches_of(path_kernel=1),
+              f"Renderer.render_hdr launches {counts}: expected the trace "
+              "kernel once (the draws are made in __init__)")
+    ref = decoupled.render_path_decoupled(
+        scene, cfg, draws=cuda_path.pregen_draws(cfg),
+        occluders=potential_occluders(scene, cfg))
+    check(torch.equal(frames[0], frames[1]), "two draws differ")
+    check(torch.equal(frames[0], ref),
+          "Renderer's frame differs from render_path_decoupled's")
+    png, dbg = os.path.join(tmp, "renderer.png"), os.path.join(tmp, "r.txt")
+    png_s = r.draw(png, verbose=False)
+    write_debug_rows(dbg, r.last_hdr)
+    check_frame(png, dbg, cfg)
+    log(f"  (a) Renderer(decoupled) {cfg.width}x{cfg.height} x {cfg.spp} spp "
+        f"x {cfg.bounces}: __init__ {init_s:.3f} s (launches {after_init}), "
+        f"render_hdr {draw_s[0]:.4f} / {draw_s[1]:.4f} s, draw "
+        f"{png_s:.4f} s; frames bit-equal to each other and to path C's call")
+
+    mcfg = RenderConfig(integrator="mis", **MIS_SMALL)
+    mscene = cornell_box(resolution=mcfg.resolution)
+    m = Renderer(mscene, mcfg, kernel="cuda")
+    mis_counts = []
+    for _ in range(2):
+        reset_launches()
+        hdr = m.render_hdr()
+        mis_counts.append(read_launches())
+    check(all(c == launches_of(mis_kernel=1) for c in mis_counts),
+          f"Renderer(cuda, mis) launches {mis_counts}: expected one MIS "
+          "kernel per draw")
+    check(torch.equal(hdr, cuda_mis.render_mis_cuda(mscene, mcfg)),
+          "Renderer(cuda, mis) differs from render_mis_cuda")
+    m.draw(os.path.join(tmp, "renderer_mis.png"), verbose=False)
+    check(image.read_png(os.path.join(tmp, "renderer_mis.png")).shape
+          == (mcfg.height, mcfg.width, 3), "MIS PNG shape")
+    log(f"  (b) Renderer(cuda, mis) {mcfg.width}x{mcfg.height} x "
+        f"{mcfg.camera_rays} x {mcfg.mis_samples}: launches per draw "
+        f"{mis_counts[0]}")
+    return r, dict(init_s=init_s, render_hdr_s=draw_s, draw_s=png_s,
+                   init_launches=after_init, draw_launches=per_draw[0],
+                   mis_draw_launches=mis_counts[0])
+
+
+def host_accumulate(r, tmp):
+    """(c) ``draw_accumulate`` through the decoupled route: HOST_BATCHES
+    batches of the config's spp, saved and loaded after HOST_SAVE_AFTER;
+    bit-equal to the same frames of ``render_path_decoupled`` at seeds 0,
+    1, ... summed in the same order. One draws and one trace launch per
+    batch (the draws depend on the batch's seed)."""
+    cfg, spp = r.config, r.config.spp
+    path = os.path.join(tmp, "acc.npz")
+    acc, counts = None, []
+    start = time.perf_counter()
+    for b in range(HOST_BATCHES):
+        reset_launches()
+        acc, mean = r.draw_accumulate(acc)
+        counts.append(read_launches())
+        if b + 1 == HOST_SAVE_AFTER:
+            checkpoint.save_accumulator(path, acc, cfg)
+            acc = checkpoint.load_accumulator(path, cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    for c in counts:
+        check(c == launches_of(draws_kernel=1, path_kernel=1),
+              f"draw_accumulate launches {c}: expected one draws and one "
+              "trace launch per batch")
+    ref = torch.zeros_like(acc.radiance_sum)
+    for seed in range(HOST_BATCHES):
+        ref = ref + decoupled.render_path_decoupled(
+            r.scene, cfg.replace(seed=seed), occluders=r.occluders) * spp
+    check(int(acc.spp_done) == HOST_BATCHES * spp
+          and int(acc.seed_cursor) == HOST_BATCHES, "accumulator counts")
+    check(torch.equal(acc.radiance_sum, ref),
+          "accumulated radiance differs from the summed frames")
+    check(torch.equal(mean, ref / torch.tensor(
+        float(HOST_BATCHES * spp), device="cuda")), "resolved mean differs")
+    log(f"  (c) draw_accumulate(decoupled): {HOST_BATCHES} batches of {spp} "
+        f"spp, saved and loaded after {HOST_SAVE_AFTER}, {seconds:.3f} s; "
+        "bit-equal to the summed frames; launches per batch "
+        f"{counts[0]}")
+    return dict(seconds=seconds, batch_launches=counts[0])
+
+
+def legacy_on(device, kind, kw, grad=False):
+    """The legacy tier's frame (and, with ``grad``, the gradients of its
+    mean by the sphere-light radiance and the sphere centers) on
+    ``device``."""
+    cfg = RenderConfig(integrator="legacy", **kw)
+    scene = legacy_cornell(kind, resolution=cfg.resolution)
+    if not grad:
+        with torch.no_grad():
+            return render_legacy(scene, cfg, device=device).hdr.cpu()
+    emitted = scene.sphere_lights.emitted_radiance.clone().requires_grad_()
+    centers = scene.spheres.center.clone().requires_grad_()
+    scene = dataclasses.replace(
+        scene,
+        sphere_lights=dataclasses.replace(scene.sphere_lights,
+                                          emitted_radiance=emitted),
+        spheres=dataclasses.replace(scene.spheres, center=centers))
+    value = render_legacy(scene, cfg, device=device).hdr.mean()
+    return torch.autograd.grad(value, [emitted, centers])
+
+
+def host_legacy():
+    """(d) The legacy tier on the card: the reference's frame at its
+    defaults (finite, non-negative, lit; timed); the three light kinds on
+    card and CPU within the value tolerance; the gradients on card and CPU
+    within the gradient tolerance."""
+    cfg = RenderConfig(integrator="legacy", **LEGACY_FRAME)
+    scene = legacy_cornell("sphere", resolution=cfg.resolution)
+    reset_launches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with torch.no_grad():
+        hdr = render_legacy(scene, cfg, device="cuda").hdr
+    torch.cuda.synchronize()
+    frame_s = time.perf_counter() - start
+    check(read_launches() == launches_of(),
+          "the legacy tier launched a kernel of ops/csrc")
+    check(bool(torch.isfinite(hdr).all()) and float(hdr.min()) >= 0.0,
+          "legacy frame not finite and non-negative")
+    lit = float((hdr.sum(-1) > 0).float().mean())
+    check(lit > LEGACY_LIT_SHARE,
+          f"legacy frame: only {lit:.1%} of the pixels are lit")
+    log(f"  (d) legacy {cfg.width}x{cfg.height}, sphere light, "
+        f"{cfg.legacy_samples} / {cfg.legacy_bounces} / "
+        f"{cfg.legacy_bounce_samples}: {frame_s:.2f} s; {lit:.1%} of the "
+        f"pixels lit, mean {float(hdr.mean()):.4f}")
+    errs = {}
+    for kind in ("sphere", "box", "square"):
+        card = legacy_on("cuda", kind, LEGACY_SMALL)
+        cpu = legacy_on("cpu", kind, LEGACY_SMALL)
+        errs[kind] = float((card - cpu).abs().max())
+        check(torch.allclose(card, cpu, atol=HDR_ATOL, rtol=HDR_RTOL),
+              f"legacy {kind}: card and CPU differ by {errs[kind]:.3e}")
+    log("  (d) legacy 48x32 x 6 / 2 / 6, card against CPU, largest "
+        "difference: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    card = legacy_on("cuda", "sphere", LEGACY_GRAD, grad=True)
+    cpu = legacy_on("cpu", "sphere", LEGACY_GRAD, grad=True)
+    grad_errs = []
+    for name, g, c in zip(("emitted radiance", "sphere centers"), card, cpu):
+        grad_errs.append(float((g.cpu() - c).abs().max()))
+        check(bool(c.abs().sum() > 0) and torch.allclose(
+            g.cpu(), c, atol=GRAD_ATOL, rtol=GRAD_RTOL),
+            f"legacy gradient of {name}: card and CPU differ by "
+            f"{grad_errs[-1]:.3e}")
+    log(f"  (d) legacy gradients 16x16 x 3 / 1, card against CPU: "
+        f"d emitted {grad_errs[0]:.3e}, d centers {grad_errs[1]:.3e}")
+    return dict(frame_s=frame_s, lit_share=lit, card_vs_cpu=errs,
+                grad_card_vs_cpu=grad_errs,
+                frame=dict(width=cfg.width, height=cfg.height,
+                           legacy_samples=cfg.legacy_samples,
+                           legacy_bounces=cfg.legacy_bounces,
+                           legacy_bounce_samples=cfg.legacy_bounce_samples))
+
+
+def host_cli(tmp):
+    """(e) ``--integrator legacy --scene legacy-box`` at 128 x 96 (the
+    defaults of the legacy tier), then one ``--debug-nans`` run of the path
+    tracer; both checked as Cornell boxes."""
+    out = {}
+    cfg = RenderConfig(width=128, height=96, integrator="legacy")
+    png, dbg = os.path.join(tmp, "legacy.png"), os.path.join(tmp, "l.txt")
+    start = time.perf_counter()
+    rc = cli.main([png, "--integrator", "legacy", "--scene", "legacy-box",
+                   "--width", "128", "--height", "96", "--debug-output", dbg])
+    out["legacy_s"] = time.perf_counter() - start
+    check(rc == 0, f"cli legacy returned {rc}")
+    # The legacy estimator speckles every wall with bright white samples (in
+    # the JAX package too): the walls' colours are held by their median
+    # pixel, at 1.5 times the other channels.
+    check_frame(png, dbg, cfg, ratio=LEGACY_WALL_RATIO, stat=np.median)
+    cfg = RenderConfig(width=128, height=96, spp=16, bounces=3)
+    png, dbg = os.path.join(tmp, "nans.png"), os.path.join(tmp, "n.txt")
+    start = time.perf_counter()
+    try:
+        rc = cli.main([png, "--debug-nans", "--width", "128", "--height",
+                       "96", "--spp", "16", "--debug-output", dbg])
+        check(torch.is_anomaly_enabled(), "--debug-nans left the checks off")
+    finally:
+        debug.disable()
+    out["debug_nans_s"] = time.perf_counter() - start
+    check(rc == 0, f"cli --debug-nans returned {rc}")
+    check_frame(png, dbg, cfg)
+    log(f"  (e) cli legacy-box 128x96: {out['legacy_s']:.2f} s; cli "
+        f"--debug-nans, eager path tracer 128x96 x 16 spp: "
+        f"{out['debug_nans_s']:.2f} s")
+    return out
+
+
+def host_debug():
+    """(f) ``debug_checks`` raises at a NaN-making operation on the card,
+    and not outside its block."""
+    x = torch.full((4,), -1.0, device="cuda")
+    try:
+        with debug.debug_checks(nans=True):
+            torch.log(x)
+        raised = False
+    except FloatingPointError as e:
+        raised = "log" in str(e)
+    check(raised, "debug_checks did not stop at torch.log of -1 on the card")
+    check(bool(torch.isnan(torch.log(x)).all())
+          and not torch.is_anomaly_enabled(), "debug_checks left state on")
+    log("  (f) debug_checks: FloatingPointError at aten.log on the card")
+
+
+def host_trace(tmp):
+    """(g) ``profiler_trace`` around a new decoupled Renderer and its first
+    draw (the draws kernel runs in __init__, the trace kernel in the draw):
+    the Chrome trace names both kernels."""
+    cfg = RenderConfig(**BENCH)
+    scene = cornell_box(resolution=cfg.resolution)
+    log_dir = os.path.join(tmp, "trace")
+    with profiler_trace(log_dir):
+        Renderer(scene, cfg, kernel="decoupled").render_hdr()
+    (name,) = os.listdir(log_dir)
+    with open(os.path.join(log_dir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    names = " ".join(str(e.get("name", "")) for e in events)
+    for kernel in ("path_kernel", "draws_kernel"):
+        check(kernel in names, f"the profiler trace names no {kernel}")
+    log(f"  (g) profiler_trace: {len(events)} events, path_kernel and "
+        "draws_kernel among them")
+    return len(events)
+
+
+def host_native(tmp):
+    """(h) Where ``g++`` exists, the native library builds and loads (a
+    failure is a failure of the check) and its PNG decodes to the pixels the
+    pure-python writer's does."""
+    gxx = shutil.which("g++")
+    log(f"  (h) g++ {'found: ' + gxx if gxx else 'not found'}")
+    if not gxx:
+        return dict(gxx=None)
+    native.load(strict=True)  # built in phase build
+    rgb = np.random.default_rng(7).integers(0, 256, (96, 128, 3), np.uint8)
+    a, b = os.path.join(tmp, "native.png"), os.path.join(tmp, "python.png")
+    native.write_png(a, rgb)
+    image.write_png_python(b, rgb)
+    check(np.array_equal(image.read_png(a), rgb)
+          and np.array_equal(image.read_png(b), rgb),
+          "native and pure-python PNGs decode to different pixels")
+    log(f"  (h) native library {native.library_path().name} loaded; its "
+        "PNG decodes to the pure-python writer's pixels")
+    return dict(gxx=gxx, library=native.library_path().name)
+
+
+def phase_host(tmp):
+    log("== host: Renderer, accumulation and checkpoints, legacy tier, CLI "
+        "flags, debug checks, profiler trace, native")
+    r, renderer = host_renderer(tmp)
+    out = dict(renderer=renderer, accumulate=host_accumulate(r, tmp))
+    del r
+    out["legacy"] = host_legacy()
+    out["cli"] = host_cli(tmp)
+    host_debug()
+    out["trace_events"] = host_trace(tmp)
+    out["native"] = host_native(tmp)
+    return out
 
 
 def shade_rows(launches, resources):
@@ -5091,6 +5346,7 @@ def main() -> int:
         launches = timed("main path", phase_main_path, tmp)
         launches["D"], step_ms = timed("D", phase_train)
         launches["E"], inverse_ms = timed("E", phase_inverse)
+        host = timed("host", phase_host, tmp)
         mis_launches, mis_frame_ms = timed("MIS paths", phase_mis_path, tmp)
         launches.update(mis_launches)
         mis_bwd_small = timed("mis_bwd", phase_mis_bwd)
@@ -5132,6 +5388,7 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "small_128x96_ms": small_ms,
                       "path_D_step_ms": step_ms,
                       "path_E_step_ms": inverse_ms,
+                      "host": host,
                       "path_F_profiled_ms": mis_frame_ms,
                       "mis_plain_ms": mis_plain,
                       "mis_oracle_backward": mis_grad,

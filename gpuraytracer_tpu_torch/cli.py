@@ -6,7 +6,11 @@ Counterpart of ``gpuraytracer_tpu/cli.py``: the same flags and prints
 trace kernel in hdr mode, ``decoupled`` the record-emitting trace with the
 static occluder cull (for the path tracer with the draws kernel before it).
 ``--integrator mis`` renders variant A through the same three routes and
-writes the PNG from its own tone curve (``render.tonemap_mis``).
+writes the PNG from its own tone curve (``render.tonemap_mis``);
+``--integrator legacy`` renders the legacy tier (``render_legacy.py``),
+through ``--kernel eager`` only, on the ``legacy-*`` scenes or any other.
+``--debug-nans`` stops at the first operation that makes a NaN
+(``utils.debug``).
 """
 from __future__ import annotations
 
@@ -31,7 +35,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--camera-rays", type=int, default=6)
     p.add_argument("--mis-samples", type=int, default=300)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--scene", choices=["cornell", "cornell-spheres"],
+    p.add_argument("--scene",
+                   choices=["cornell", "cornell-spheres", "legacy-sphere",
+                            "legacy-box", "legacy-square"],
                    default="cornell")
     p.add_argument("--exposure", type=float, default=2.0,
                    help="variant-B CPU tonemap exposure (image.swift:41)")
@@ -42,6 +48,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the plain PyTorch oracle, the CUDA trace kernel, or "
                         "the record-emitting trace (draws kernel + trace "
                         "kernel + occluder cull)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="stop with a traceback at the first operation that "
+                        "makes a NaN (utils.debug; waits on the device at "
+                        "every operation: slow)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where to render; 'cuda' fails when no card is "
                         "present, 'cpu' runs the plain PyTorch versions")
@@ -53,10 +63,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    if args.integrator == "legacy":
-        raise SystemExit(
-            "--integrator legacy is not ported yet (a later slice of the "
-            "port: the legacy tier)")
     if args.devices != 1:
         raise SystemExit(
             "--devices N>1 is not ported yet (a later slice of the port: "
@@ -65,66 +71,42 @@ def main(argv=None) -> int:
     import torch
 
     from . import image as img
-    from .render import render, tonemap_mis
-    from .scene import cornell_box, cornell_box_with_spheres
+    from .renderer import route, write_frame
+    from .scene import cornell_box, cornell_box_with_spheres, legacy_cornell
     from .types import RenderConfig
-    from .utils.host import fetch, resolve_device
+    from .utils.host import resolve_device
 
-    device = resolve_device(args.device)
+    if args.debug_nans:
+        from .utils import debug
+        debug.enable(nans=True)
     config = RenderConfig(
         width=args.width, height=args.height, integrator=args.integrator,
         spp=args.spp, bounces=args.bounces, camera_rays=args.camera_rays,
         mis_samples=args.mis_samples, seed=args.seed,
     )
+    resolution = (args.width, args.height)
     if args.scene == "cornell":
-        scene = cornell_box(resolution=(args.width, args.height))
+        scene = cornell_box(resolution=resolution)
+    elif args.scene == "cornell-spheres":
+        scene = cornell_box_with_spheres(resolution=resolution)
     else:
-        scene = cornell_box_with_spheres(resolution=(args.width, args.height))
-    cfg = (config.replace(bounces=1) if args.integrator == "direct"
-           else config)
+        scene = legacy_cornell(args.scene.split("-", 1)[1],
+                               resolution=resolution)
 
+    # The timed window holds the route's one-time work (the decoupled
+    # route's cull and draws) and the frame.
     start = time.perf_counter()
-    if args.integrator == "mis":
-        if args.kernel == "cuda":
-            from .ops import render_mis_cuda
-            hdr = render_mis_cuda(scene, config, device=device)
-        elif args.kernel == "decoupled":
-            from .intersect import potential_occluders
-            from .ops import render_mis_decoupled
-            hdr = render_mis_decoupled(
-                scene, config, occluders=potential_occluders(scene, config),
-                device=device)
-        else:
-            hdr = render(scene, config, device=device).hdr
-    elif args.kernel == "cuda":
-        from .ops import render_path_cuda
-        hdr = render_path_cuda(scene, cfg, device=device)
-    elif args.kernel == "decoupled":
-        # Static shadow-probe culling and hoisted draws: the scene is
-        # concrete here, and both are invariant across frames.
-        from .intersect import potential_occluders
-        from .ops import pregen_draws, render_path_decoupled
-        from .ops.decoupled import _auto_records_only
-        occ = potential_occluders(scene, cfg)
-        draws = (None if _auto_records_only(cfg)
-                 else pregen_draws(cfg, device=device))
-        hdr = render_path_decoupled(scene, cfg, draws=draws, occluders=occ,
-                                    device=device)
-    else:
-        hdr = render(scene, config, device=device).hdr
+    try:
+        frame = route(scene, config, args.kernel, args.device).frame
+    except ValueError as e:  # the legacy tier through a kernel route
+        raise SystemExit(str(e)) from None
+    device = resolve_device(args.device)
+    hdr = frame()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - start
 
-    hdr_np = fetch(hdr)
-    if args.integrator == "mis":
-        # Variant A tonemaps with the camera's exposure (mean over camera
-        # rays, ev100, Reinhard, gamma 2.2).
-        ldr = tonemap_mis(hdr, config.camera_rays, scene.camera.ev100)
-        img.write_png(args.output, img.to_uint8(fetch(ldr)))
-    else:
-        img.write_png(args.output,
-                      img.tonemap(hdr_np, exposure=args.exposure))
+    hdr_np = write_frame(args.output, hdr, config, scene, args.exposure)
     if args.debug_output:
         img.write_debug_file(args.debug_output, hdr_np)
 

@@ -5,7 +5,8 @@ gamma (saveTextureToImage, :15-100), raw RGBA8 writing (savePixelArrayToImage,
 :102-157), and the gradient test pattern (createGradientPixels, :160-178).
 
 Counterpart of ``gpuraytracer_tpu/image.py``, numpy only. The tonemap here is
-the host-side post step for the variant-B HDR output; PNGs are written by a
+the host-side post step for the variant-B HDR output; PNGs are written by the
+native C++ encoder (``native.py``) where ``g++`` could build it, else by a
 pure-python encoder.
 """
 from __future__ import annotations
@@ -33,12 +34,22 @@ def to_uint8(ldr: np.ndarray) -> np.ndarray:
 
 def write_png(path: str, rgb: np.ndarray) -> None:
     """PNG writer (RGB8 or RGBA8). Replaces the CGImage/ImageIO pipeline
-    (image.swift:68-99) with a pure-python zlib encoder."""
+    (image.swift:68-99). Uses the native C++ encoder where it is built;
+    ``write_png_python`` otherwise."""
     rgb = np.asarray(rgb)
     if rgb.dtype != np.uint8:
         rgb = to_uint8(rgb)
     if rgb.ndim != 3 or rgb.shape[2] not in (3, 4):
         raise ValueError(f"expected [H, W, 3|4] uint8, got {rgb.shape}")
+    from . import native
+    if native.available():
+        native.write_png(path, rgb)
+        return
+    write_png_python(path, rgb)
+
+
+def write_png_python(path: str, rgb: np.ndarray) -> None:
+    """The pure-python zlib PNG encoder of [H, W, 3|4] uint8."""
     h, w, c = rgb.shape
     color_type = 2 if c == 3 else 6
 

@@ -18,7 +18,8 @@ renderers are differentiable by ``torch.autograd`` on a scene whose tensors
 ask for gradients.
 
 These are the slow, readable references the kernels are held against; the
-fast paths are ``ops/cuda_path.py`` and ``ops/cuda_mis.py``.
+fast paths are ``ops/cuda_path.py`` and ``ops/cuda_mis.py``. ``render``
+also dispatches ``integrator="legacy"`` to ``render_legacy.py``.
 """
 from __future__ import annotations
 
@@ -390,7 +391,6 @@ def render(scene: Scene, config: RenderConfig, device="cuda") -> RenderOutput:
     if config.integrator == "mis":
         return render_mis(scene, config, device)
     if config.integrator == "legacy":
-        raise NotImplementedError(
-            "integrator 'legacy' (legacy nested-MIS tier): a later slice of"
-            " the port")
+        from .render_legacy import render_legacy
+        return render_legacy(scene, config, device)
     raise ValueError(f"unknown integrator: {config.integrator!r}")

@@ -1,8 +1,11 @@
 """Low-discrepancy sampling, PRNG, samplers and PDFs.
 
-Counterpart of ``gpuraytracer_tpu/sampling.py``: the samplers of the
-variant-B path tracer, and the hash jitter, sample tables, MIS heuristic,
-cosine / VNDF samplers and GGX terms of the variant-A MIS integrator. Every
+Counterpart of ``gpuraytracer_tpu/sampling.py``, function for function: the
+samplers of the variant-B path tracer; the hash jitter, sample tables, MIS
+heuristic, cosine / VNDF samplers and GGX terms of the variant-A MIS
+integrator; the legacy tier's sphere and box light samplers and pdfs; and the
+rest of the reference's library (Hammersley, the other hashes and
+heuristics, the uniform hemisphere). Every
 function is vectorized over arbitrary leading batch dimensions; vectors use a
 trailing axis of size 3. All randomness is a pure function of (pixel, sample,
 bounce, dimension).
@@ -460,3 +463,243 @@ def vndf_pdf(view_dir: torch.Tensor, normal: torch.Tensor,
     d = d_ggx(n_dot_h, roughness)
     g1 = smith_g1_ggx(n_dot_v, roughness)
     return (d * g1 * v_dot_h) / (4.0 * n_dot_v + 1e-7)
+
+
+# ---------------------------------------------------------------------------
+# The rest of the sampling library (shaders.metal:87-184, 454-516,
+# sampling.metal:77-95): unused by the active integrators, kept function for
+# function with the JAX package
+# ---------------------------------------------------------------------------
+
+def random_float(seed) -> torch.Tensor:
+    """hash(seed) / 2^32 in float32 (sampling.metal:77-79: the divisor
+    float(0xffffffffU) + 1.0 rounds to exactly 2^32)."""
+    return hash_u32(seed).to(torch.float32) * _f32(INV_2_32)
+
+
+def hash_random_3d(index_xyz, i) -> torch.Tensor:
+    """``hashRandom3D`` (sampling.metal:81-95). Returns [..., 2]."""
+    ix, iy, iz = (as_u32(v) for v in index_xyz)
+    i = as_u32(i)
+    sample_id = ((iz * 1013 + iy * 809 + ix) * i) & _MASK32
+    seed1 = ix + iy * 809 + iz * 929 + sample_id
+    seed2 = iz + ix * 613 + iy * 743 + sample_id + 12345
+    return torch.stack([random_float(seed1), random_float(seed2)], dim=-1)
+
+
+def shift_random_points(u) -> torch.Tensor:
+    """Toroidal doubling shift, 2u mod 1 per component
+    (shiftRandomPoints, shaders.metal:87-98). ``u`` is [..., 2]."""
+    r = torch.as_tensor(u, dtype=torch.float32) * 2.0
+    return torch.where(r >= 1.0, r - 1.0, r)
+
+
+def radical_inverse_2(bits) -> torch.Tensor:
+    """Base-2 Van der Corput by bit reversal (shaders.metal:101-108), in
+    uint32 arithmetic carried as int64."""
+    b = as_u32(bits)
+    b = ((b << 16) & _MASK32) | (b >> 16)
+    b = ((b & 0x55555555) << 1) | ((b & 0xAAAAAAAA) >> 1)
+    b = ((b & 0x33333333) << 2) | ((b & 0xCCCCCCCC) >> 2)
+    b = ((b & 0x0F0F0F0F) << 4) | ((b & 0xF0F0F0F0) >> 4)
+    b = ((b & 0x00FF00FF) << 8) | ((b & 0xFF00FF00) >> 8)
+    return b.to(torch.float32) * _f32(2.3283064365386963e-10)
+
+
+def _index_over(index, total: int) -> torch.Tensor:
+    """float32(index) / float32(total), divided by a 0-dim tensor so that
+    the quotient is correctly rounded on every device (PyTorch divides a
+    CUDA tensor by a Python scalar through its reciprocal)."""
+    index = torch.as_tensor(index)
+    return index.to(torch.float32) / torch.tensor(
+        float(total), dtype=torch.float32, device=index.device)
+
+
+def hammersley_2d(i, n: int) -> torch.Tensor:
+    """(i / N, radicalInverse2(i)) (shaders.metal:113-115). Returns
+    [..., 2]."""
+    return torch.stack([_index_over(i, n), radical_inverse_2(i)], dim=-1)
+
+
+def hammersley_float(index, dimension: int, total: int) -> torch.Tensor:
+    """Scrambled radical inverse for dimensions >= 2 (shaders.metal:
+    119-129)."""
+    if dimension == 0:
+        return _index_over(index, total)
+    if dimension == 1:
+        return radical_inverse_2(index)
+    return radical_inverse_2(hash_u32(as_u32(index) + dimension * 12345))
+
+
+def next_power_of_two(n: int) -> int:
+    """Host-side helper (shaders.metal:174-184)."""
+    return 1 if n == 0 else 1 << (n - 1).bit_length()
+
+
+def power_heuristic_2(pdf1, pdf2, beta=2.0):
+    """(shaders.metal:140-142)."""
+    a = torch.pow(pdf1, beta)
+    return a / (a + torch.pow(pdf2, beta) + 1e-6)
+
+
+def balanced_heuristic_3(pdf1, pdf2, pdf3):
+    """(shaders.metal:511-516); 0 where ``pdf1`` is 0."""
+    w = pdf1 / (pdf1 + pdf2 + pdf3)
+    return torch.where(pdf1 == 0.0, torch.zeros_like(w), w)
+
+
+def uniform_hemisphere_dir(normal: torch.Tensor,
+                           u: torch.Tensor) -> torch.Tensor:
+    """Uniform hemisphere about ``normal`` (legacy sampleUniformHemisphere,
+    shaders_old.metal:454-481); pdf 1 / (2 pi)."""
+    cos_theta = u[..., 0]
+    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+    phi = _f32(2.0 * math.pi) * u[..., 1]
+    tangent, bitangent = build_orthonormal_basis(normal)
+    return normalize(
+        tangent * (torch.cos(phi) * sin_theta)[..., None]
+        + bitangent * (torch.sin(phi) * sin_theta)[..., None]
+        + normal * cos_theta[..., None]
+    )
+
+
+# ---------------------------------------------------------------------------
+# Legacy light samplers (shaders_old.metal: sphere and box lights)
+# ---------------------------------------------------------------------------
+
+def sample_sphere_light(light_center: torch.Tensor, light_radius,
+                        point: torch.Tensor, u: torch.Tensor):
+    """Visible-cone sphere light sampling (sampleSphereLight,
+    shaders_old.metal:406-451). Returns (direction, pdf)."""
+    to_light = light_center - point
+    dist = torch.sqrt(torch.clamp_min(dot(to_light, to_light), 1e-30))
+    light_dir = to_light / dist[..., None]
+    sin_theta_max = torch.clamp_max(light_radius / dist, 1.0)
+    cos_theta_max = torch.sqrt(1.0 - sin_theta_max * sin_theta_max)
+    cos_theta = 1.0 - u[..., 0] * (1.0 - cos_theta_max)
+    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+    phi = _f32(2.0 * math.pi) * u[..., 1]
+    tangent, bitangent = build_orthonormal_basis(light_dir)
+    direction = normalize(
+        tangent * (torch.cos(phi) * sin_theta)[..., None]
+        + bitangent * (torch.sin(phi) * sin_theta)[..., None]
+        + light_dir * cos_theta[..., None]
+    )
+    pdf = 1.0 / (2.0 * math.pi * (1.0 - cos_theta_max))
+    return direction, pdf
+
+
+def sphere_light_pdf(light_center: torch.Tensor, light_radius,
+                     point: torch.Tensor) -> torch.Tensor:
+    """Cone pdf, whatever the direction (calculateLightPdf,
+    shaders_old.metal:617-623)."""
+    to_light = light_center - point
+    dist = torch.sqrt(torch.clamp_min(dot(to_light, to_light), 1e-30))
+    sin_theta_max = torch.clamp_max(light_radius / dist, 1.0)
+    cos_theta_max = torch.sqrt(1.0 - sin_theta_max * sin_theta_max)
+    return 1.0 / (2.0 * math.pi * (1.0 - cos_theta_max))
+
+
+def sample_box_light(light_center: torch.Tensor, width, height, depth,
+                     point: torch.Tensor, u3: torch.Tensor):
+    """Area-weighted 6-face box-light sampling (sampleBoxLight,
+    shaders_old.metal:292-404). ``u3`` is [..., 3]; the third coordinate
+    picks the face. Returns (direction, pdf), the pdf measured against the
+    box's *total* area (the reference's). All six faces are computed and
+    one is selected per lane, in the reference's branch order."""
+    u1, u2, uf = u3[..., 0], u3[..., 1], u3[..., 2]
+    hw, hh, hd = width * 0.5, height * 0.5, depth * 0.5
+    area_xy = width * height
+    area_xz = width * depth
+    area_yz = height * depth
+    total = 2.0 * (area_xy + area_xz + area_yz)
+    prob1 = (2.0 * area_xy) / total
+    prob2 = prob1 + (2.0 * area_xz) / total
+
+    ox = (u1 - 0.5) * width
+    oy_h = (u2 - 0.5) * height
+    oz_d = (u2 - 0.5) * depth
+    oy_h1 = (u1 - 0.5) * height
+
+    def full(v):
+        return torch.broadcast_to(torch.as_tensor(v, dtype=torch.float32,
+                                                  device=u1.device), u1.shape)
+
+    def mk(px, py, pz, normal):
+        p = torch.stack([px, py, pz], dim=-1)
+        n = torch.tensor(normal, dtype=torch.float32,
+                         device=p.device).expand(p.shape)
+        return light_center + p, n
+
+    front = mk(ox, oy_h, full(hd), (0, 0, 1))
+    back = mk(ox, oy_h, full(-hd), (0, 0, -1))
+    top = mk(ox, full(hh), oz_d, (0, 1, 0))
+    bottom = mk(ox, full(-hh), oz_d, (0, -1, 0))
+    right = mk(full(hw), oy_h1, oz_d, (1, 0, 0))
+    left = mk(full(-hw), oy_h1, oz_d, (-1, 0, 0))
+
+    adj3 = (uf - prob2) / (1.0 - prob2)
+    adj2 = (uf - prob1) / (prob2 - prob1)
+    in_xy = uf < prob1
+    in_xz = ~in_xy & (uf < prob2)
+
+    def sel(c, a, b):
+        return (torch.where(c[..., None], a[0], b[0]),
+                torch.where(c[..., None], a[1], b[1]))
+
+    xy = sel(uf < prob1 * 0.5, front, back)
+    xz = sel(adj2 < 0.5, top, bottom)
+    yz = sel(adj3 < 0.5, right, left)
+    pt, nrm = sel(in_xy, xy, sel(in_xz, xz, yz))
+
+    to_light = pt - point
+    dist = torch.sqrt(torch.clamp_min(dot(to_light, to_light), 1e-30))
+    direction = to_light / dist[..., None]
+    cos_theta = torch.clamp_min(dot(-direction, nrm), 0.0)
+    pdf = (dist * dist) / (total * cos_theta + 1e-6)
+    return direction, pdf
+
+
+def box_light_pdf(light_center: torch.Tensor, width, height, depth,
+                  point: torch.Tensor, direction: torch.Tensor
+                  ) -> torch.Tensor:
+    """Pdf of ``direction`` reaching an axis-aligned box light
+    (calculateBoxLightPdf, shaders_old.metal:625-676): slab-test ray/box
+    intersection, the entering face by its boundary coordinate, pdf = d^2 /
+    (total area cos theta); 0 where the ray misses the box. The reference's
+    early returns become masks."""
+    half = torch.stack([torch.as_tensor(width * 0.5),
+                        torch.as_tensor(height * 0.5),
+                        torch.as_tensor(depth * 0.5)], dim=-1).to(point)
+    box_min = light_center - half
+    box_max = light_center + half
+
+    # inv_dir with the reference's 1e8 clamp for near-zero components
+    # (shaders_old.metal:636-640).
+    small = direction.abs() <= 1e-8
+    inv_dir = torch.where(
+        small, torch.full_like(direction, 1e8),
+        1.0 / torch.where(small, torch.ones_like(direction), direction))
+    t1 = (box_min - point) * inv_dir
+    t2 = (box_max - point) * inv_dir
+    t_near = torch.amax(torch.minimum(t1, t2), dim=-1)
+    t_far = torch.amin(torch.maximum(t1, t2), dim=-1)
+    hit = (t_near <= t_far) & (t_far > 0.0)
+    t = torch.where(t_near > 0.0, t_near, t_far)
+    hit = hit & (t > 0.0)
+
+    hit_point = point + direction * t[..., None]
+    # Entering-face normal: the first boundary coordinate within 1e-5, in
+    # the reference's test order (-x, +x, -y, +y, -z, else +z).
+    axes = torch.eye(3, dtype=torch.float32, device=point.device)
+    on_min = (hit_point - box_min).abs() < 1e-5
+    on_max = (hit_point - box_max).abs() < 1e-5
+    normal = axes[2].expand(hit_point.shape)
+    for axis in (2, 1, 0):  # in reverse priority, so that -x wins overall
+        normal = torch.where(on_max[..., axis, None], axes[axis], normal)
+        normal = torch.where(on_min[..., axis, None], -axes[axis], normal)
+
+    cos_theta = dot(-direction, normal).abs()
+    total_area = 2.0 * (width * height + width * depth + height * depth)
+    pdf = (t * t) / (total_area * cos_theta + 1e-6)
+    return torch.where(hit, pdf, torch.zeros_like(pdf))

@@ -13,8 +13,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .types import (Camera, Scene, Spheres, SquareLight, TriangleScene,
-                    empty_box_lights, empty_sphere_lights, empty_spheres)
+from .types import (BoxLights, Camera, Scene, SphereLights, Spheres,
+                    SquareLight, TriangleScene, empty_box_lights,
+                    empty_sphere_lights, empty_spheres)
 
 _F = np.float32
 
@@ -427,4 +428,99 @@ def cornell_box_tessellated(
         spheres=empty_spheres(),
         sphere_lights=empty_sphere_lights(),
         box_lights=empty_box_lights(),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Legacy-tier lights and scenes (the scene model of shaders_old.metal)
+# ---------------------------------------------------------------------------
+
+def make_sphere_lights(centers, radii, colors,
+                       luminous_efficacy: float = 100.0,
+                       watts: float = 12.0) -> SphereLights:
+    """Sphere lights (SphereLightGPU, shaderTypes.h:40-45). Emitted radiance
+    follows the reference's photometric recipe (scene.swift:257-270) with the
+    sphere's surface area 4 pi r^2 as the emitting area."""
+    centers = np.asarray(centers, _F).reshape(-1, 3)
+    radii = np.asarray(radii, _F).reshape(-1)
+    colors = np.asarray(colors, _F).reshape(-1, 3)
+    area = 4.0 * math.pi * radii * radii
+    luminance = (luminous_efficacy * watts) / area / math.pi
+    return SphereLights(
+        center=_t(centers), radius=_t(radii), color=_t(colors),
+        emitted_radiance=_t(colors * luminance[:, None].astype(_F)))
+
+
+def make_box_lights(centers, sizes, colors,
+                    luminous_efficacy: float = 100.0,
+                    watts: float = 12.0) -> BoxLights:
+    """Box lights (BoxLightGPU, shaderTypes.h:47-54); the emitting area is
+    the box's total surface area (the pdf's measure,
+    shaders_old.metal:668-671). ``sizes`` rows are (width, height, depth)."""
+    centers = np.asarray(centers, _F).reshape(-1, 3)
+    sizes = np.asarray(sizes, _F).reshape(-1, 3)
+    colors = np.asarray(colors, _F).reshape(-1, 3)
+    w, h, d = sizes[:, 0], sizes[:, 1], sizes[:, 2]
+    area = 2.0 * (w * h + w * d + h * d)
+    luminance = (luminous_efficacy * watts) / area / math.pi
+    return BoxLights(
+        center=_t(centers), width=_t(w), height=_t(h), depth=_t(d),
+        color=_t(colors),
+        emitted_radiance=_t(colors * luminance[:, None].astype(_F)))
+
+
+def legacy_cornell(light_kind: str = "sphere",
+                   resolution: Tuple[int, int] = (256, 256)) -> Scene:
+    """Legacy-tier scene: the Cornell walls, two spheres and a sphere, box
+    or square light — the scene model of shaders_old.metal (spheres
+    intersected analytically :108-136, sphere lights hit-tested by
+    intersectLight :138-170; box lights sampled for next-event estimation
+    :292-404 and hit-tested here as 12 emissive triangles)."""
+    half = 2.5
+    light_y = half - 0.01
+    b = _TriBuilder()
+    walls = cornell_box_triangles(5.0)
+    for i in range(10):
+        b.verts.append(np.asarray(walls.verts[i]))
+        b.diffuse.append(np.asarray(walls.diffuse[i]))
+        b.metallic.append(walls.metallic[i])
+        b.roughness.append(walls.roughness[i])
+        b.emissive.append(np.asarray(walls.emissive[i]))
+
+    sphere_lights = empty_sphere_lights()
+    box_lights = empty_box_lights()
+    if light_kind == "sphere":
+        sphere_lights = make_sphere_lights(
+            centers=[(0.0, 1.9, 0.0)], radii=[0.35],
+            colors=[(1.0, 0.95, 0.9)])
+    elif light_kind == "box":
+        box_lights = make_box_lights(
+            centers=[(0.0, 2.2, 0.0)], sizes=[(1.0, 0.3, 1.0)],
+            colors=[(1.0, 0.95, 0.9)])
+        # The hit-testable body: 12 emissive triangles of the sampled box.
+        emitted = box_lights.emitted_radiance[0].numpy()
+        mat = dict(diffuse=(1.0, 0.95, 0.9), metallic=0.0, roughness=0.0,
+                   emissive=tuple(float(x) for x in emitted))
+        add_box(b, rotated_box_vertices((0.0, 2.2, 0.0), 1.0, 0.3, 1.0, 0.0),
+                mat)
+    elif light_kind == "square":
+        _add_light_panel(b, light_y, 1.0, 1.0)
+    else:
+        raise ValueError(f"unknown light kind: {light_kind!r}")
+
+    spheres = make_spheres(
+        centers=[(-1.0, -1.6, -1.0), (1.0, -1.7, 0.8)],
+        radii=[0.9, 0.8],
+        materials=[
+            dict(diffuse=(0.9, 0.9, 0.9), metallic=0.05, roughness=0.3),
+            dict(diffuse=(0.25, 0.25, 0.75), metallic=0.3, roughness=0.6),
+        ],
+    )
+    return Scene(
+        camera=make_camera(resolution=resolution),
+        light=make_square_light(center=(0.0, light_y, 0.0)),
+        triangles=b.build(),
+        spheres=spheres,
+        sphere_lights=sphere_lights,
+        box_lights=box_lights,
     )

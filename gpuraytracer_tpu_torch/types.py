@@ -110,9 +110,11 @@ class Spheres(_TensorStruct):
 
 @dataclasses.dataclass(frozen=True)
 class SphereLights(_TensorStruct):
-    """Sphere lights of the legacy tier. The port's path tracer does not
-    read them; the struct exists so a ``Scene`` has the same shape as the
-    JAX package's, and scenes here always carry it empty (L == 0)."""
+    """Sphere lights of the legacy tier (SphereLightGPU,
+    shaderTypes.h:40-45): sampled and hit-tested by ``render_legacy``, which
+    appends them to the spheres as emissive spheres. The other integrators
+    do not read them. Empty (L == 0) in every scene but
+    ``scene.legacy_cornell("sphere")``."""
 
     center: torch.Tensor  # [L, 3] f32
     radius: torch.Tensor  # [L] f32
@@ -126,7 +128,10 @@ class SphereLights(_TensorStruct):
 
 @dataclasses.dataclass(frozen=True)
 class BoxLights(_TensorStruct):
-    """Box lights of the legacy tier; carried empty, like ``SphereLights``."""
+    """Box lights of the legacy tier (BoxLightGPU, shaderTypes.h:47-54):
+    ``render_legacy`` samples them and takes their pdf; the scene holds the
+    same box as 12 emissive triangles for hit tests. Empty in every scene
+    but ``scene.legacy_cornell("box")``."""
 
     center: torch.Tensor  # [L, 3] f32
     width: torch.Tensor  # [L] f32
@@ -148,8 +153,8 @@ class Scene(_TensorStruct):
     light: SquareLight
     triangles: TriangleScene
     spheres: Spheres  # may be empty (S == 0)
-    sphere_lights: SphereLights  # empty in this port so far
-    box_lights: BoxLights  # empty in this port so far
+    sphere_lights: SphereLights  # the legacy tier's; may be empty
+    box_lights: BoxLights  # the legacy tier's; may be empty
 
 
 @dataclasses.dataclass(frozen=True)

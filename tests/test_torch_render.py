@@ -96,14 +96,49 @@ def test_seed_changes_the_image():
 
 @pytest.mark.parametrize("integrator,slice_name", [("legacy", "legacy")])
 def test_unported_integrators_raise(integrator, slice_name):
+    """Every integrator of the JAX package is ported. What still raises:
+    the legacy tier through a kernel route (it has no kernel; the JAX
+    command line refuses it too) and an integrator neither package has."""
     _, scene = _scenes("cornell")
     _, cfg = _cfgs(integrator=integrator)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        render(scene, cfg, device="cpu")
-    with pytest.raises(SystemExit, match="later"):
-        cli.main(["x.png", "--integrator", integrator, "--device", "cpu"])
+    for kernel in ("cuda", "decoupled"):
+        with pytest.raises(SystemExit, match="--kernel eager only"):
+            cli.main(["x.png", "--integrator", integrator, "--kernel",
+                      kernel, "--device", "cpu"])
     with pytest.raises(ValueError, match="unknown integrator"):
         render(scene, cfg.replace(integrator="bidirectional"), device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["sphere", "box", "square"])
+def test_cli_legacy_integrator(tmp_path, capsys, kind):
+    """``--integrator legacy`` at the defaults (30 / 2 / 30) on the legacy
+    scenes: the CLI's PNG is the tonemapped oracle frame."""
+    out = tmp_path / "l.png"
+    assert cli.main([str(out), "--device", "cpu", "--integrator", "legacy",
+                     "--scene", f"legacy-{kind}", "--width", "12",
+                     "--height", "8"]) == 0
+    assert f"Image saved to {out}" in capsys.readouterr().out
+    cfg = RenderConfig(width=12, height=8, integrator="legacy")
+    with torch.no_grad():
+        hdr = render(tscene.legacy_cornell(kind, resolution=(12, 8)), cfg,
+                     device="cpu").hdr.numpy()
+    assert np.isfinite(hdr).all() and hdr.max() > 0.0
+    got = image.read_png(str(out)).astype(int)
+    assert np.abs(got - image.tonemap(hdr).astype(int)).max() <= 1
+
+
+def test_cli_debug_nans(tmp_path):
+    from gpuraytracer_tpu_torch.utils import debug
+    out = tmp_path / "n.png"
+    try:
+        assert cli.main([str(out), "--device", "cpu", "--debug-nans",
+                         "--width", "8", "--height", "8", "--spp", "1"]) == 0
+        assert torch.is_anomaly_enabled()
+        with pytest.raises(FloatingPointError):
+            torch.log(torch.zeros(1) - 1.0)
+    finally:
+        debug.disable()
+    assert image.read_png(str(out)).shape == (8, 8, 3)
 
 
 def test_render_default_device_raises_without_a_card():
@@ -255,7 +290,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "gpuraytracer_tpu_torch/grad/diff_render.py",
             "gpuraytracer_tpu_torch/ops/cuda_soft.py",
             "gpuraytracer_tpu_torch/ops/csrc/soft_kernels.cu",
-            "gpuraytracer_tpu_torch/ops/csrc/trace.cuh"} <= names
+            "gpuraytracer_tpu_torch/ops/csrc/trace.cuh",
+            "gpuraytracer_tpu_torch/render_legacy.py",
+            "gpuraytracer_tpu_torch/renderer.py",
+            "gpuraytracer_tpu_torch/native.py",
+            "gpuraytracer_tpu_torch/utils/checkpoint.py",
+            "gpuraytracer_tpu_torch/utils/debug.py",
+            "gpuraytracer_tpu_torch/utils/metrics.py"} <= names
     for path in files:
         found = pattern.findall(path.read_text())
         assert not found, f"{path}: {found}"
