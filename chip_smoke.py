@@ -13,9 +13,12 @@ checkpoints, the legacy tier, debug checks, profiler traces, the native
 library) and trains through the library entry points (the main paths:
 the path tracer's and the MIS integrator's gradients, the silhouette path's
 sphere-center recovery, and the gradients of both integrators on tessellated
-scenes of 1,002 and 12,802 triangles through the grouped tiers), times the
-kernels, and prints
+scenes of 1,002 and 12,802 triangles through the grouped tiers, and the
+same steps sharded over torch.distributed), times the kernels, and prints
 
+  * a ``sharded`` JSON line (phase sharded: the checks' margins, the step
+    times unsharded, on two ranks sharing the card, and at a world of one
+    over NCCL),
   * a ``kernels`` JSON line (time, bound, plain-version time, launches on the
     main path, largest difference from the plain version, per kernel),
   * the card's name and power limit as ``nvidia-smi`` gives them,
@@ -188,6 +191,24 @@ Phases
           grouped MIS backward launch each, counted; two more under
           ``torch.profiler``; the seconds of the phase, the paths and their
           rows are printed.
+  sharded parallel/ over torch.distributed, after the rows: (a) pixel
+          ranges in one process through the sharded functions' local halves
+          at D's (4 ranges), K's and I's (2) shapes: the image equal to the
+          single render's by sha256, the gradients summed over the ranges in
+          rank order within the JAX package's sharded limits (path atol 1e-8
+          / rtol 1e-5, MIS atol 1e-5 of the largest magnitude / rtol 1e-4),
+          one K1 / K2 / K3 (K2g / K3g, K4 / K5) launch per range; (b) two
+          ranks of this script (``--sharded-rank gloo``) on the one card over
+          gloo: two ``make_train_step_fused`` steps at D, E and K, one eager
+          oracle step at 64 x 64, the MIS gradient at I, the overlapped
+          gradient against the plain one at D (atol 1e-6 / rtol 1e-4); the
+          gathered images equal the single-process frames by sha256, the
+          parameters and gradients are equal by bits on both ranks; (c) one
+          rank over NCCL (``--sharded-rank nccl``): steps at D and I
+          unsharded, sharded without a group (the autograd Functions alone)
+          and sharded with the NCCL world group, in turns, images and
+          gradients equal by bits; their times go into the ``sharded`` line.
+          A rank that fails or runs past SHARDED_TIMEOUT fails the run.
   full    the kernels at the shapes of A to N against their plain versions
           (K2 also at E's: records, draws read, the cull inverse_render
           makes; its rows and K2g's carry bounds that charge a triangle test
@@ -268,6 +289,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -292,6 +314,7 @@ from gpuraytracer_tpu_torch.intersect import (RAY_TMAX, RAY_TMIN,
 from gpuraytracer_tpu_torch.ops import (_build, cuda_mis, cuda_mis_bwd,
                                         cuda_path, cuda_shade, cuda_soft,
                                         decoupled)
+from gpuraytracer_tpu_torch.parallel import fast, mesh, multihost, train
 from gpuraytracer_tpu_torch.render import pixel_rng_offsets, render_mis
 from gpuraytracer_tpu_torch.render_legacy import render_legacy
 from gpuraytracer_tpu_torch.renderer import Renderer
@@ -823,12 +846,18 @@ def with_grad(scene):
 def scene_grads(scene, hdr):
     """Gradients of ``hdr.mean()`` by the scene's float tensors, by name;
     tensors the image does not depend on are left out."""
+    return grads_of(scene, hdr.mean())
+
+
+def grads_of(scene, value):
+    """Gradients of the scalar ``value`` by the scene's tensors that ask for
+    them, by name; tensors it does not depend on are left out."""
     named = [(f"{part.name}.{f.name}", getattr(getattr(scene, part.name),
                                                f.name))
              for part in dataclasses.fields(scene)
              for f in dataclasses.fields(getattr(scene, part.name))]
     named = [(name, t) for name, t in named if t.requires_grad]
-    grads = torch.autograd.grad(hdr.mean(), [t for _, t in named],
+    grads = torch.autograd.grad(value, [t for _, t in named],
                                 allow_unused=True)
     return {name: g for (name, _), g in zip(named, grads) if g is not None}
 
@@ -5303,12 +5332,434 @@ def k2_at_j_row(launches_j, path_j, resources):
     return [row]
 
 
+# ---------------------------------------------------------------------------
+# Phase sharded: parallel/ over torch.distributed
+# ---------------------------------------------------------------------------
+
+SHARDED_TIMEOUT = 300     # seconds a group of rank processes may take
+SHARDED_TRAIN_STEPS = 2   # steps of each make_train_step_fused run in (b)
+ORACLE_STEP = dict(width=64, height=64, spp=1, bounces=2)  # (b)'s eager step
+NCCL_TURNS = {"D": 5, "I": 3}  # timed turns of each variant in (c)
+INVERSE_RES = (INVERSE["width"], INVERSE["height"])
+# Path gradients: the JAX package's sharded tolerance
+# (tests/test_fast_sharded.py:51); MIS: 1e-5 of the group's largest
+# magnitude and rtol 1e-4 (:159-162); the overlapped gradient against the
+# plain one: atol 1e-6 / rtol 1e-4 (:92-94).
+SHARDED_PATH_TOL = dict(atol=1e-8, rtol=1e-5)
+SHARDED_MIS_RTOL = 1e-4
+OVERLAP_TOL = dict(atol=1e-6, rtol=1e-4)
+
+
+def sha256(t: torch.Tensor) -> str:
+    return hashlib.sha256(
+        t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def sharded_cases():
+    """(label, scene, config, integrator, ranges, launches a range): the
+    training steps of paths D, K and I."""
+    res = (BENCH["width"], BENCH["height"])
+    return [
+        ("D", cornell_box(resolution=res), RenderConfig(**BENCH), "path", 4,
+         dict(draws_kernel=1, path_kernel=1, shade_bwd_kernel=1)),
+        ("K", cornell_box_tessellated(resolution=res, **TESS_K),
+         RenderConfig(**BENCH), "path", 2,
+         dict(draws_kernel=1, path_kernel_grouped=1,
+              shade_bwd_grouped_kernel=1)),
+        ("I", cornell_box(resolution=res),
+         RenderConfig(integrator="mis", **MIS_BENCH), "mis", 2,
+         dict(mis_kernel=1, mis_bwd_kernel=1)),
+    ]
+
+
+def single_entry(kind):
+    return (cuda_shade.render_path_decoupled_fused if kind == "path"
+            else cuda_mis_bwd.render_mis_fused)
+
+
+def compare_sharded_grads(what, got, ref, mis):
+    """Gradients summed over shards against the single render's, element by
+    element at the JAX package's sharded tolerances; the largest difference
+    and the largest share of its limit."""
+    check(set(got) == set(ref), f"{what}: gradients of {sorted(got)} "
+          f"against {sorted(ref)}")
+    worst, share = 0.0, 0.0
+    for name, r in ref.items():
+        g = got[name]
+        if mis:
+            atol = 1e-5 * max(r.abs().max().item(), 1e-6)
+            rtol = SHARDED_MIS_RTOL
+        else:
+            atol, rtol = SHARDED_PATH_TOL["atol"], SHARDED_PATH_TOL["rtol"]
+        diff = (g - r).abs()
+        limit = atol + rtol * r.abs()
+        largest = diff.max().item() if diff.numel() else 0.0
+        worst = max(worst, largest)
+        share = max(share, (diff / limit).max().item()
+                    if diff.numel() else 0.0)
+        check(bool((diff <= limit).all()), f"{what}: d {name} differs by "
+              f"{largest:.3e} (atol {atol:.1e}, rtol {rtol:.0e})")
+    return worst, share
+
+
+def sharded_ranges():
+    """(a) Pixel ranges in one process, through the local halves: the
+    concatenated image against the single render by sha256, the gradients
+    summed over the ranges in rank order against the single render's, one
+    launch of each kernel per range."""
+    out = {}
+    for label, scene, cfg, kind, n, expect in sharded_cases():
+        occ = potential_occluders(scene, cfg)
+        leaves = with_grad(scene)
+        reset_launches()
+        hdr = single_entry(kind)(leaves, cfg, occluders=occ)
+        ref = scene_grads(leaves, hdr)
+        check(read_launches() == launches_of(**expect),
+              f"sharded {label}: single render launches {read_launches()}")
+        shard = (fast.render_path_fused_shard if kind == "path"
+                 else fast.render_mis_fused_shard)
+        parts = with_grad(scene)
+        flats, total = [], {}
+        for k in range(n):
+            reset_launches()
+            flat = shard(parts, cfg, k, n, occluders=occ)
+            g = grads_of(parts, flat.sum() / (3 * cfg.num_pixels))
+            launched = read_launches()
+            check(launched == launches_of(**expect), f"sharded {label} range "
+                  f"{k} of {n}: launches {launched}, expected {expect}")
+            for name, v in g.items():
+                total[name] = v if name not in total else total[name] + v
+            flats.append(flat.detach())
+        image = torch.cat(flats).reshape(hdr.shape)
+        check(sha256(image) == sha256(hdr), f"sharded {label}: {n} ranges "
+              "do not make the single render's image")
+        worst, share = compare_sharded_grads(f"sharded {label}", total, ref,
+                                             kind == "mis")
+        log(f"  (a) {label}: {n} ranges, image sha256 equal to the single "
+            f"render's, gradients of {len(ref)} tensors within the limit "
+            f"(largest difference {worst:.3e}, {share:.2f} of its limit); "
+            f"launches per range {expect}")
+        out[label] = dict(ranges=n, sha256=sha256(hdr), max_abs_diff=worst,
+                          share_of_limit=share, launches_per_range=expect)
+    return out
+
+
+def run_ranks(mode: str, world: int) -> list:
+    """Run ``world`` processes of this script as the ranks of a group
+    (``--sharded-rank``), each with a log and a JSON result in a temporary
+    directory; fail on any non-zero exit or past SHARDED_TIMEOUT (the other
+    ranks are killed at once). Returns the ranks' results."""
+    out_dir = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{mode}_"))
+    port = multihost.free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+                        "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+    logs = [open(out_dir / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-u", str(Path(__file__).resolve()),
+         "--sharded-rank", mode, str(r), str(world), str(port), str(out_dir)],
+        stdout=logs[r], stderr=subprocess.STDOUT, env=env,
+        cwd=Path(__file__).resolve().parent) for r in range(world)]
+
+    def tail(r):
+        return (out_dir / f"rank{r}.log").read_text()[-3000:]
+
+    try:
+        deadline = time.monotonic() + SHARDED_TIMEOUT
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs)
+                      if p.poll() not in (None, 0)]
+            check(not failed, f"sharded {mode}: rank {failed[:1]} exited "
+                  f"{[procs[r].returncode for r in failed]}:\n"
+                  + (tail(failed[0]) if failed else ""))
+            check(time.monotonic() < deadline, f"sharded {mode}: the ranks "
+                  f"did not finish within {SHARDED_TIMEOUT} s:\n{tail(0)}")
+            time.sleep(0.2)
+        for r, p in enumerate(procs):
+            check(p.returncode == 0, f"sharded {mode}: rank {r} exited "
+                  f"{p.returncode}:\n{tail(r)}")
+        return [json.loads((out_dir / f"rank{r}.json").read_text())
+                for r in range(world)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def params_sha256(params) -> str:
+    return sha256(torch.cat([p.detach().reshape(-1) for p in params]))
+
+
+def grads_sha256(grads: dict) -> str:
+    return sha256(torch.cat([grads[k].reshape(-1) for k in sorted(grads)]))
+
+
+def synced_ms(fn):
+    """(result of ``fn``, its milliseconds on the host clock between two
+    synchronizations of the card)."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, 1e3 * (time.perf_counter() - start)
+
+
+def gloo_rank_steps() -> dict:
+    """(b), on each of two ranks that share the card over gloo: the JAX
+    package's multichip dry run (``__graft_entry__.py``) at the shapes of
+    (a) and of E: images, losses, parameters after the steps and launches,
+    for the parent to compare."""
+    m = mesh.make_ray_mesh()
+    check(m.shape == {"rays": 2} and m.device == torch.device("cuda", 0),
+          f"(b) mesh {m.shape} on {m.device}")
+    res = (BENCH["width"], BENCH["height"])
+    out = {}
+    for label, scene, cfg, expect in (
+            ("D", cornell_box(resolution=res), RenderConfig(**BENCH),
+             dict(draws_kernel=1, path_kernel=1)),
+            ("E", cornell_box_with_spheres(resolution=INVERSE_RES),
+             RenderConfig(pixel_chunk=65536, **INVERSE),
+             dict(draws_kernel=1, path_kernel=1)),
+            ("K", cornell_box_tessellated(resolution=res, **TESS_K),
+             RenderConfig(**BENCH),
+             dict(draws_kernel=1, path_kernel_grouped=1))):
+        scene = scene.to("cuda")
+        occ = potential_occluders(scene, cfg)
+        reset_launches()
+        img = fast.render_path_fused_sharded(scene, cfg, m, occluders=occ)
+        check(read_launches() == launches_of(**expect),
+              f"(b) {label} image: launches {read_launches()}")
+        init_fn, step_fn = train.make_train_step_fused(scene, cfg, m)
+        state = init_fn(inverse.extract_params(scene))
+        target = torch.zeros(img.shape, device="cuda")
+        grouped = "path_kernel_grouped" in expect
+        per_step = launches_of(**{
+            "draws_kernel": 1,
+            "path_kernel_grouped" if grouped else "path_kernel": 1,
+            "shade_bwd_grouped_kernel" if grouped else "shade_bwd_kernel": 1})
+        losses, step_ms = [], []
+        for step in range(SHARDED_TRAIN_STEPS):
+            reset_launches()
+            (state, loss), ms = synced_ms(lambda: step_fn(state, target))
+            check(read_launches() == per_step, f"(b) {label} step {step}: "
+                  f"launches {read_launches()}, expected {per_step}")
+            check(bool(torch.isfinite(loss)), f"(b) {label}: loss {loss}")
+            losses.append(loss.item())
+            step_ms.append(ms)
+        out[label] = dict(image_sha256=sha256(img), losses=losses,
+                          step_ms=step_ms, params_sha256=params_sha256(
+                              state.params),
+                          launches_per_step={k: v for k, v in per_step.items()
+                                             if v})
+    # The eager oracle's step: no kernel.
+    cfg = RenderConfig(**ORACLE_STEP)
+    scene = cornell_box_with_spheres(resolution=cfg.resolution)
+    init_fn, step_fn = train.make_train_step(scene, cfg, m)
+    state = init_fn(inverse.extract_params(scene))
+    reset_launches()
+    (state, loss), ms = synced_ms(lambda: step_fn(
+        state, torch.zeros((cfg.height, cfg.width, 3), device="cuda")))
+    check(read_launches() == launches_of() and bool(torch.isfinite(loss)),
+          f"(b) oracle step: launches {read_launches()}, loss {loss}")
+    out["oracle"] = dict(losses=[loss.item()], step_ms=[ms],
+                         params_sha256=params_sha256(state.params))
+    # The MIS gradient at I's shape.
+    cfg = RenderConfig(integrator="mis", **MIS_BENCH)
+    scene = with_grad(cornell_box(resolution=cfg.resolution))
+    occ = potential_occluders(scene, cfg)
+
+    def mis_step():
+        img = fast.render_mis_fused_sharded(scene, cfg, m, occluders=occ)
+        return img, scene_grads(scene, img)
+
+    reset_launches()
+    (img, grads), ms = synced_ms(mis_step)
+    mis_launches = dict(mis_kernel=1, mis_bwd_kernel=1)
+    check(read_launches() == launches_of(**mis_launches),
+          f"(b) MIS gradient: launches {read_launches()}")
+    check(all(bool(torch.isfinite(g).all()) for g in grads.values())
+          and sum(g.abs().sum().item() for g in grads.values()) > 0.0,
+          "(b) MIS gradients not finite, or all zero")
+    out["I"] = dict(image_sha256=sha256(img), grads_sha256=grads_sha256(grads),
+                    step_ms=[ms], launches_per_step=mis_launches)
+    # The overlapped gradient against the plain fused one, at D's shape.
+    cfg = RenderConfig(**BENCH)
+    scene = cornell_box(resolution=res).to("cuda")
+    target = torch.full((cfg.height, cfg.width, 3), 0.25, device="cuda")
+    grad_fn = fast.make_overlapped_grad_fn(scene, cfg, m, n_microtiles=4)
+    (loss_o, g_o), over_ms = synced_ms(lambda: grad_fn(scene, target))
+    leaves = with_grad(scene)
+
+    def plain():
+        loss = torch.mean((fast.render_path_fused_sharded(leaves, cfg, m)
+                           - target) ** 2)
+        return loss, grads_of(leaves, loss)
+
+    (loss_p, g_p), plain_ms = synced_ms(plain)
+    check(abs(loss_o.item() - loss_p.item()) <= 1e-6 * abs(loss_p.item()),
+          f"(b) overlapped loss {loss_o.item()} against {loss_p.item()}")
+    named_o = dict(zip(
+        [f"{part.name}.{f.name}" for part in dataclasses.fields(g_o)
+         for f in dataclasses.fields(getattr(g_o, part.name))],
+        g_o.tensors()))
+    worst = 0.0
+    for name, ref in g_p.items():
+        diff = (named_o[name] - ref).abs()
+        largest = diff.max().item() if diff.numel() else 0.0
+        worst = max(worst, largest)
+        check(bool((diff <= OVERLAP_TOL["atol"]
+                    + OVERLAP_TOL["rtol"] * ref.abs()).all()),
+              f"(b) overlapped d {name} differs by {largest:.3e}")
+    out["overlapped"] = dict(loss=loss_o.item(), max_abs_diff=worst,
+                             step_ms=[over_ms], plain_ms=[plain_ms],
+                             grads_sha256=grads_sha256(
+                                 {k: named_o[k] for k in g_p}))
+    return out
+
+
+def nccl_rank_steps() -> dict:
+    """(c), on a world of one over NCCL: steps at D's and I's shapes,
+    unsharded, sharded on a mesh of one (no group: the two autograd
+    Functions alone), and sharded on a mesh of one whose axis carries the
+    NCCL world group (the Functions and their NCCL collectives), in turns.
+    Images and gradients must be equal by bits across the three."""
+    import torch.distributed as dist
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"(c) backend {dist.get_backend()}")
+    bare = mesh.make_ray_mesh()
+    check(bare.group is None, "(c) a mesh of one has a group")
+    world = mesh.RayMesh({mesh.RAY_AXIS: mesh.MeshAxis(0, 1, dist.group.WORLD)},
+                         dist.group.WORLD, bare.device)
+    out = {}
+    for label, scene, cfg, kind, _, expect in sharded_cases():
+        if label not in NCCL_TURNS:
+            continue
+        occ = potential_occluders(scene, cfg)
+        leaves = with_grad(scene)
+        target = torch.full((cfg.height, cfg.width, 3), 0.25, device="cuda")
+        sharded = (fast.render_path_fused_sharded if kind == "path"
+                   else fast.render_mis_fused_sharded)
+        variants = {
+            "unsharded": lambda: single_entry(kind)(leaves, cfg,
+                                                    occluders=occ),
+            "functions": lambda: sharded(leaves, cfg, bare, occluders=occ),
+            "nccl": lambda: sharded(leaves, cfg, world, occluders=occ)}
+
+        def step(render):
+            img = render()
+            return img, grads_of(leaves, torch.mean((img - target) ** 2))
+
+        first = {name: step(fn) for name, fn in variants.items()}
+        ref_img, ref_grads = first["unsharded"]
+        for name, (img, grads) in first.items():
+            # replicate's backward gives the tensors the image does not
+            # use a zero gradient where autograd gives none.
+            check(sha256(img) == sha256(ref_img)
+                  and set(ref_grads) <= set(grads)
+                  and all(torch.equal(grads[k], ref_grads[k])
+                          for k in ref_grads)
+                  and all(not bool(grads[k].any())
+                          for k in set(grads) - set(ref_grads)),
+                  f"(c) {label} {name}: image or gradients differ from the "
+                  "unsharded step's")
+        times = {name: [] for name in variants}
+        for _ in range(NCCL_TURNS[label]):
+            for name, fn in variants.items():
+                reset_launches()
+                _, ms = synced_ms(lambda: step(fn))
+                check(read_launches() == launches_of(**expect),
+                      f"(c) {label} {name}: launches {read_launches()}")
+                times[name].append(ms)
+        med = {name: statistics.median(t) for name, t in times.items()}
+        out[label] = dict(step_ms=times, median_ms=med,
+                          functions_add_ms=med["functions"] - med["unsharded"],
+                          nccl_adds_ms=med["nccl"] - med["functions"],
+                          launches_per_step=expect)
+    return out
+
+
+def sharded_rank(mode, rank, world, port, out_dir) -> int:
+    """One rank of (b) or (c): join the group, run, write the JSON."""
+    import torch.distributed as dist
+    rank, world = int(rank), int(world)
+    check(multihost.init_distributed(
+        f"localhost:{port}", world, rank,
+        backend="gloo" if mode == "gloo" else None), "init_distributed")
+    _build.load_libraries()  # built by the parent's phase build: loads
+    result = gloo_rank_steps() if mode == "gloo" else nccl_rank_steps()
+    result["card"] = torch.cuda.get_device_name(torch.cuda.current_device())
+    result["backend"] = dist.get_backend()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(result))
+    multihost.sync_hosts("written")
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_sharded():
+    """Phase sharded: (a) pixel ranges in one process, (b) two ranks on the
+    one card over gloo, (c) a world of one over NCCL."""
+    log("== sharded (a): pixel ranges in one process at D's, K's and I's "
+        "shapes")
+    ranges = sharded_ranges()
+    log("== sharded (b): two ranks on the one card over gloo")
+    torch.cuda.empty_cache()  # the ranks are processes of their own
+    b = run_ranks("gloo", 2)
+    for key in ("D", "E", "K", "oracle", "I", "overlapped"):
+        check(all(r[key].get("params_sha256") == b[0][key].get(
+            "params_sha256") and r[key].get("grads_sha256") == b[0][key].get(
+            "grads_sha256") for r in b), f"(b) {key}: the ranks differ")
+    single_e = cornell_box_with_spheres(resolution=INVERSE_RES)
+    cfg_e = RenderConfig(pixel_chunk=65536, **INVERSE)
+    e_sha = sha256(cuda_shade.render_path_decoupled_fused(
+        single_e, cfg_e, occluders=potential_occluders(single_e, cfg_e)))
+    for key, ref in (("D", ranges["D"]["sha256"]), ("E", e_sha),
+                     ("K", ranges["K"]["sha256"]),
+                     ("I", ranges["I"]["sha256"])):
+        for r, res in enumerate(b):
+            check(res[key]["image_sha256"] == ref, f"(b) {key}: rank {r}'s "
+                  "gathered image differs from the single-process frame")
+    for key in ("D", "E", "K", "oracle", "I", "overlapped"):
+        log(f"  (b) {key}: step ms on rank 0 "
+            + ", ".join(f"{t:.1f}" for t in b[0][key]["step_ms"])
+            + ", rank 1 " + ", ".join(f"{t:.1f}" for t in b[1][key]["step_ms"])
+            + (f"; losses {b[0][key]['losses']}" if "losses" in b[0][key]
+               else ""))
+    log("  (b) images equal to the single-process frames by sha256, the "
+        "parameters and gradients equal by bits on both ranks, launches "
+        f"per step {b[0]['D']['launches_per_step']} (D)")
+    log("== sharded (c): a world of one over NCCL")
+    c = run_ranks("nccl", 1)[0]
+    for label in NCCL_TURNS:
+        med = c[label]["median_ms"]
+        log(f"  (c) {label}: median step ms unsharded {med['unsharded']:.2f}, "
+            f"sharded without a group {med['functions']:.2f}, with NCCL "
+            f"{med['nccl']:.2f}; images and gradients equal by bits")
+    return dict(
+        ranges=ranges,
+        unsharded_step_ms={k: v["median_ms"]["unsharded"]
+                           for k, v in c.items() if k in NCCL_TURNS},
+        two_ranks_one_card_gloo_step_ms={
+            key: [res[key]["step_ms"] for res in b]
+            for key in ("D", "E", "K", "oracle", "I", "overlapped")},
+        overlapped_max_abs_diff=b[0]["overlapped"]["max_abs_diff"],
+        world1_nccl={k: {kk: vv for kk, vv in v.items()
+                         if kk != "launches_per_step"}
+                     for k, v in c.items() if k in NCCL_TURNS},
+        card=c["card"], backends=[b[0]["backend"], c["backend"]])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() "
               "is False", file=sys.stderr)
         return 1
     args = sys.argv[1:]
+    if args[:1] == ["--sharded-rank"] and len(args) == 6:
+        return sharded_rank(*args[1:])
     only = None
     if args[:1] == ["--split"] and "--only" in args[:-1]:
         at = args.index("--only")
@@ -5380,11 +5831,13 @@ def main() -> int:
         mis_grouped_row_list, mis_grouped_rows_s = mis_grouped_rows(
             launches, resources)
         rows += mis_grouped_row_list
+        sharded = timed("sharded", phase_sharded)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.synchronize()
     log(f"== done in {time.perf_counter() - started:.1f} s; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(json.dumps({"sharded": sharded}), flush=True)
     print(json.dumps({"kernels": rows, "small_128x96_ms": small_ms,
                       "path_D_step_ms": step_ms,
                       "path_E_step_ms": inverse_ms,

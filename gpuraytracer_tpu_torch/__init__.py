@@ -18,6 +18,7 @@ reference), for NVIDIA Hopper:
   * ``image``     tonemap + PNG I/O (``native``: the C++ host runtime)
   * ``convert``   scenes to and from numpy trees
   * ``utils``     device selection, checkpoints, debug checks, metrics
+  * ``parallel``  sharded rendering and training over ``torch.distributed``
   * ``cli``       command-line renderer
 
 Every entry point takes ``device`` (default ``"cuda"``) and raises when the

@@ -10,11 +10,16 @@ writes the PNG from its own tone curve (``render.tonemap_mis``);
 ``--integrator legacy`` renders the legacy tier (``render_legacy.py``),
 through ``--kernel eager`` only, on the ``legacy-*`` scenes or any other.
 ``--debug-nans`` stops at the first operation that makes a NaN
-(``utils.debug``).
+(``utils.debug``). ``--devices N`` shards the frame's pixels over N ranks
+(``parallel/fast.py``, ``--kernel decoupled`` only): under a launcher
+(``torchrun``, whose environment names the coordinator) each process is one
+rank; otherwise the command spawns N local ranks itself, over NCCL with a
+card each, or over gloo with ``--device cpu``. Rank 0 writes the PNG.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 
@@ -56,18 +61,46 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where to render; 'cuda' fails when no card is "
                         "present, 'cpu' runs the plain PyTorch versions")
     p.add_argument("--devices", type=int, default=1,
-                   help="number of cards; only 1 is supported so far")
+                   help="shard the render over N ranks, one device each "
+                        "(pixels sharded, scene replicated, fused kernels; "
+                        "requires --kernel decoupled and path, direct or "
+                        "mis). Default 1 = single device.")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    if args.devices != 1:
-        raise SystemExit(
-            "--devices N>1 is not ported yet (a later slice of the port: "
-            "sharded rendering over torch.distributed)")
+    if args.devices > 1 and not (
+            args.kernel == "decoupled"
+            and args.integrator in ("path", "direct", "mis")):
+        raise SystemExit("--devices N>1 requires --kernel decoupled "
+                         "(path/direct/mis: the fused sharded paths)")
+    if args.devices > 1 and args.device == "cuda":
+        import torch
+        count = torch.cuda.device_count()
+        if args.devices > count:
+            raise SystemExit(f"--devices {args.devices} > available {count} "
+                             "CUDA cards")
+    if args.devices > 1 and "WORLD_SIZE" not in os.environ:
+        import torch.multiprocessing as mp
 
+        from .parallel.multihost import free_port
+        coordinator = f"localhost:{free_port()}"
+        mp.spawn(_spawned_rank, args=(args, coordinator), nprocs=args.devices,
+                 join=True)
+        return 0
+    return _render(args)
+
+
+def _spawned_rank(rank: int, args, coordinator: str) -> None:
+    """One of the ranks ``main`` spawns; exits through ``_render``'s return."""
+    from .parallel.multihost import init_distributed
+    init_distributed(coordinator, args.devices, rank, device=args.device)
+    _render(args)
+
+
+def _render(args) -> int:
     import torch
 
     from . import image as img
@@ -93,18 +126,23 @@ def main(argv=None) -> int:
         scene = legacy_cornell(args.scene.split("-", 1)[1],
                                resolution=resolution)
 
-    # The timed window holds the route's one-time work (the decoupled
-    # route's cull and draws) and the frame.
-    start = time.perf_counter()
-    try:
-        frame = route(scene, config, args.kernel, args.device).frame
-    except ValueError as e:  # the legacy tier through a kernel route
-        raise SystemExit(str(e)) from None
-    device = resolve_device(args.device)
-    hdr = frame()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    elapsed = time.perf_counter() - start
+    if args.devices > 1:
+        hdr, elapsed = _sharded_frame(scene, config, args)
+        if hdr is None:  # not rank 0
+            return 0
+    else:
+        # The timed window holds the route's one-time work (the decoupled
+        # route's cull and draws) and the frame.
+        start = time.perf_counter()
+        try:
+            frame = route(scene, config, args.kernel, args.device).frame
+        except ValueError as e:  # the legacy tier through a kernel route
+            raise SystemExit(str(e)) from None
+        device = resolve_device(args.device)
+        hdr = frame()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        elapsed = time.perf_counter() - start
 
     hdr_np = write_frame(args.output, hdr, config, scene, args.exposure)
     if args.debug_output:
@@ -114,6 +152,45 @@ def main(argv=None) -> int:
     print(f"Render completed in {elapsed:.2f} seconds")
     print(f"Image saved to {args.output}")
     return 0
+
+
+def _sharded_frame(scene, config, args):
+    """The frame sharded over the ranks of the process group, which must
+    number ``--devices``: (hdr, seconds) on rank 0, (None, seconds) on the
+    others. Rank 0 times from a barrier to the end of the gather; the window
+    holds the occluder cull, as the single-device decoupled route's does."""
+    import torch
+    import torch.distributed as dist
+
+    from .intersect import potential_occluders
+    from .parallel.fast import (render_mis_fused_sharded,
+                                render_path_fused_sharded)
+    from .parallel.mesh import make_ray_mesh
+    from .parallel.multihost import init_distributed, is_primary, sync_hosts
+
+    if not dist.is_initialized():  # under a launcher: join its group
+        init_distributed(device=args.device)
+    if dist.get_world_size() != args.devices:
+        raise SystemExit(f"--devices {args.devices} but the process group "
+                         f"has {dist.get_world_size()} ranks")
+    mesh = make_ray_mesh(args.device)
+    cfg = (config.replace(bounces=1) if config.integrator == "direct"
+           else config)
+    sync_hosts("render")
+    start = time.perf_counter()
+    occluders = potential_occluders(scene, cfg)
+    if cfg.integrator == "mis":
+        hdr = render_mis_fused_sharded(scene, cfg, mesh, occluders=occluders)
+    else:
+        hdr = render_path_fused_sharded(scene, cfg, mesh,
+                                        occluders=occluders)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    elapsed = time.perf_counter() - start
+    primary = is_primary()
+    sync_hosts("rendered")
+    dist.destroy_process_group()
+    return (hdr if primary else None), elapsed
 
 
 if __name__ == "__main__":

@@ -243,8 +243,13 @@ def test_cli_direct_integrator_and_devices_flag(tmp_path):
                      "--kernel", "cuda", "--width", "16", "--height", "8",
                      "--spp", "1"]) == 0
     assert image.read_png(str(out)).shape == (8, 16, 3)
-    with pytest.raises(SystemExit, match="later slice"):
+    # --devices N>1 shards the fused paths only (test_torch_multihost.py
+    # renders with it).
+    with pytest.raises(SystemExit, match="requires --kernel decoupled"):
         cli.main([str(out), "--device", "cpu", "--devices", "2"])
+    with pytest.raises(SystemExit, match="requires --kernel decoupled"):
+        cli.main([str(out), "--device", "cpu", "--devices", "2",
+                  "--kernel", "decoupled", "--integrator", "legacy"])
 
 
 def test_png_round_trip(tmp_path):
@@ -296,7 +301,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "gpuraytracer_tpu_torch/native.py",
             "gpuraytracer_tpu_torch/utils/checkpoint.py",
             "gpuraytracer_tpu_torch/utils/debug.py",
-            "gpuraytracer_tpu_torch/utils/metrics.py"} <= names
+            "gpuraytracer_tpu_torch/utils/metrics.py",
+            "gpuraytracer_tpu_torch/parallel/__init__.py",
+            "gpuraytracer_tpu_torch/parallel/multihost.py",
+            "gpuraytracer_tpu_torch/parallel/mesh.py",
+            "gpuraytracer_tpu_torch/parallel/fast.py",
+            "gpuraytracer_tpu_torch/parallel/train.py"} <= names
     for path in files:
         found = pattern.findall(path.read_text())
         assert not found, f"{path}: {found}"
@@ -317,6 +327,7 @@ def test_importing_the_port_loads_no_jax():
         "assert not bad, bad\n"
         "assert 'gpuraytracer_tpu_torch.ops.cuda_mis_bwd' in sys.modules\n"
         "assert 'gpuraytracer_tpu_torch.ops.cuda_soft' in sys.modules\n"
+        "assert 'gpuraytracer_tpu_torch.parallel.fast' in sys.modules\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
