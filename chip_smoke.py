@@ -191,6 +191,36 @@ Phases
           grouped MIS backward launch each, counted; two more under
           ``torch.profiler``; the seconds of the phase, the paths and their
           rows are printed.
+  spheres the box with many small spheres (cornell-spheres with seeded
+          spheres of radii 0.05-0.2 inside the box, seed MANY_SPHERES_SEED):
+          box+300 (314 primitives, one added sphere emissive) stays on the
+          static tier, K3's block opted in past 48 KiB; on box+1000
+          (1,014) the routes that run a backward go to the grouped tier by
+          the table-size rule (``cuda_path.grouped_tier`` with the route's
+          plans: ``cuda_shade.fused_tier``, ``cuda_mis_bwd.fused_tier``),
+          and so does the path trace alone (K2's tables past
+          ``cuda_path.TRACE_ALONE_BYTES``); the MIS trace alone stays
+          static (K4's within ``cuda_mis.TRACE_ALONE_BYTES``). On each:
+          K1, K2 or K2g and K3 or K3g at 128 x 96 x 4 spp x 3 bounces, K4 or
+          K4g and K5 or K5g at 128 x 96 x 2 x 30 against their plain
+          versions, K4 and K4g timed on the same image, one
+          ``render_mis_decoupled`` step with gradients against autograd
+          through the replay of its records; on box+1000 the static K2
+          forced onto it gives K2g's images and records by sha256; a frame
+          of ``render_path_cuda`` at 800 x 600 x 16 spp x 3 bounces,
+          timed beside the same frame forced onto the other tier; four Adam
+          steps of ``inverse_render(fast=True)`` at 512 x 512 x 16 spp x 3
+          bounces, launches counted, then warm and under the profiler; K2, K3
+          (box+300), K2g, K3g (box+1000) rows at the fit's shape
+          (``tier_rows``, as paths K and L). The traces alone on both
+          tiers at TIER_SWEEP sphere counts (``tier_sweep``: the same
+          image, each one's time, the rule's tier). Then K3 on the in-view
+          probe scene (169 primitives, ``spheres_at_static_limit(in_view=
+          True)``): kernel and plain version each against the float64
+          evaluation, on
+          the whole frame and on the pixels whose paths meet no added
+          sphere (held to compare_grads), meet one with the camera ray, or
+          only later; and the light centre's cotangent lane by lane.
   sharded parallel/ over torch.distributed, after the rows: (a) pixel
           ranges in one process through the sharded functions' local halves
           at D's (4 ranges), K's and I's (2) shapes: the image equal to the
@@ -455,30 +485,77 @@ def tess_with_hidden_emitter(resolution):
     return dataclasses.replace(scene, spheres=spheres)
 
 
-# The most primitives K3's static tier takes with spheres: its tables fill
-# 48 KiB, and the staging rows take the block past it.
-STATIC_BWD_MAX_SPH = 169
+def static_bwd_max_sph() -> int:
+    """The most primitives K3's static tier takes with spheres, from its
+    plan: its tables and staging rows fill one block's shared memory (opted
+    in past 48 KiB)."""
+    prims = cuda_path.STATIC_TIER_MAX
+    while True:
+        try:
+            cuda_shade.static_smem_bytes(prims + 1, True)
+        except ValueError:
+            return prims
+        prims += 1
 
 
-def spheres_at_static_limit(resolution, in_view=False):
-    """cornell-spheres with seeded small spheres before its own two, to
-    STATIC_BWD_MAX_SPH primitives (the box's two spheres take the table's
-    last rows): inside the box, or by default behind its back wall, where no
-    ray reaches them."""
-    scene = cornell_box_with_spheres(resolution=resolution)
-    own = scene.spheres
-    n = STATIC_BWD_MAX_SPH - scene.triangles.num_triangles - own.center.shape[0]
-    rng = np.random.default_rng(STATIC_BWD_MAX_SPH)
+# PR 11's probe scene: cornell-spheres with 155 seeded spheres, 169
+# primitives (the static tier's limit until it opted in past 48 KiB).
+PROBE_PRIMS = 169
+
+
+def box_sphere_arrays(n, seed, radii, in_view=True, emissive=0):
+    """(centers [n, 3], radii [n], materials) of ``n`` spheres drawn from
+    ``seed`` with numpy, radii uniform in ``radii``: inside the box, or
+    behind its back wall where no ray reaches them. The first ``emissive``
+    of them emit. Plain numpy, so that the JAX package's scene and the
+    port's are built from the same numbers."""
+    rng = np.random.default_rng(seed)
     low, high = ((-2.2, -2.2, -2.2), (2.2, 2.0, 2.2)) if in_view else (
         (-2.0, -2.0, -4.0), (2.0, 2.0, -3.0))
-    extra = make_spheres(
-        centers=rng.uniform(low, high, (n, 3)), radii=rng.uniform(0.1, 0.3, n),
-        materials=[dict(diffuse=tuple(rng.uniform(0.2, 0.9, 3)),
-                        metallic=float(rng.uniform(0.0, 0.5)),
-                        roughness=float(rng.uniform(0.2, 0.8))) for _ in range(n)])
+    centers = rng.uniform(low, high, (n, 3))
+    radius = rng.uniform(*radii, n)
+    materials = [dict(diffuse=tuple(rng.uniform(0.2, 0.9, 3)),
+                      metallic=float(rng.uniform(0.0, 0.5)),
+                      roughness=float(rng.uniform(0.2, 0.8))) for _ in range(n)]
+    for m in materials[:emissive]:
+        m["emissive"] = BOX_SPHERE_EMISSION
+    return centers, radius, materials
+
+
+def with_box_spheres(resolution, n, seed, radii, in_view=True, emissive=0):
+    """cornell-spheres with ``box_sphere_arrays`` before its own two spheres
+    (the box's two take the table's last rows)."""
+    scene = cornell_box_with_spheres(resolution=resolution)
+    own = scene.spheres
+    extra = make_spheres(*box_sphere_arrays(n, seed, radii, in_view, emissive))
     return dataclasses.replace(scene, spheres=dataclasses.replace(own, **{
         f.name: torch.cat([getattr(extra, f.name), getattr(own, f.name)])
         for f in dataclasses.fields(own)}))
+
+
+def spheres_at_static_limit(resolution, in_view=False, prims=PROBE_PRIMS):
+    """cornell-spheres with spheres of radii 0.1-0.3 drawn from seed
+    ``prims``, to ``prims`` primitives: inside the box, or by default behind
+    its back wall, where no ray reaches them."""
+    n = prims - cornell_box_with_spheres(resolution=(1, 1)).triangles.num_triangles - 2
+    return with_box_spheres(resolution, n, prims, (0.1, 0.3), in_view)
+
+
+# The box with many small spheres (radii 0.05-0.2, seed MANY_SPHERES_SEED)
+# inside it: box+300 (314 primitives, one of the added spheres emissive)
+# stays on the static tier, its K3 block opted in to about 98 KB; box+1000
+# (1,014) goes to the grouped tier by the table-size rule (K3's static tables
+# would take about 300 KB, K5's 305-311 KB).
+MANY_SPHERES_SEED = 16
+MANY_SPHERES_RADII = (0.05, 0.2)
+BOX_SPHERE_EMISSION = (6.0, 5.0, 4.0)
+MANY_SPHERES = {"box+300": (300, 1), "box+1000": (1000, 0)}
+
+
+def box_with_many_spheres(name, resolution):
+    n, emissive = MANY_SPHERES[name]
+    return with_box_spheres(resolution, n, MANY_SPHERES_SEED,
+                            MANY_SPHERES_RADII, emissive=emissive)
 
 
 GROUPED_SCENES = {
@@ -1848,12 +1925,15 @@ def phase_small():
 
 def check_static_limit():
     """K3 at the most primitives its static tier takes with spheres, whose
-    block opts in past 48 KiB of shared memory, against its plain version;
-    the rows of the spheres behind the back wall stay 0."""
+    block fills one block's most of shared memory (opted in past 48 KiB),
+    against its plain version; the rows of the spheres behind the back wall
+    stay 0."""
     cfg = RenderConfig(**SMALL)
-    sh = ShadeInputs(None, cfg, scene=spheres_at_static_limit(cfg.resolution))
-    P, hidden = sh.table.shape[1], slice(12, STATIC_BWD_MAX_SPH - 2)
-    check(P == STATIC_BWD_MAX_SPH, f"the scene at the static limit has {P} primitives")
+    most = static_bwd_max_sph()
+    sh = ShadeInputs(None, cfg, scene=spheres_at_static_limit(
+        cfg.resolution, prims=most))
+    P, hidden = sh.table.shape[1], slice(12, most - 2)
+    check(P == most, f"the scene at the static limit has {P} primitives")
     smem, per_sm = shade_occupancy(sh, regenerate=False)
     check(smem > 48 * 1024, f"K3 at the static limit takes {smem} B")
     k, again = sh.kernel(), sh.kernel()
@@ -2964,61 +3044,74 @@ def phase_train():
                           device_busy_ms=busy_ms / 4)
 
 
-def phase_inverse():
-    """Path E: the inverse-rendering entry point on the sphere scene."""
-    cfg = RenderConfig(pixel_chunk=65536, **INVERSE)
-    steps = 20
-    log(f"== E: inverse_render(fast=True), sphere scene, {cfg.width}x"
-        f"{cfg.height} x {cfg.spp} spp x {cfg.bounces} bounces, {steps} Adam "
-        "steps")
-    scene = cornell_box_with_spheres(resolution=cfg.resolution)
+def inverse_fit(label, scene, cfg, steps, grouped=False):
+    """``inverse_render(fast=True)`` on ``scene`` from perturbed sphere
+    centres and albedo and light emission, ``steps`` Adam steps: the loss
+    must fall, one K2 and one K3 launch per step (K2g and K3g where
+    ``grouped``), counted; then the same fit warm, and under the profiler
+    for the card's busy share and K2's and K3's device time."""
+    trace = f"path_kernel{'_grouped' * grouped}"
+    shade = f"shade_bwd{'_grouped' * grouped}_kernel"
+    log(f"== {label}: inverse_render(fast=True), {cfg.width}x{cfg.height} x "
+        f"{cfg.spp} spp x {cfg.bounces} bounces, {steps} Adam steps")
     true = inverse.extract_params(scene)
     target = inverse.render_hdr(scene, cfg)
     init = inverse.SceneParams(
         sphere_centers=true.sphere_centers + 0.05,
         sphere_diffuse=true.sphere_diffuse * 0.8,
         light_emission=true.light_emission * 1.2)
+
+    def fit(n):
+        result = inverse.inverse_render(scene, target, init, cfg, steps=n,
+                                        learning_rate=1e-2, fast=True)
+        torch.cuda.synchronize()
+        return result
+
     reset_launches()
     torch.cuda.synchronize()
     start = time.perf_counter()
-    result = inverse.inverse_render(scene, target, init, cfg, steps=steps,
-                                    learning_rate=1e-2, fast=True)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - start
+    result = fit(steps)
+    first_ms = 1e3 * (time.perf_counter() - start) / steps
     launches = read_launches()
     losses = result.losses.cpu()
-    check(losses.shape == (steps,) and bool(torch.isfinite(losses).all()),
-          f"path E: losses {losses.tolist()}")
-    check(losses[-1].item() < losses[0].item(),
-          f"path E: the loss did not fall: {losses.tolist()}")
+    check(losses.shape == (steps,) and bool(torch.isfinite(losses).all())
+          and losses[-1].item() < losses[0].item(),
+          f"{label}: losses {losses.tolist()}")
     for name, value in zip(result.params._fields, result.params):
-        check(bool(torch.isfinite(value).all()), f"path E: {name} not finite")
-    check(launches == launches_of(draws_kernel=1, path_kernel=steps,
-                                  shade_bwd_kernel=steps),
-          f"path E: launches {launches}")
-    log(f"  path E: loss {losses[0].item():.4e} -> {losses[-1].item():.4e} "
-        f"in {steps} steps, {1e3 * seconds / steps:.2f} ms per step (host "
-        f"clock, hoisting and warm-up included); launches {launches}")
-
+        check(bool(torch.isfinite(value).all()), f"{label}: {name} not finite")
+    check(launches == launches_of(draws_kernel=1, **{trace: steps,
+                                                     shade: steps}),
+          f"{label}: launches {launches}")
     # The same fit again, warm: the steady step time, and how much of it the
     # card is busy (launches made here are not the main path's count).
-    def fit(n):
-        inverse.inverse_render(scene, target, init, cfg, steps=n,
-                               learning_rate=1e-2, fast=True)
-        torch.cuda.synchronize()
-
     start = time.perf_counter()
     fit(steps)
-    steady_ms = 1e3 * (time.perf_counter() - start) / steps
+    warm_ms = 1e3 * (time.perf_counter() - start) / steps
     wall_ms, busy_ms, top = device_busy(lambda: fit(steps))
     share = f"{busy_ms / wall_ms:.1%}" if busy_ms else "not measured"
-    log(f"  path E, warm: {steady_ms:.2f} ms per step; under the profiler "
+    # Device time by the kernels' names (the launch counts' keys differ).
+    k2_ms, k3_ms = (profiled_ms(k) / steps for k in (
+        "path_grouped_kernel" if grouped else "path_kernel<", shade + "<"))
+    check(k2_ms > 0.0 and k3_ms > 0.0, f"{label}: the profiler saw no K2 or "
+          f"K3 ({k2_ms} / {k3_ms} ms)")
+    log(f"  {label}: loss {losses[0].item():.4e} -> {losses[-1].item():.4e}; "
+        f"{first_ms:.2f} ms per step (host clock, hoisting and warm-up "
+        f"included), {warm_ms:.2f} warm; under the profiler "
         f"{wall_ms / steps:.2f} ms per step of which the card is busy "
         f"{busy_ms / steps:.3f} ms ({share}); most device time: "
-        + ", ".join(f"{name} {ms / steps:.3f} ms" for name, ms in top))
-    return launches, dict(first_call_ms=1e3 * seconds / steps,
-                          warm_ms=steady_ms, profiled_ms=wall_ms / steps,
-                          device_busy_ms=busy_ms / steps)
+        + ", ".join(f"{name} {ms / steps:.3f} ms" for name, ms in top)
+        + f"; launches {launches}")
+    return launches, dict(first_call_ms=first_ms, warm_ms=warm_ms,
+                          profiled_ms=wall_ms / steps,
+                          device_busy_ms=busy_ms / steps,
+                          k2_device_ms=k2_ms, k3_device_ms=k3_ms)
+
+
+def phase_inverse():
+    """Path E: the inverse-rendering entry point on the sphere scene."""
+    cfg = RenderConfig(pixel_chunk=65536, **INVERSE)
+    return inverse_fit("path E", cornell_box_with_spheres(
+        resolution=cfg.resolution), cfg, steps=20)
 
 
 # ---------------------------------------------------------------------------
@@ -3929,63 +4022,75 @@ def phase_grouped_path(label, scene_kw, steps):
         peak_gib=peak)
 
 
-def grouped_rows(launches, resources):
-    """K2g and K3g at the shapes of paths K and L, as those paths launch them
-    (records, draws read, occluder cull): against their plain versions, their
-    times, their bounds."""
+def tier_rows(launches, resources, cases):
+    """K2 / K2g and K3 / K3g rows at 512 x 512 x 16 spp x 3 bounces, as a
+    path launches them (records, draws read, occluder cull): against their
+    plain versions, their times, their bounds. ``cases``: (label, scene,
+    grouped, stride, sphere_slack) — the path's label in ``launches``, its
+    scene, the tier, every how many pixels the trace's plain version runs
+    (it is launch-bound: a Python loop over the groups takes about a second
+    per sample-bounce step at 12,802 triangles, whatever the lane count;
+    its counts of box and triangle tests, scaled to the frame, give K2g's
+    bound) and the cull's sphere slack."""
     rows = []
-    cfg = RenderConfig(**BENCH)
+    cfg = RenderConfig(pixel_chunk=65536, **BENCH)
     n = cfg.num_pixels
-    for label, kw in (("K", TESS_K), ("L", TESS_L)):
-        scene = cornell_box_tessellated(resolution=cfg.resolution, **kw)
-        inp = TraceInputs(None, cfg, cull=True, grouped=True, scene=scene)
+    for label, scene, grouped, stride, slack in cases:
+        g = "g" if grouped else ""
+        inp = TraceInputs(None, cfg, cull=True, grouped=grouped, scene=scene,
+                          sphere_slack=slack)
         shape = (f"{label}: 512x512 x 16 spp x 3 bounces, {inp.num_tris} "
-                 f"triangles, {inp.packed.grouped.num_shadow} in the shadow "
-                 "table")
+                 f"triangles" + (f", {inp.packed.num_spheres} spheres"
+                                 if inp.packed.num_spheres > 2 else "")
+                 + (f", {inp.packed.grouped.num_shadow} in the shadow table"
+                    if grouped else ""))
         draws = cuda_path.pregen_draws_kernel(inp.offsets_i32, cfg)
         hdr_k, rec_k = inp.kernel(draws, emit=True)
         _, rec_r = inp.kernel(emit=True)
         torch.cuda.synchronize()
-        check(torch.equal(rec_k, rec_r), f"K2g at {label}: draws read and "
+        check(torch.equal(rec_k, rec_r), f"K2{g} at {label}: draws read and "
               "draws regenerated give different records")
         del rec_r
-        # The plain sweep on the whole frame at K; at L, where its Python
-        # loop over 101 supers and 808 groups takes about a second per
-        # sample-bounce step whatever the lane count, on every
-        # L_PIXEL_STRIDE-th pixel of the frame, in one call. Its counts of
-        # box and triangle tests, scaled to the frame, give the bound.
-        pix = torch.arange(0, n, 1 if label == "K" else L_PIXEL_STRIDE,
-                           device="cuda")
+        pix = torch.arange(0, n, stride, device="cuda")
         sampled = pix.numel()
         stats = {}
         torch.cuda.synchronize()
         start = time.perf_counter()
         hdr_p, rec_p = cuda_path.render_path_plain(
-            inp.offsets[pix], 0 if label == "K" else pix, inp.packed,
+            inp.offsets[pix], 0 if stride == 1 else pix, inp.packed,
             inp.shadow_idx, [d[..., pix] for d in draws],
-            cfg.replace(pixel_chunk=sampled), True, stats)
+            cfg.replace(pixel_chunk=sampled), True,
+            stats if grouped else None)
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - start)
         flips, err = compare_trace(
-            f"K2g at {label} ({sampled} pixels)", hdr_k[:, pix],
+            f"K2{g} at {label} ({sampled} pixels)", hdr_k[:, pix],
             rec_k[..., pix], hdr_p, rec_p, inp.packed)
         del hdr_p, rec_p
         k_ms = time_ms(lambda: inp.kernel(draws, emit=True))
         h_ms = time_ms(lambda: inp.kernel(), repeats=3)
-        bound, by, counts = grouped_trace_bound(inp, rec_k, stats,
-                                                n / sampled, True, True)
-        h_bound, h_by, h_counts = grouped_trace_bound(
-            inp, rec_k, stats, n / sampled, False, False)
-        wide = int(inp.packed.grouped.sup.shape[1] > cuda_path.WIDE_SUPERS)
+        if grouped:
+            bound, by, counts = grouped_trace_bound(inp, rec_k, stats,
+                                                    n / sampled, True, True)
+            h_bound, h_by, h_counts = grouped_trace_bound(
+                inp, rec_k, stats, n / sampled, False, False)
+            wide = int(inp.packed.grouped.sup.shape[1] > cuda_path.WIDE_SUPERS)
+            trace, template = "path_grouped_kernel", f", WIDE={wide}>"
+        else:
+            shares = k2_prefilter_shares(inp)
+            bound, by, counts = trace_bound(inp, rec_k, shares, True, True)
+            h_bound, h_by, h_counts = trace_bound(inp, rec_k, shares, False,
+                                                  False)
+            trace, template = "path_kernel", ">"
         smem, per_sm = path_occupancy(inp, True, True)
         _, h_per_sm = path_occupancy(inp, False, False)
-        h_res = resources[f"path_grouped_kernel<EMIT=0, READ_DRAWS=0, "
-                          f"WIDE={wide}>"]
+        h_res = resources[f"{trace}<EMIT=0, READ_DRAWS=0{template}"]
+        suffix = f", {label}" if inp.packed.num_spheres > 2 else ""
         rows.append(dict(
-            name="path_grouped_kernel[emit_records, draws read, occluder "
-                 "cull]", route="cuda", source=PATH_SOURCE,
-            replaces=K2G_REPLACES, shape=shape,
-            launches=launches[label]["path_kernel_grouped"],
+            name=f"{trace}[emit_records, draws read, occluder cull{suffix}]",
+            route="cuda", source=PATH_SOURCE,
+            replaces=K2G_REPLACES if grouped else K2_REPLACES, shape=shape,
+            launches=launches[label][f"path_kernel{'_grouped' * grouped}"],
             launches_per_step=1, max_abs_err=err, flip_share=flips,
             ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2], plain_ms=plain_ms,
             plain_pixels=sampled, bound_ms=bound, bound_by=by,
@@ -3994,56 +4099,487 @@ def grouped_rows(launches, resources):
             hdr_registers=h_res["registers"],
             hdr_stack_bytes=h_res["stack_bytes"], hdr_blocks_per_sm=h_per_sm,
             mrays_per_s=mrays_per_s(cfg, k_ms[1] / 1e3), smem_bytes=smem,
-            blocks_per_sm=per_sm, wide_sweep=bool(wide),
+            blocks_per_sm=per_sm, **({"wide_sweep": bool(wide)} if grouped
+                                     else {}),
             **resource_fields(resources[
-                f"path_grouped_kernel<EMIT=1, READ_DRAWS=1, WIDE={wide}>"]),
+                f"{trace}<EMIT=1, READ_DRAWS=1{template}"]),
             **counts))
-        log(f"  K2g at {label}: plain sweep on {sampled} pixels "
+        log(f"  K2{g} at {label}: plain version on {sampled} pixels "
             f"{plain_ms:.0f} ms; {counts}; hdr mode {h_ms[1]:.3f} ms, bound "
             f"{h_bound:.3f} ms by {h_by} ({h_counts}); {smem} B shared, "
             f"{per_sm} blocks per SM ({h_per_sm} in hdr mode)")
         del hdr_k, rec_k, draws, inp
         torch.cuda.empty_cache()
 
-        sh = ShadeInputs(None, cfg, grouped=True, scene=scene)
+        sh = ShadeInputs(None, cfg, grouped=grouped, scene=scene)
         got, again = sh.kernel(), sh.kernel()
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
-              f"K3g at {label}: two launches differ")
+              f"K3{g} at {label}: two launches differ")
         start = time.perf_counter()
         ref = sh.plain()
         torch.cuda.synchronize()
         p_ms = 1e3 * (time.perf_counter() - start)
-        err = compare_grads(f"K3g at {label}", got, ref,
+        err = compare_grads(f"K3{g} at {label}", got, ref,
                             nudged=sh.plain(nudge=True))
         k_ms = time_ms(lambda: sh.kernel())
         r_ms = time_ms(lambda: sh.kernel(regenerate=True), repeats=3)
         (bound, by), iters = shade_bound(sh, False)
         (r_bound, r_by), _ = shade_bound(sh, True)
         smem, per_sm = shade_occupancy(sh, False)
-        res = resources["shade_bwd_grouped_kernel<SPH=0, RNG=0>"]
+        shade = f"shade_bwd{'_grouped' * grouped}_kernel"
+        sph = int(sh.table.shape[0] == cuda_shade.NROWS_TAB_SPH)
+        res = resources[f"{shade}<SPH={sph}, RNG=0>"]
         rows.append(dict(
-            name="shade_bwd_grouped_kernel[draws read]", route="cuda",
-            source=SHADE_SOURCE, replaces=K3G_REPLACES, shape=shape,
-            launches=launches[label]["shade_bwd_grouped_kernel"],
+            name=f"{shade}[draws read{suffix}]", route="cuda",
+            source=SHADE_SOURCE,
+            replaces=K3G_REPLACES if grouped else SHADE_REPLACES,
+            shape=shape, launches=launches[label][shade],
             max_abs_err=err, ms=k_ms[1], ms_min=k_ms[0], ms_max=k_ms[2],
             plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=None,
             regenerated_ms=r_ms[1], regenerated_bound_ms=r_bound,
             regenerated_bound_by=r_by, live_iterations=iters,
             smem_bytes=smem, blocks_per_sm=per_sm,
             regenerated_blocks_per_sm=shade_occupancy(sh, True)[1],
-            registers=res["registers"], stack_bytes=res["stack_bytes"],
-            spill_store_bytes=res["spill_store_bytes"],
-            spill_load_bytes=res["spill_load_bytes"]))
+            **resource_fields(res)))
         del sh, ref, got, again
         torch.cuda.empty_cache()
     for row in rows:
         log(f"  {row['name']} @ {row['shape']}: kernel {row['ms']:.3f} ms "
             f"(min {row['ms_min']:.3f}, max {row['ms_max']:.3f}), bound "
-            f"{row['bound_ms']:.3f} ms by {row['bound_by']}, plain "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']}, plain "
             f"{row['plain_ms']:.1f} ms, launches {row['launches']}, "
-            f"{row['registers']} registers, {row['stack_bytes']} B stack")
+            f"{row['smem_bytes']} B shared, {row['blocks_per_sm']} blocks "
+            f"per SM, {row['registers']} registers, {row['stack_bytes']} B "
+            "stack")
     return rows
+
+
+def grouped_rows(launches, resources):
+    """K2g and K3g at the shapes of paths K and L: the plain sweep on the
+    whole frame at K, on every L_PIXEL_STRIDE-th pixel at L."""
+    res = (BENCH["width"], BENCH["height"])
+    return tier_rows(launches, resources, [
+        (label, cornell_box_tessellated(resolution=res, **kw), True, stride,
+         0.0)
+        for label, kw, stride in (("K", TESS_K, 1),
+                                  ("L", TESS_L, L_PIXEL_STRIDE))])
+
+
+# ---------------------------------------------------------------------------
+# Phase spheres: the box with many small spheres, and the tier rule by table
+# size
+# ---------------------------------------------------------------------------
+
+SPHERES_FRAME = dict(width=800, height=600, spp=16, bounces=3)
+SPHERES_STEPS = 4
+MIS_SPHERES = dict(width=128, height=96, camera_rays=2, mis_samples=30)
+# The traces alone on both tiers across sphere counts: where the grouped
+# kernel overtakes the static one (cuda_path / cuda_mis.TRACE_ALONE_BYTES).
+TIER_SWEEP = (300, 450, 600, 778, 1000, 1500)
+MIS_SWEEP = dict(width=256, height=192, camera_rays=2, mis_samples=30)
+# The tier the rule takes for each scene, on the path and the MIS route.
+SPHERES_GROUPED = {"box+300": False, "box+1000": True}
+
+
+# On a scene with small spheres in view K3's float32 cotangents are
+# ill-conditioned on the lanes whose camera ray meets a small sphere: there
+# every lane's float32 cotangent lies 4-11 % of its size from the float64
+# evaluation, in the kernel and the plain version alike, through the sphere
+# quadratic's float32 arithmetic (tools/sphere_conditioning.py; PERF.md §6).
+# At 128 x 96 K3 is held to compare_grads on the pixels whose paths meet
+# none of the small spheres, and its whole frame's distances are printed; at
+# 512 x 512 (the rows) compare_grads holds on the whole frame.
+
+
+def with_cotangent(sh: ShadeInputs, g, fn):
+    """``fn()`` with ``sh``'s cotangent replaced by ``g``."""
+    kept, sh.g = sh.g, g
+    try:
+        return fn()
+    finally:
+        sh.g = kept
+
+
+def shade_split(sh: ShadeInputs, keep):
+    """Kernel, plain version, float64 evaluation and the plain version on
+    nudged draws, each by ``grad_groups``, for the cotangent of the pixels
+    ``keep`` alone."""
+    return tuple(grad_groups(*x) for x in with_cotangent(
+        sh, sh.g * keep.float(), lambda: (sh.kernel(), sh.plain(), sh.exact(),
+                                          sh.plain(nudge=True))))
+
+
+def split_distances(k, p, e, m):
+    """Per group, over the float64 evaluation's largest magnitude: kernel
+    and plain version from it, from each other, and how far the one-ulp
+    nudge moves the plain version."""
+    out = {}
+    for name, r in e.items():
+        scale = r.abs().max().item() or 1.0
+        out[name] = dict(
+            scale=scale,
+            kernel_f64=(k[name].double() - r).abs().max().item() / scale,
+            plain_f64=(p[name].double() - r).abs().max().item() / scale,
+            kernel_plain=(k[name] - p[name]).abs().max().item() / scale,
+            nudge=(m[name] - p[name]).abs().max().item() / scale)
+    return out
+
+
+def meets_added(sh: ShadeInputs, first: int, count: int):
+    """[n] pixels whose paths meet one of the primitives first .. first +
+    count (any sample, any bounce)."""
+    prim = (sh.records & (cuda_path.OCC_BIT - 1)).long() - 1
+    return ((prim >= first) & (prim < first + count)).any(dim=0).any(dim=0)
+
+
+def check_shade_small_spheres(tag, sh: ShadeInputs, first: int, count: int):
+    """K3 or K3g on a scene whose primitives first .. first + count are small
+    spheres in view: compare_grads on the pixels clear of them; the whole
+    frame's distances from the float64 evaluation printed. Returns (the
+    largest difference on the clear pixels, the whole frame's
+    distances)."""
+    clear = ~meets_added(sh, first, count)
+    k, p, _, m = with_cotangent(sh, sh.g * clear.float(), lambda: (
+        sh.kernel(), sh.plain(), None, sh.plain(nudge=True)))
+    err = compare_grads(f"{tag}, the {int(clear.sum())} pixels clear of the "
+                        "added spheres", k, p, nudged=m)
+    dist = split_distances(*shade_split(sh, torch.ones_like(clear)))
+    log(f"  {tag}, whole frame, distance over the group's largest magnitude, "
+        "kernel-f64 / plain-f64 / kernel-plain (one-ulp nudge): " + ", ".join(
+            f"{n} {v['kernel_f64']:.1e} / {v['plain_f64']:.1e} / "
+            f"{v['kernel_plain']:.1e} ({v['nudge']:.1e})"
+            for n, v in dist.items()))
+    return err, dist
+
+
+def spheres_small(name):
+    """The kernels the rule takes for ``name`` against their plain versions:
+    K1, K2 or K2g and K3 or K3g at 128 x 96 x 4 spp x 3 bounces, K4 or K4g
+    and K5 or K5g at 128 x 96 x 2 x 30, and one ``render_mis_decoupled``
+    step with gradients against autograd through the replay of its records;
+    on box+1000 the static K2, forced onto it (its block opted in past 48
+    KiB), gives K2g's images and records by sha256. Returns the largest
+    differences and the static blocks' shared memory and blocks per SM."""
+    cfg = RenderConfig(**SMALL)
+    scene = box_with_many_spheres(name, cfg.resolution)
+    grouped = SPHERES_GROUPED[name]
+    g = "g" if grouped else ""
+    check(cuda_shade.fused_tier(scene) == grouped,
+          f"{name}: the fused path route's tier is not "
+          f"{'grouped' if grouped else 'static'}")
+    check(cuda_path.grouped_tier(scene, cuda_path.trace_plan(
+        scene, alone=True)) == grouped, f"{name}: the path trace alone does "
+          "not take the fused route's tier")
+    log(f"== spheres {name}: {scene.spheres.num_spheres} spheres, the "
+        f"{'grouped' if grouped else 'static'} tier, kernels against their "
+        f"plain versions at {cfg.width} x {cfg.height} x {cfg.spp} spp x "
+        f"{cfg.bounces} bounces")
+    out = {}
+    inp = TraceInputs(None, cfg, cull=True, grouped=grouped, scene=scene)
+    full = TraceInputs(None, cfg, cull=False, grouped=grouped, scene=scene)
+    draws = cuda_path.pregen_draws_kernel(inp.offsets_i32, cfg)
+    compare_draws(f"K1 {name}", draws,
+                  cuda_path.pregen_draws_plain(inp.offsets, cfg))
+    hdr_h, _ = full.kernel()
+    hdr_e, rec_e = inp.kernel(draws, emit=True)
+    hdr_r, rec_r = full.kernel(emit=True)
+    torch.cuda.synchronize()
+    check(torch.equal(hdr_h, hdr_e) and torch.equal(hdr_h, hdr_r),
+          f"K2{g} {name}: the three modes do not give the same image")
+    hdr_p, rec_p = inp.plain(draws, emit=True)
+    out[f"K2{g}"] = compare_trace(f"K2{g} {name} emit+draws+cull", hdr_e,
+                                  rec_e, hdr_p, rec_p, inp.packed)[1]
+    hdr_q, rec_q = full.plain(emit=True)
+    compare_trace(f"K2{g} {name} records_only", hdr_r, rec_r, hdr_q, rec_q,
+                  inp.packed)
+    emissive = int((inp.packed.atab[9] > 0.5).sum())
+    smem, per_sm = path_occupancy(inp, True, True)
+    out[f"K2{g} smem_bytes"], out[f"K2{g} blocks_per_sm"] = smem, per_sm
+    log(f"  K2{g} {name}: {emissive} emissive primitives, {smem} B shared, "
+        f"{per_sm} blocks per SM")
+    if grouped:
+        st = TraceInputs(None, cfg, cull=True, scene=scene)
+        for d, emit in ((None, False), (draws, True), (None, True)):
+            h_s, r_s = st.kernel(d, emit)
+            h_g, r_g = inp.kernel(d, emit)
+            same = sha256(h_s) == sha256(h_g) and (
+                not emit or sha256(r_s) == sha256(r_g))
+            check(same, f"K2 forced onto {name} (emit {emit}, draws "
+                  f"{d is not None}): not K2g's bits")
+        smem, per_sm = path_occupancy(st, True, True)
+        out["K2 forced smem_bytes"], out["K2 forced blocks_per_sm"] = smem, per_sm
+        log(f"  K2 forced onto {name} ({smem} B shared, opted in, {per_sm} "
+            "blocks per SM): images and records equal to K2g's by sha256 in "
+            "the three modes")
+        del st
+    del inp, full, draws, hdr_h, hdr_e, rec_e, hdr_r, rec_r, hdr_p, rec_p
+    del hdr_q, rec_q
+
+    sh = ShadeInputs(None, cfg, grouped=grouped, scene=scene)
+    k_read, k_again = sh.kernel(), sh.kernel()
+    k_regen = sh.kernel(regenerate=True)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(k_read, k_again)),
+          f"K3{g} {name}: two launches on the same inputs differ")
+    out[f"K3{g}"], out[f"K3{g} whole frame"] = check_shade_small_spheres(
+        f"K3{g} {name} draws read", sh, sh.trace.num_tris,
+        MANY_SPHERES[name][0])
+    compare_grads(f"K3{g} {name} regenerated vs read", k_regen, k_read,
+                  MODES_ATOL, MODES_RTOL, MODES_RTOL)
+    smem, per_sm = shade_occupancy(sh, False)
+    out[f"K3{g} smem_bytes"], out[f"K3{g} blocks_per_sm"] = smem, per_sm
+    log(f"  K3{g} {name}: {smem} B shared, {per_sm} blocks per SM")
+    del sh, k_read, k_again, k_regen
+
+    mcfg = RenderConfig(integrator="mis", **MIS_SPHERES)
+    occluders = potential_occluders(scene, mcfg)
+    check(cuda_mis_bwd.fused_tier(scene, mcfg.mis_samples, occluders)
+          == grouped, f"{name}: the fused MIS route's tier is not the path "
+          "route's")
+    check(not cuda_path.grouped_tier(scene, cuda_mis.mis_plan(
+        scene, occluders, mcfg.mis_samples, alone=True)),
+          f"{name}: the MIS trace alone is not static")
+    tag = (f"{name} {mcfg.width}x{mcfg.height} x {mcfg.camera_rays} x "
+           f"{mcfg.mis_samples}")
+    mi = MisInputs(None, mcfg, cull=True, grouped=grouped, scene=scene)
+    hdr_k, rec_k = mi.kernel(emit=True)
+    hdr_p, rec_p = mi.plain(emit=True)
+    out[f"K4{g}"] = compare_mis(f"K4{g} {tag}", hdr_k, rec_k, hdr_p, rec_p,
+                                mi.packed)[1]
+    # The forward route's tier (K4 alone) against the other, hdr mode: the
+    # same image, and each one's time.
+    other = MisInputs(None, mcfg, cull=True, grouped=not grouped, scene=scene)
+    check(sha256(mi.kernel()[0]) == sha256(other.kernel()[0]),
+          f"K4 and K4g on {tag}: different images")
+    for label, inputs in (("K4g" if grouped else "K4", mi),
+                          ("K4" if grouped else "K4g", other)):
+        out[f"{label} hdr ms"] = time_ms(lambda: inputs.kernel(), repeats=3)[1]
+    log(f"  {tag} hdr mode, the same image on both tiers: K4 "
+        f"{out['K4 hdr ms']:.3f} ms, K4g {out['K4g hdr ms']:.3f} ms")
+    del mi, other, hdr_k, rec_k, hdr_p, rec_p
+    bw = MisBwdInputs(None, mcfg, grouped=grouped, scene=scene)
+    got, again = bw.kernel(), bw.kernel()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"K5{g} {tag}: two launches on the same inputs differ")
+    out[f"K5{g}"] = compare_k5(f"K5{g} {tag}", got, bw.plain(),
+                               bw.plain(nudge=True))
+    del bw, got, again
+
+    # One step of the MIS entry point with gradients, against autograd
+    # through the replay of the same records.
+    leaves = with_grad(scene)
+    reset_launches()
+    got = scene_grads(leaves, cuda_mis_bwd.render_mis_decoupled(
+        leaves, mcfg, occluders=occluders))
+    torch.cuda.synchronize()
+    launched = read_launches()
+    expect = launches_of(**{f"mis_kernel{'_grouped' if grouped else ''}": 1,
+                            f"mis_bwd{'_grouped' if grouped else ''}_kernel": 1})
+    check(launched == expect, f"render_mis_decoupled on {name}: launches "
+          f"{launched}")
+    ref_scene = with_grad(scene)
+    _, rec = cuda_mis.render_mis_cuda_impl(ref_scene.detach(), mcfg,
+                                           emit_records=True,
+                                           occluders=occluders)
+    views = cuda_mis_bwd._pack_diff_inputs_mis(ref_scene, mcfg)
+    replay = cuda_mis_bwd.replay_mis(*views, rec,
+                                     cuda_mis.sample_table(mcfg).cuda(), mcfg)
+    ref = scene_grads(ref_scene, replay.T.reshape(mcfg.height, mcfg.width, 3))
+    check(set(got) == set(ref) and len(ref) >= 12,
+          f"gradient groups {sorted(got)} against {sorted(ref)}")
+    parts, worst = [], 0.0
+    for key, r in ref.items():
+        scale = r.abs().max().item()
+        err = (got[key] - r).abs().max().item()
+        check(bool(torch.isfinite(got[key]).all()), f"{key}: not finite")
+        check(err <= GRAD_ATOL * max(scale, 1.0) + GRAD_RTOL * scale,
+              f"render_mis_decoupled on {name}: d {key} differs from "
+              f"autograd through the replay by {err:.3e} (largest magnitude "
+              f"{scale:.3e})")
+        parts.append(f"{key} {err / max(scale, 1.0):.1e}")
+        worst = max(worst, err)
+    out["K5 path"] = worst
+    log(f"  render_mis_decoupled step on {tag} (K4{g} + K5{g}, one launch "
+        "each) vs autograd through the replay, largest difference over "
+        "max(largest magnitude, 1): " + ", ".join(parts))
+    torch.cuda.empty_cache()
+    return out
+
+
+def spheres_paths(name):
+    """The scene's paths at full width: a frame of ``render_path_cuda`` at
+    800 x 600 x 16 spp x 3 bounces (timed, beside the same frame forced onto
+    the other tier: the same image), then SPHERES_STEPS Adam steps of
+    ``inverse_render(fast=True)`` at 512 x 512 x 16 spp x 3 bounces from
+    perturbed centers, albedo and emission (one K2 or K2g and one K3 or K3g
+    launch per step, counted), then the fit again warm and under the
+    profiler."""
+    grouped = SPHERES_GROUPED[name]
+    trace = f"path_kernel{'_grouped' * grouped}"
+    fcfg = RenderConfig(**SPHERES_FRAME)
+    scene = box_with_many_spheres(name, fcfg.resolution)
+    log(f"== spheres {name}: render_path_cuda at {fcfg.width}x{fcfg.height} "
+        f"x {fcfg.spp} spp x {fcfg.bounces} bounces")
+    reset_launches()
+    hdr = cuda_path.render_path_cuda(scene, fcfg)
+    torch.cuda.synchronize()
+    launched = read_launches()
+    check(launched == launches_of(**{trace: 1}),
+          f"{name} frame: launches {launched}")
+    mean = hdr.mean(dim=(0, 1)).tolist()
+    check(hdr.shape == (fcfg.height, fcfg.width, 3)
+          and bool(torch.isfinite(hdr).all()) and min(mean) > 0.0,
+          f"{name} frame: mean radiance {mean}")
+    other = cuda_path.render_path_cuda_impl(scene, fcfg, grouped=not grouped)
+    check(sha256(hdr) == sha256(other), f"{name} frame: K2's and K2g's "
+          "images differ")
+    frame_ms = time_ms(lambda: cuda_path.render_path_cuda(scene, fcfg),
+                       repeats=3)
+    other_ms = time_ms(lambda: cuda_path.render_path_cuda_impl(
+        scene, fcfg, grouped=not grouped), repeats=3)
+    tiers = ("K2g", "K2") if grouped else ("K2", "K2g")
+    log(f"  {name} frame: {tiers[0]} (the rule's) {frame_ms[1]:.2f} ms (min "
+        f"{frame_ms[0]:.2f}, max {frame_ms[2]:.2f}), forced onto {tiers[1]} "
+        f"{other_ms[1]:.2f} ms (min {other_ms[0]:.2f}, max {other_ms[2]:.2f}),"
+        " the same image; CUDA events around the entry, packing included; "
+        f"mean radiance {[round(v, 4) for v in mean]}")
+    del hdr, other
+
+    cfg = RenderConfig(pixel_chunk=65536, **BENCH)
+    launches, fit = inverse_fit(f"spheres {name}", box_with_many_spheres(
+        name, cfg.resolution), cfg, SPHERES_STEPS, grouped)
+    return launches, dict(frame_ms=frame_ms[1], frame_ms_min=frame_ms[0],
+                          frame_ms_max=frame_ms[2],
+                          frame_other_tier_ms=other_ms[1],
+                          frame_other_tier_ms_min=other_ms[0],
+                          frame_other_tier_ms_max=other_ms[2], **fit)
+
+
+def tier_sweep():
+    """K2 against K2g (``render_path_cuda_impl``, 800 x 600 x 16 spp x 3
+    bounces) and K4 against K4g (``render_mis_cuda_impl``, 256 x 192 x 2 x
+    30), hdr mode, on the box with TIER_SWEEP small spheres: the same image
+    on both tiers, each one's time, the static block's tables, and the tier
+    the trace-alone rule takes."""
+    fcfg = RenderConfig(**SPHERES_FRAME)
+    mcfg = RenderConfig(integrator="mis", **MIS_SWEEP)
+    log("== spheres: the traces alone on both tiers, 800 x 600 x 16 spp x 3 "
+        "bounces (K2) and 256 x 192 x 2 x 30 (K4)")
+    out = {}
+    for n in TIER_SWEEP:
+        scene = with_box_spheres(fcfg.resolution, n, MANY_SPHERES_SEED,
+                                 MANY_SPHERES_RADII)
+        row = {}
+        for label, render, cfg, plan in (
+                ("K2", cuda_path.render_path_cuda_impl, fcfg,
+                 lambda alone: cuda_path.trace_plan(scene, alone=alone)),
+                ("K4", cuda_mis.render_mis_cuda_impl, mcfg,
+                 lambda alone: cuda_mis.mis_plan(scene, None,
+                                                 mcfg.mis_samples, alone))):
+            images = [render(scene, cfg, grouped=g) for g in (False, True)]
+            check(sha256(images[0]) == sha256(images[1]),
+                  f"{label} and {label}g on {n} spheres: different images")
+            for g in (False, True):
+                row[f"{label}{'g' * g} ms"] = time_ms(
+                    lambda: render(scene, cfg, grouped=g), repeats=3)[1]
+            smem_bytes, args = plan(False)
+            row[f"{label} smem_bytes"] = smem_bytes(*args)
+            row[f"{label} rule"] = (f"{label}g" if cuda_path.grouped_tier(
+                scene, plan(True)) else label)
+        out[n] = row
+        log(f"  {n} spheres: " + ", ".join(
+            f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items()))
+    return out
+
+
+def k3_in_view_split():
+    """K3 on the in-view probe scene (``spheres_at_static_limit(in_view=
+    True)``, 169 primitives, 128 x 96 x 4 spp x 3 bounces): the kernel and
+    the plain version each against the float64 evaluation of the same
+    records and draws, group by group, on the whole frame and on the lanes
+    of the pixels whose paths meet no added sphere, meet one with the
+    camera ray, or meet one only at a later bounce; then the light centre's
+    cotangent lane by lane (plain version, float32 and float64)."""
+    cfg = RenderConfig(**SMALL)
+    scene = spheres_at_static_limit(cfg.resolution, in_view=True)
+    log(f"== spheres: K3 split on the in-view scene, {PROBE_PRIMS} primitives, "
+        f"{cfg.width} x {cfg.height} x {cfg.spp} spp x {cfg.bounces} bounces")
+    sh = ShadeInputs(None, cfg, scene=scene)
+    first, count = sh.trace.num_tris, PROBE_PRIMS - sh.trace.num_tris - 2
+    result = {}
+    result["clear_max_abs_err"], result["whole frame"] = \
+        check_shade_small_spheres("K3 in view", sh, first, count)
+    prim = (sh.records & (cuda_path.OCC_BIT - 1)).long() - 1
+    added = (prim >= first) & (prim < first + count)
+    camera = added[:, 0].any(dim=0)
+    later = added.any(dim=1).any(dim=0) & ~camera
+    classes = {"clear": ~(camera | later), "camera ray": camera,
+               "later bounce": later}
+    for label, keep in classes.items():
+        dist = split_distances(*shade_split(sh, keep))
+        result[label] = dict(pixels=int(keep.sum()), groups=dist)
+        log(f"  K3 in view, {label} ({int(keep.sum())} pixels), distance over "
+            "the group's largest magnitude, kernel-f64 / plain-f64 / "
+            "kernel-plain (one-ulp nudge): " + ", ".join(
+                f"{n} {v['kernel_f64']:.1e} / {v['plain_f64']:.1e} / "
+                f"{v['kernel_plain']:.1e} ({v['nudge']:.1e})"
+                for n, v in dist.items()))
+
+    # The light centre's cotangent lane by lane: the light vector as a
+    # [9, spp, n] leaf of the replay, in float32 and in float64.
+    def per_lane(dtype):
+        light = sh.light.to(dtype)[:, None, None].expand(
+            9, cfg.spp, cfg.num_pixels).clone().requires_grad_(True)
+        lum = cuda_shade.replay_packed(sh.table.to(dtype), sh.cam.to(dtype),
+                                       light, sh.records,
+                                       [d.to(dtype) for d in sh.draws], cfg)
+        return torch.autograd.grad((sh.g.to(dtype) * lum).sum(), light)[0][:3]
+
+    lane32, lane64 = per_lane(torch.float32).double(), per_lane(torch.float64)
+    err = (lane32 - lane64).abs()
+    lanes = {}
+    for label, keep in classes.items():
+        sel = keep[None, None, :].expand_as(lane64)
+        lanes[label] = dict(
+            abs_sum=lane64[sel].abs().sum().item(),
+            rounding_sum=err[sel].sum().item(),
+            largest_rounding=err[sel].max().item() if sel.any() else 0.0)
+    total = lane64.sum(dim=(1, 2))
+    lanes["sum"] = total.tolist()
+    lanes["abs_sum"] = lane64.abs().sum(dim=(1, 2)).tolist()
+    lanes["f32_sum_minus_f64"] = (lane32.sum(dim=(1, 2)) - total).tolist()
+    result["light_center_lanes"] = lanes
+    log("  K3 in view, light centre lane by lane (plain, f32 vs f64): sums "
+        f"{[f'{v:.3e}' for v in lanes['sum']]}, sums of |lane| "
+        f"{[f'{v:.3e}' for v in lanes['abs_sum']]}, f32 - f64 of the sums "
+        f"{[f'{v:.2e}' for v in lanes['f32_sum_minus_f64']]}; per class "
+        "(sum of |lane|, sum of |f32 - f64|, largest |f32 - f64|): "
+        + ", ".join(f"{c} {v['abs_sum']:.3e} / {v['rounding_sum']:.2e} / "
+                    f"{v['largest_rounding']:.2e}"
+                    for c, v in lanes.items() if isinstance(v, dict)))
+    return result
+
+
+def phase_spheres(resources):
+    """The box with many small spheres: box+300 on the static tier, box+1000
+    on the grouped tier by the table-size rule, each kernel against its
+    plain version, the paths at full width, the rows; and K3's split on the
+    in-view scene."""
+    small = {name: spheres_small(name) for name in SPHERES_GROUPED}
+    launches, paths = {}, {}
+    for name in SPHERES_GROUPED:
+        launches[name], paths[name] = spheres_paths(name)
+    res = (BENCH["width"], BENCH["height"])
+    rows = tier_rows(launches, resources, [
+        (name, box_with_many_spheres(name, res), grouped, L_PIXEL_STRIDE, 0.5)
+        for name, grouped in SPHERES_GROUPED.items()])
+    sweep = tier_sweep()
+    split = k3_in_view_split()
+    return rows, dict(small=small, paths=paths, tier_sweep=sweep,
+                      k3_in_view=split)
 
 
 # ---------------------------------------------------------------------------
@@ -5831,6 +6367,8 @@ def main() -> int:
         mis_grouped_row_list, mis_grouped_rows_s = mis_grouped_rows(
             launches, resources)
         rows += mis_grouped_row_list
+        sphere_rows, spheres = timed("spheres", phase_spheres, resources)
+        rows += sphere_rows
         sharded = timed("sharded", phase_sharded)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5855,7 +6393,7 @@ def main() -> int:
                       "grouped_small_max_abs_err": grouped_small,
                       "path_K": path_k, "path_L": path_l,
                       "mis_grouped_small_max_abs_err": mis_grouped_small,
-                      "paths_M_N": paths_mn,
+                      "paths_M_N": paths_mn, "spheres": spheres,
                       "mis_grouped_seconds": {
                           "phase": mis_grouped_s,
                           "paths": sum(v["seconds"]

@@ -52,7 +52,8 @@
 //
 // The static tier: one thread per pixel with the sample and bounce loops
 // inside the thread and all path state in registers; the scene tables (a few
-// KB) are staged once per block in shared memory, triangle-major so that one
+// KB on the box, up to one block's 227 KiB with many spheres, opted in past
+// 48 KiB) are staged once per block in shared memory, triangle-major so that one
 // triangle is three 16-byte loads that all threads of a warp take from the
 // same address (a broadcast); the winner's attributes are fetched by index.
 // The shadow probe runs over a compacted copy of the occluder list
@@ -139,8 +140,7 @@ constexpr int GROUPED_WARPS = GROUPED_THREADS / 32;
 // (56) for the wide one.
 constexpr int GROUPED_MIN_BLOCKS = 2;
 constexpr int GROUPED_MIN_BLOCKS_WIDE = 3;
-constexpr size_t STATIC_SMEM_BYTES = 48 * 1024;  // the static tier stages at most this
-constexpr size_t MAX_SMEM_BYTES = 227 * 1024;    // one block's most on sm_90
+constexpr size_t MAX_SMEM_BYTES = 227 * 1024;    // one block's most on sm_90, both tiers
 
 // Bounce B's four planes of one (pixel, sample) item, at plane offset o, then
 // the next bounce's, n floats on.
@@ -707,13 +707,14 @@ int grt_path_trace(const int32_t* offsets, const float* cam, const float* light,
   }
   const size_t smem = grouped ? grouped_smem(num_spheres, n_super, n_shadow_super)
                               : static_smem(num_tris, n_shadow, num_spheres);
-  if (smem > (grouped ? MAX_SMEM_BYTES : STATIC_SMEM_BYTES)) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   const PathKernel kernel =
       kernel_for(grouped, n_super > grt::WIDE_SUPERS, emit_records, read_draws);
   cudaStream_t st = (cudaStream_t)stream;
   if (!grouped) {
+    // A scene whose tables pass 48 KiB (many spheres) opts in first.
+    const cudaError_t err = grt::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
     kernel<<<(n_local + BLOCK_THREADS - 1) / BLOCK_THREADS, BLOCK_THREADS, smem, st>>>(p);
     return (int)cudaGetLastError();
   }

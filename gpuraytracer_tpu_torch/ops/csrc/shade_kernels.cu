@@ -665,9 +665,9 @@ shade_bwd_grouped_kernel(const ShadeParams p) {
 
 // Bytes of shade_bwd_kernel's tables in one block: the table [P][nrows], the
 // 21 scalars, one [P][ntab] table and 21 scalars per warp.  The static tier
-// takes a scene whose tables fit STATIC_TABLE_SMEM; the staging rows come on
-// top of them, opted in past 48 KiB.
-constexpr size_t STATIC_TABLE_SMEM = 48 * 1024;
+// takes a scene whose tables and staging rows fit MAX_SMEM_BYTES, one
+// block's most on sm_90, opted in past 48 KiB.
+constexpr size_t MAX_SMEM_BYTES = 227 * 1024;
 size_t static_table_bytes(int num_prims, int has_spheres) {
   const int nrows = has_spheres ? 16 : 11;
   const int ntab = has_spheres ? 14 : 10;
@@ -786,9 +786,7 @@ int grt_shade_bwd(const float* g, const int32_t* records, const float* nee0,
     grt::launch_reduce_partials(partials, blocks * WARPS, count, out, st);
     return (int)cudaGetLastError();
   }
-  if (static_table_bytes(num_prims, has_spheres) > STATIC_TABLE_SMEM) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   const int grid = grt_shade_bwd_blocks(n_local);
   const auto launch = [&](auto kernel) {
     const cudaError_t err = grt::allow_smem(kernel, smem);

@@ -2,11 +2,12 @@
 version.
 
 Counterpart of ``gpuraytracer_tpu/ops/pallas_mis.py``, both tiers: the
-static tier (at most 64 triangles, plus analytic spheres) tests every
-triangle; the grouped tier (any triangle count below the record encoding's
-limit) sweeps the two-level box hierarchy of the path tracer's grouped tier
-(``cuda_path.group_aabbs``, ``csrc/trace.cuh``), the light probes over the
-occluder-culled shadow table:
+static tier (at most 64 triangles, plus analytic spheres, its tables within
+one block's shared memory) tests every triangle; the grouped tier (any
+primitive count below the record encoding's limit;
+``cuda_path.grouped_tier`` picks) sweeps the two-level box hierarchy of the
+path tracer's grouped tier (``cuda_path.group_aabbs``, ``csrc/trace.cuh``),
+the light probes over the occluder-culled shadow table:
 
   * ``render_mis_cuda_impl``  the full camera-ray x sample loop
     (``mis_kernel``): hdr only, or with ``emit_records`` the two int32
@@ -44,10 +45,11 @@ from ..render import _mis_chunk, _mis_sample_tables, pixel_coords
 from ..types import RenderConfig, Scene
 from ..utils.host import resolve_device
 from . import _build
-from .cuda_path import (SUPER, GroupedTables, _pack_grouped,
+from .cuda_path import (SMEM_LIMIT, SUPER, GroupedTables, _pack_grouped,
                         _raise_on_launch_error, _require, camera_vector,
                         closest_bounds, closest_grouped, grouped_launch_tables,
                         grouped_tier, occluded_grouped, prefilter_passes,
+                        faster_below, shadow_count,
                         shadow_indices)
 
 # Rows of the packed tables (the JAX package's layout).
@@ -73,11 +75,16 @@ REC_CODE_MASK = (1 << 14) - 1
 REC_MAX_PRIMS = REC_CODE_MASK - 1
 
 _BIG = 1e30
-# Bytes of shared memory the kernel may stage: one block's most on sm_90 (the
-# launcher asks for what exceeds the default 48 KiB). The [16, s_per] sample
-# table is the part that grows: about 3,500 samples per strategy at 36
-# triangles.
-_SMEM_LIMIT = 227 * 1024
+# A MIS trace that runs alone takes the static tier only while one SM holds
+# at least as many of K4's warps as of K4g's 12 (one block of 384 threads):
+# three blocks of 128 threads (as ``cuda_path.TRACE_ALONE_BYTES``). At 256 x
+# 192 x 2 x 30 on the box with 300 to 1,500 small spheres (PERF.md §6) K4
+# wins up to 66 KB of tables, K4g at 98 KB.
+TRACE_ALONE_BYTES = 228 * 1024 // 3 - 1024
+# Both tiers stage their tables within ``cuda_path.SMEM_LIMIT``, one block's
+# most on sm_90 (the launcher asks for what exceeds the default 48 KiB). The
+# [16, s_per] sample table is the part that grows: about 3,500 samples per
+# strategy at 36 triangles.
 # The grouped tier (K4g) runs one persistent block of 384 threads per SM. A
 # block stages the sample table, the spheres and the box tables of both
 # sweeps (32 B a box: a super and its SUPER groups). Above WIDE_SUPERS
@@ -630,12 +637,25 @@ def static_smem_bytes(s_per: int, num_spheres: int, num_tris: int,
     past the most one block may use."""
     smem = 4 * (NTAB_EXT * s_per + SROWS * num_spheres
                 + 12 * (num_tris + n_shadow) + NATTR * (num_tris + num_spheres))
-    if smem > _SMEM_LIMIT:
+    if smem > SMEM_LIMIT:
         raise ValueError(
             f"scene and sample tables need {smem} B of shared memory; "
-            f"the kernel stages at most {_SMEM_LIMIT} B (fewer samples "
-            "per strategy or spheres, or the grouped tier: grouped=True)")
+            f"the kernel stages at most {SMEM_LIMIT} B (fewer samples "
+            "per strategy or spheres)")
     return smem
+
+
+def mis_plan(scene: Scene, occluders, mis_samples: int,
+             alone: bool = False):
+    """K4's shared-memory plan on ``scene`` at ``mis_samples``, as
+    ``cuda_path.grouped_tier`` takes it: (``static_smem_bytes``, its
+    arguments). ``alone``: for a trace without a backward, which also takes
+    K4g past TRACE_ALONE_BYTES."""
+    num_tris = scene.triangles.num_triangles
+    plan = (faster_below(TRACE_ALONE_BYTES, static_smem_bytes) if alone
+            else static_smem_bytes)
+    return plan, (mis_samples // 3, scene.spheres.num_spheres, num_tris,
+                  shadow_count(occluders, num_tris))
 
 
 def grouped_smem_bytes(s_per: int, num_spheres: int, n_super: int,
@@ -646,11 +666,11 @@ def grouped_smem_bytes(s_per: int, num_spheres: int, n_super: int,
     ValueError past the most one block may use."""
     smem = (4 * (NTAB_EXT * s_per + SROWS * num_spheres)
             + 32 * (1 + SUPER) * (n_super + n_shadow_super))
-    if smem > _SMEM_LIMIT:
+    if smem > SMEM_LIMIT:
         raise ValueError(
             f"the grouped MIS kernel needs {smem} B of shared memory ("
             f"{s_per} samples per strategy, {n_super} + {n_shadow_super} "
-            f"supers of boxes); one block may use at most {_SMEM_LIMIT} B "
+            f"supers of boxes); one block may use at most {SMEM_LIMIT} B "
             "(fewer samples per strategy)")
     return smem
 
@@ -737,8 +757,10 @@ def render_mis_cuda_impl(scene: Scene, config: RenderConfig,
     (through the plain version when ``device`` is the CPU). Returns raw
     accumulated hdr [H, W, 3] (apply ``render.tonemap_mis`` for the image),
     and with ``emit_records`` (hdr, MisRecords). ``grouped``: the tier; None
-    takes the grouped tier above STATIC_TIER_MAX triangles, as the JAX entry
-    does. Both tiers make the same decisions. ``occluders``: an
+    takes ``cuda_path.grouped_tier``'s for a trace alone: the grouped tier
+    above STATIC_TIER_MAX triangles, as the JAX entry does, or where K4's
+    tables pass TRACE_ALONE_BYTES (a route that also runs the backward
+    passes the tier of both kernels). Both tiers make the same decisions. ``occluders``: an
     ``intersect.potential_occluders`` tuple that culls the light probes.
     ``local_n`` / ``rid_base`` / ``flat_output`` render the pixels
     [rid_base, rid_base + local_n) and return flat [local_n, 3] hdr: the
@@ -756,7 +778,8 @@ def render_mis_cuda_impl(scene: Scene, config: RenderConfig,
                          "least 3")
     num_tris = scene.triangles.num_triangles
     if grouped is None:
-        grouped = grouped_tier(scene)
+        grouped = grouped_tier(scene, mis_plan(
+            scene, occluders, config.mis_samples, alone=True))
     if num_tris + scene.spheres.num_spheres >= REC_MAX_PRIMS:
         raise ValueError("record encoding limit exceeded")
     n_local = config.num_pixels if local_n is None else int(local_n)

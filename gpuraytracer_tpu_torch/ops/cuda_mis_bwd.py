@@ -2,8 +2,9 @@
 the card, its plain PyTorch version, and the autograd glue.
 
 Counterpart of ``gpuraytracer_tpu/ops/pallas_mis_bwd.py``, both tiers (the
-static tier at most 64 triangles plus analytic spheres; the grouped tier any
-primitive count below the record encoding's limit):
+static tier at most 64 triangles plus analytic spheres, its tables within one
+block's shared memory; the grouped tier any primitive count below the record
+encoding's limit):
 
   * the forward/reverse pairs ``_fwd_*`` / ``_rev_*`` of the per-sample
     arithmetic (norm3, GGX D, Smith G1, BRDF, VNDF pdf, cosine pdf, light
@@ -53,9 +54,10 @@ from . import _build
 from .cuda_mis import (NTAB_EXT, REC_CODE_MASK, REC_SHIFT_C, REC_SHIFT_V,
                        TAB_CSU0, TAB_CSU1, TAB_CTH, TAB_K0V, TAB_K1V, TAB_LU0,
                        TAB_LU1, TAB_VCT, TAB_VSU0, TAB_VSU1, TAB_W0C, TAB_W1C,
-                       MisRecords, render_mis_cuda_impl, sample_table)
-from .cuda_path import (_raise_on_launch_error, _require, camera_vector,
-                        grouped_tier)
+                       MisRecords, mis_plan, render_mis_cuda_impl,
+                       sample_table)
+from .cuda_path import (SMEM_LIMIT, _raise_on_launch_error, _require,
+                        camera_vector, grouped_tier)
 
 # Differentiable table rows: n xyz, c0, diffuse rgb, metallic, roughness,
 # is_emissive (a selector: no gradient); sphere scenes add center xyz,
@@ -95,7 +97,6 @@ L_C, L_E, L_W, L_D, L_N, L_T, L_B = 0, 3, 6, 7, 8, 11, 14
 
 PI_F = smp._f32(math.pi)
 INV_PI_F = smp._f32(1.0 / math.pi)
-_SMEM_LIMIT = 227 * 1024  # bytes of shared memory one block may use on sm_90
 _KERNEL_WARPS = 4         # warps per block of mis_bwd_kernel
 # The grouped tier (K5g) keeps each thread's per-item state in shared memory:
 # cs and d_cs (NCS each), d_light (NLIGHT) and the two lobe winners' rows.
@@ -108,6 +109,24 @@ def grouped_state_floats(ndif: int) -> int:
     return 2 * NCS + NLIGHT + 2 * ndif
 
 
+def mis_bwd_plan(scene: Scene, mis_samples: int):
+    """K5's shared-memory plan on ``scene`` at ``mis_samples``, as
+    ``cuda_path.grouped_tier`` takes it: (``static_smem_bytes``, its
+    arguments)."""
+    num_spheres = scene.spheres.num_spheres
+    return static_smem_bytes, (mis_samples // 3,
+                               scene.triangles.num_triangles + num_spheres,
+                               NDIF_SPH if num_spheres else NDIF)
+
+
+def fused_tier(scene: Scene, mis_samples: int, occluders=None) -> bool:
+    """The fused MIS route's tier, one for its trace and its backward:
+    grouped above 64 triangles or where K4's or K5's tables do not fit a
+    block."""
+    return grouped_tier(scene, mis_plan(scene, occluders, mis_samples),
+                        mis_bwd_plan(scene, mis_samples))
+
+
 def grouped_smem_bytes(s_per: int, ndif: int) -> int:
     """Shared memory of one K5g block (``grouped_smem`` in
     ``csrc/mis_bwd_kernels.cu``): the [s_per][16] sample table, the camera
@@ -115,11 +134,11 @@ def grouped_smem_bytes(s_per: int, ndif: int) -> int:
     most one block may use."""
     smem = 4 * (NTAB_EXT * s_per + NSCAL
                 + GROUPED_THREADS * grouped_state_floats(ndif))
-    if smem > _SMEM_LIMIT:
+    if smem > SMEM_LIMIT:
         raise ValueError(
             f"the grouped MIS backward kernel needs {smem} B of shared memory "
             f"({s_per} samples per strategy); one block may use at most "
-            f"{_SMEM_LIMIT} B (fewer samples per strategy)")
+            f"{SMEM_LIMIT} B (fewer samples per strategy)")
     return smem
 
 
@@ -131,12 +150,11 @@ def static_smem_bytes(s_per: int, num_prims: int, ndif: int) -> int:
     one block may use."""
     smem = 4 * (ndif * num_prims + NTAB_EXT * s_per + NSCAL
                 + _KERNEL_WARPS * (num_prims * ndif + NSCAL))
-    if smem > _SMEM_LIMIT:
+    if smem > SMEM_LIMIT:
         raise ValueError(
             f"the parameter and sample tables need {smem} B of shared "
-            f"memory; the backward kernel stages at most {_SMEM_LIMIT} B "
-            "(fewer samples per strategy, or the grouped tier: "
-            "grouped=True)")
+            f"memory; the backward kernel stages at most {SMEM_LIMIT} B "
+            "(fewer samples per strategy or primitives)")
     return smem
 
 
@@ -1545,15 +1563,18 @@ def _render_fused(scene: Scene, config: RenderConfig, local_n, rid_base,
                   flat_output, occluders, device):
     device = resolve_device(device)
     scene = scene.to(device)
-    # One tier for the trace and its backward.
-    grouped = grouped_tier(scene)
+    # One tier for the trace and its backward; a frame without gradients
+    # launches the trace alone and takes its tier.
+    needs_grad = any(t.requires_grad for t in scene.tensors())
+    grouped = (fused_tier(scene, config.mis_samples, occluders) if needs_grad
+               else None)
     # The discrete decisions are constants of the gradient: trace a detached
     # copy, keep the graph for the parameter views only.
     hdr, rec = render_mis_cuda_impl(
         scene.detach(), config, emit_records=True, occluders=occluders,
         local_n=local_n, rid_base=rid_base, flat_output=flat_output,
         grouped=grouped, device=device)
-    if not any(t.requires_grad for t in scene.tensors()):
+    if not needs_grad:
         return hdr
     table, cam_vec, light_vec = _pack_diff_inputs_mis(scene, config)
     stab = sample_table(config).to(device).contiguous()
@@ -1567,8 +1588,9 @@ def render_mis_fused(scene: Scene, config: RenderConfig, occluders=None,
     """Differentiable variant-A render at the trace kernel's speed: the MIS
     kernel's raw accumulated hdr [H, W, 3] with the record-replay backward
     kernel attached. Triangle and sphere scenes, any triangle count below
-    the record encoding's limit (above 64 triangles both kernels take their
-    grouped tier). ``occluders``: an
+    the record encoding's limit (above 64 triangles, or where K4's or K5's
+    static tables do not fit a block, both kernels take their grouped tier).
+    ``occluders``: an
     ``intersect.potential_occluders(scene, config)`` tuple that culls the
     light probes; it is tied to the geometry it was computed from."""
     return _render_fused(scene, config, None, 0, False, occluders, device)

@@ -2,9 +2,10 @@
 PyTorch versions.
 
 Counterpart of ``gpuraytracer_tpu/ops/pallas_path.py``, both tiers: the
-static tier (at most 64 triangles, plus analytic spheres) tests every
-triangle; the grouped tier (any triangle count up to the record encoding's
-limit) sweeps a two-level hierarchy of bounding boxes in triangle order:
+static tier (at most 64 triangles, plus analytic spheres, its tables within
+one block's shared memory) tests every triangle; the grouped tier (any
+primitive count up to the record encoding's limit; ``grouped_tier`` picks)
+sweeps a two-level hierarchy of bounding boxes in triangle order:
 
   * ``group_aabbs``, ``pad_geo``, ``pack_shadow_tables``  the grouped tier's
     tables (groups of 16 triangles, supers of 8 groups, the occluder-culled
@@ -59,11 +60,18 @@ GROUP = 16
 SUPER = 8
 GROUP_AABB_PAD = 1e-3
 T_FAR_SLACK = 1e-3
-# Bytes of shared memory a block of the trace kernel may stage: the static
-# tier stays within the default 48 KiB, the grouped tier may take one block's
-# most on sm_90 (the launcher asks for what exceeds 48 KiB).
-_SMEM_LIMIT = 48 * 1024
-_GROUPED_SMEM_LIMIT = 227 * 1024
+# Bytes of shared memory one block may use on sm_90: both tiers of the trace
+# kernel stage their tables within it (the launcher asks for what exceeds the
+# default 48 KiB), and so do the other static kernels. A static kernel whose
+# tables pass it sends its route to the grouped tier (``grouped_tier``).
+SMEM_LIMIT = 227 * 1024
+# A trace that runs alone (no backward after it) takes the static tier only
+# while one SM holds at least as many of K2's warps as of K2g's 24 (two
+# blocks of 384 threads): six blocks of 128 threads, each with its tables
+# and the 1 KiB an SM reserves per block within its 228 KiB. Past that K2g
+# is the faster: at 800 x 600 x 16 spp on the box with 300 to 1,500 small
+# spheres (PERF.md §6) K2 wins with 22 and 33 KB of tables, K2g from 43 KB.
+TRACE_ALONE_BYTES = 228 * 1024 // 6 - 1024
 # Above WIDE_SUPERS supers the grouped tiers' closest-hit sweep takes its wide
 # form (``csrc/trace.cuh``).
 WIDE_SUPERS = 32
@@ -909,15 +917,14 @@ def grouped_launch_tables(grp: GroupedTables, dev: torch.device):
 def static_smem_bytes(num_tris: int, n_shadow: int, num_spheres: int) -> int:
     """Shared memory of one K2 block (``static_smem`` in
     ``csrc/path_kernels.cu``): the triangles, the shadow list, the spheres
-    and the attribute rows. Raises ValueError past the 48 KiB it may
-    stage."""
+    and the attribute rows. Raises ValueError past the most one block may
+    use."""
     smem = 4 * (12 * (num_tris + n_shadow) + 4 * num_spheres
                 + NATTR * (num_tris + num_spheres))
-    if smem > _SMEM_LIMIT:
+    if smem > SMEM_LIMIT:
         raise ValueError(
-            f"scene tables need {smem} B of shared memory; the kernel stages "
-            f"at most {_SMEM_LIMIT} B (fewer primitives, or the grouped "
-            "tier: grouped=True)")
+            f"scene tables need {smem} B of shared memory; one block may use "
+            f"at most {SMEM_LIMIT} B")
     return smem
 
 
@@ -928,11 +935,11 @@ def grouped_smem_bytes(num_spheres: int, n_super: int,
     closest-hit and the shadow sweep (32 B a box). Raises ValueError past
     the most one block may use."""
     smem = 16 * num_spheres + 32 * (1 + SUPER) * (n_super + n_shadow_super)
-    if smem > _GROUPED_SMEM_LIMIT:
+    if smem > SMEM_LIMIT:
         raise ValueError(
             f"the grouped trace kernel needs {smem} B of shared memory "
             f"({n_super} + {n_shadow_super} supers of boxes); one block may "
-            f"use at most {_GROUPED_SMEM_LIMIT} B")
+            f"use at most {SMEM_LIMIT} B")
     return smem
 
 
@@ -1021,10 +1028,53 @@ def reject_grad(scene: Scene) -> None:
             "pass scene.detach()")
 
 
-def grouped_tier(scene: Scene) -> bool:
-    """The tier an entry point takes when the caller does not force one: the
-    grouped tier above STATIC_TIER_MAX triangles, as the JAX entry does."""
-    return scene.triangles.num_triangles > STATIC_TIER_MAX
+def shadow_count(occluders, num_tris: int) -> int:
+    """Triangles in the shadow list: all of them, or those an
+    ``intersect.potential_occluders`` tuple keeps."""
+    return num_tris if occluders is None else sum(1 for k in occluders if k)
+
+
+def faster_below(limit: int, plan):
+    """``plan`` that also raises ValueError past ``limit`` bytes: the static
+    kernel still fits there, but its grouped tier is the faster."""
+    def checked(*args):
+        smem = plan(*args)
+        if smem > limit:
+            raise ValueError(f"{smem} B of tables: past {limit} B the grouped "
+                             "tier is the faster")
+        return smem
+    return checked
+
+
+def trace_plan(scene: Scene, occluders=None, alone: bool = False):
+    """K2's shared-memory plan on ``scene``, as ``grouped_tier`` takes it:
+    (``static_smem_bytes``, its arguments). ``alone``: for a trace without
+    a backward, which also takes K2g past TRACE_ALONE_BYTES."""
+    num_tris = scene.triangles.num_triangles
+    plan = (faster_below(TRACE_ALONE_BYTES, static_smem_bytes) if alone
+            else static_smem_bytes)
+    return plan, (num_tris, shadow_count(occluders, num_tris),
+                  scene.spheres.num_spheres)
+
+
+def grouped_tier(scene: Scene, *plans) -> bool:
+    """The tier a route takes when the caller does not force one: the
+    grouped tier above STATIC_TIER_MAX triangles, as the JAX entry does, and
+    wherever a static kernel that the route launches cannot stage its tables
+    in one block's shared memory. ``plans``: (plan, arguments) of each such
+    kernel, the launchers' own plans (``trace_plan`` and its kin in the
+    modules above), which raise ValueError past SMEM_LIMIT, and for a trace
+    alone past the size where its grouped kernel is the faster. A route
+    that traces and differentiates passes both kernels' plans, so that its
+    trace and its backward take one tier."""
+    if scene.triangles.num_triangles > STATIC_TIER_MAX:
+        return True
+    for plan, args in plans:
+        try:
+            plan(*args)
+        except ValueError:
+            return True
+    return False
 
 
 def shadow_indices(occluders, num_tris: int, device) -> torch.Tensor:
@@ -1051,9 +1101,11 @@ def render_path_cuda_impl(scene: Scene, config: RenderConfig,
     """Variant-B trace of ``scene`` on ``device`` through ``path_kernel``
     (through the plain version when ``device`` is the CPU).
 
-    ``grouped``: the tier; None takes the grouped tier above
-    STATIC_TIER_MAX triangles, as the JAX entry does. Both tiers make the
-    same decisions.
+    ``grouped``: the tier; None takes ``grouped_tier``'s for a trace alone:
+    the grouped tier above STATIC_TIER_MAX triangles, as the JAX entry does,
+    or where K2's tables pass TRACE_ALONE_BYTES (a route that also runs the
+    backward passes the tier of both kernels). Both tiers make the same
+    decisions.
 
     Modes: hdr only (default) returns hdr [H, W, 3]; ``emit_records``
     returns (hdr, TraceAux) with the draws read from planes — ``draws`` if
@@ -1069,7 +1121,8 @@ def render_path_cuda_impl(scene: Scene, config: RenderConfig,
     _stratified_k(config)
     num_tris = scene.triangles.num_triangles
     if grouped is None:
-        grouped = grouped_tier(scene)
+        grouped = grouped_tier(scene, trace_plan(scene, occluders,
+                                                 alone=True))
     if num_tris + scene.spheres.num_spheres + 1 >= OCC_BIT:
         raise ValueError("record encoding limit exceeded")
     if records_only and not emit_records:

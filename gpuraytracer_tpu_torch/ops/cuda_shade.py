@@ -2,10 +2,10 @@
 the card, its plain PyTorch version, and the autograd glue.
 
 Counterpart of ``gpuraytracer_tpu/ops/pallas_shade.py``, both tiers: the
-static tier (at most 64 triangles, plus analytic spheres) stages the tables
-in shared memory; the grouped tier (any primitive count up to the record
-encoding's limit) reads them from global memory and scatters into per-warp
-tables of a persistent grid:
+static tier (at most 64 triangles, plus analytic spheres, its tables within
+one block's shared memory) stages the tables there; the grouped tier (any
+primitive count up to the record encoding's limit) reads them from global
+memory and scatters into per-warp tables of a persistent grid:
 
   * ``_pack_diff_inputs``            differentiable parameter views of a scene
   * ``replay_packed``                radiance recomputed from trace records, a
@@ -45,10 +45,11 @@ from ..render import pixel_rng_offsets
 from ..types import RenderConfig, Scene
 from ..utils.host import resolve_device
 from . import _build
-from .cuda_path import (OCC_BIT, _check_bounces,
+from .cuda_path import (OCC_BIT, SMEM_LIMIT, _check_bounces,
                         _draw_shapes, _raise_on_launch_error, _require,
                         _stratified_k, camera_vector, grouped_tier,
-                        pregen_draws_plain, render_path_cuda_impl)
+                        pregen_draws_plain, render_path_cuda_impl,
+                        trace_plan)
 
 # Differentiable table rows: n xyz, c0, diffuse rgb, emissive rgb; for sphere
 # scenes also center xyz and radius. The packed table carries in addition the
@@ -59,7 +60,6 @@ NTAB_SPH = 14
 NROWS_TAB = 11
 NROWS_TAB_SPH = 16
 NSCAL = 21  # camera: pos, hu, hv, wb; light: center, color, normal
-_SMEM_LIMIT = 48 * 1024  # bytes of tables the static tier stages
 _KERNEL_THREADS = 128    # threads per block of both tiers
 _KERNEL_WARPS = _KERNEL_THREADS // 32
 _GROUPED_TABLE_BYTES = 768 << 20  # K3g's per-warp tables, at most
@@ -75,17 +75,31 @@ def static_smem_bytes(num_prims: int, has_spheres: bool) -> int:
     """Shared memory of one block of K3 (``grt_shade_bwd_smem``, grouped 0):
     its tables (the table [P][rows], the 21 scalars, one [P][ntab] table and
     21 scalars per warp), then the staging rows of the peer scatter. Raises
-    where the tables pass the 48 KiB the static tier takes; the staging rows
-    come on top (the kernel opts in past 48 KiB)."""
+    past the most one block may use (the kernel opts in past 48 KiB)."""
     nrows = NROWS_TAB_SPH if has_spheres else NROWS_TAB
     ntab = NTAB_SPH if has_spheres else NTAB
-    tables = 4 * (nrows * num_prims + NSCAL
-                  + _KERNEL_WARPS * (num_prims * ntab + NSCAL))
-    if tables > _SMEM_LIMIT:
+    smem = 4 * (nrows * num_prims + NSCAL
+                + _KERNEL_WARPS * (num_prims * ntab + NSCAL)
+                + _KERNEL_THREADS * _stage(has_spheres))
+    if smem > SMEM_LIMIT:
         raise ValueError(
-            f"the parameter table needs {tables} B of shared memory; the "
-            f"static tier stages at most {_SMEM_LIMIT} B: pass grouped=True")
-    return tables + 4 * _KERNEL_THREADS * _stage(has_spheres)
+            f"the parameter tables need {smem} B of shared memory; one block "
+            f"may use at most {SMEM_LIMIT} B")
+    return smem
+
+
+def shade_plan(scene: Scene):
+    """K3's shared-memory plan on ``scene``, as ``cuda_path.grouped_tier``
+    takes it: (``static_smem_bytes``, its arguments)."""
+    num_spheres = scene.spheres.num_spheres
+    return static_smem_bytes, (scene.triangles.num_triangles + num_spheres,
+                               num_spheres > 0)
+
+
+def fused_tier(scene: Scene, occluders=None) -> bool:
+    """The fused route's tier, one for its trace and its backward: grouped
+    above 64 triangles or where K2's or K3's tables do not fit a block."""
+    return grouped_tier(scene, trace_plan(scene, occluders), shade_plan(scene))
 
 
 def grouped_smem_bytes(has_spheres: bool) -> int:
@@ -522,8 +536,10 @@ def _render_fused(scene: Scene, config: RenderConfig, records_only,
     if records_only is None:
         records_only = _auto_records_only(
             config, None if local_offsets is None else local_offsets.shape[0])
-    # One tier for the trace and its backward.
-    grouped = grouped_tier(scene)
+    # One tier for the trace and its backward; a frame without gradients
+    # launches the trace alone and takes its tier.
+    needs_grad = any(t.requires_grad for t in scene.tensors())
+    grouped = fused_tier(scene, occluders) if needs_grad else None
     # The discrete decisions are constants of the gradient: trace a detached
     # copy, keep the graph for the parameter views only.
     hdr, aux = render_path_cuda_impl(
@@ -531,7 +547,7 @@ def _render_fused(scene: Scene, config: RenderConfig, records_only,
         local_offsets=local_offsets, rid_base=rid_base,
         flat_output=flat_output, draws=draws, occluders=occluders,
         grouped=grouped, device=device)
-    if not any(t.requires_grad for t in scene.tensors()):
+    if not needs_grad:
         return hdr
     table, cam_vec, light_vec = _pack_diff_inputs(scene, config)
     if records_only:

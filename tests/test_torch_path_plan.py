@@ -562,5 +562,8 @@ def test_k2_plan_is_the_c_formula(shape, expected):
 
 
 def test_k2_plan_raises_past_48_kib():
-    with pytest.raises(ValueError, match=str(48 * 1024)):
-        cuda_path.static_smem_bytes(64, 1000, 0)
+    # One block's most, opted in past 48 KiB: on the sphere scene's 12
+    # triangles (no cull) up to 3,392 spheres, 4 (25 12 + 12 12 + 17 S).
+    assert cuda_path.static_smem_bytes(12, 12, 3392) == 232432 <= LIMIT
+    with pytest.raises(ValueError, match=str(LIMIT)):
+        cuda_path.static_smem_bytes(12, 12, 3393)

@@ -17,7 +17,7 @@ import torch
 from gpuraytracer_tpu_torch.ops import cuda_shade
 from gpuraytracer_tpu_torch.types import RenderConfig
 
-LIMIT = 48 * 1024
+LIMIT = 227 * 1024  # one block's most on sm_90
 PIXELS = 512 * 512  # paths D, K and L
 SMS = 132           # H100 SXM
 
@@ -36,22 +36,25 @@ def test_k3_plan_is_the_c_formula(shape, expected):
                         (64, False): 19108}[shape]
 
 
-# The static tier takes a scene whose tables (all but the staging rows) fit
-# 48 KiB: with spheres up to 169 primitives, 4 (16 P + 21 + 4 (14 P + 21)) =
-# 49,092 B at 169 and 49,380 B at 170.
-@pytest.mark.parametrize("prims", [170, 200])
+# The static tier takes a scene whose tables and staging rows fit one
+# block's most (the launch opts in past 48 KiB): with spheres up to 778
+# primitives, 4 (16 P + 21 + 4 (14 P + 21) + 128 15) = 288 P + 8,100 B:
+# 232,164 B at 778 and 232,452 B at 779; 1,014 is the box with 1,002 spheres
+# (chip_smoke.py's box+1000), which the tier rule sends to K3g.
+@pytest.mark.parametrize("prims", [779, 1014])
 def test_k3_plan_raises_past_48_kib(prims):
     with pytest.raises(ValueError, match=str(LIMIT)):
         cuda_shade.static_smem_bytes(prims, True)
 
 
 def test_k3_plan_takes_the_largest_static_scene_with_spheres():
-    # 49,092 B of tables and 7,680 B of staging rows: past 48 KiB, so the
-    # launch opts in; 4 blocks of it fit an SM's 228 KiB.
-    smem = cuda_shade.static_smem_bytes(169, True)
-    assert smem == 4 * (16 * 169 + 21 + 4 * (169 * 14 + 21) + 128 * 15) == 56772
-    assert smem - 4 * 128 * 15 <= LIMIT < smem
-    assert 4 * (smem + 1024) <= 228 * 1024
+    # 224,484 B of tables and 7,680 B of staging rows, far past 48 KiB: the
+    # launch opts in; one block of it fits an SM's 228 KiB (1 KiB of it
+    # reserved per block).
+    smem = cuda_shade.static_smem_bytes(778, True)
+    assert smem == 4 * (16 * 778 + 21 + 4 * (778 * 14 + 21) + 128 * 15) == 232164
+    assert smem <= LIMIT < smem + 4 * (16 + 4 * 14)
+    assert smem + 1024 <= 228 * 1024
 
 
 # spheres? -> 4 * 128 stage: the staging rows of the peer scatter, whatever

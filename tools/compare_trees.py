@@ -5,17 +5,20 @@ NVIDIA GPU.
     python3 tools/compare_trees.py PARENT_DIR
 
 PARENT_DIR holds an earlier commit's ``gpuraytracer_tpu_torch`` package
-(unpacked from ``git archive``). A slice that redesigns a kernel runs this
-once, to show that the kernels it left alone compile to the parent's SASS
-and that the redesigned one (``REDESIGNED``, K1) and the kernels that share
-its radical inverse (``HALTON_CONSUMERS``: K2, K2g, K3, K3g, K6, K7) give the
+(unpacked from ``git archive``). A slice that redesigns a kernel, or
+changes how the kernels are launched, runs this once, to show that the
+kernels it left alone compile to the parent's SASS and that the redesigned
+ones (``REDESIGNED``) and the kernels that share their device functions
+(``HALTON_CONSUMERS``; both empty where only host code changed) give the
 parent's bits:
 
   * K1's six draw planes at path C's shape (512 x 512 x 16 x 3) and at 128 x
     96 x 4 x 3 with both samplers must be equal by sha256 in both
     checkouts;
   * K2's and K2g's images and records at the shapes of paths A-D, K and L
-    (hdr, records_only, records + draws read + cull) must be equal by
+    (hdr, records_only, records + draws read + cull), and K2's at 512 x 512
+    x 16 x 3 on box+300 (``chip_smoke.box_with_many_spheres``: 302
+    spheres, hdr and records + draws read + cull), must be equal by
     sha256;
   * the backward's outputs (K3 at D and E and at S, the static tier's
     limit with spheres: ``chip_smoke.spheres_at_static_limit`` in view at
@@ -53,12 +56,13 @@ import tempfile
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
-# The kernels whose SASS may differ from the parent's: the one the slice
-# redesigns, and those that share its radical inverse (halton.cuh), whose
-# outputs must still be the parent's bits.
-REDESIGNED = ("draws_kernel",)
-HALTON_CONSUMERS = ("path_kernel", "path_grouped_kernel", "shade_bwd_kernel",
-                    "shade_bwd_grouped_kernel", "silh_kernel", "soft_bwd_kernel")
+# The kernels whose SASS may differ from the parent's: the ones the slice
+# redesigns, and those that share a redesigned device function (PR 13: K1
+# and the radical inverse's consumers K2, K2g, K3, K3g, K6, K7), whose
+# outputs must still be the parent's bits. A slice that changes only host
+# code names none: every kernel must compile to the parent's SASS.
+REDESIGNED = ()
+HALTON_CONSUMERS = ()
 # Launches of K6 and K7 in one profiler window.
 PROFILED_LAUNCHES = 20
 
@@ -103,17 +107,20 @@ def fingerprint(outdir: Path) -> dict:
             ("B", cs.FRAME, "hdr"), ("B", cs.FRAME, "records_only"),
             ("C", cs.BENCH, "records"), ("D", cs.BENCH, "records_only"),
             ("K", cs.BENCH, "hdr"), ("K", cs.BENCH, "records"),
-            ("L", cs.BENCH, "hdr"), ("L", cs.BENCH, "records")):
+            ("L", cs.BENCH, "hdr"), ("L", cs.BENCH, "records"),
+            ("box+300", cs.BENCH, "hdr"), ("box+300", cs.BENCH, "records")):
         cfg = RenderConfig(**size)
-        grouped = label in "KL"
-        if grouped:
+        grouped = label in ("K", "L")
+        if label in cs.MANY_SPHERES:
+            scene = cs.box_with_many_spheres(label, cfg.resolution)
+        elif grouped:
             scene = cornell_box_tessellated(
                 resolution=cfg.resolution,
                 **(cs.TESS_K if label == "K" else cs.TESS_L))
         else:
             scene = cs.SCENES["cornell-spheres" if label == "B" else "cornell"](
                 resolution=cfg.resolution)
-        cull = mode != "hdr" and label not in "AB"
+        cull = mode != "hdr" and label not in ("A", "B")
         occluders = potential_occluders(scene, cfg) if cull else None
         packed = cuda_path._pack_inputs(scene.to(dev), cfg, grouped, occluders)
         idx = cuda_path.shadow_indices(occluders, scene.triangles.num_triangles,
