@@ -43,13 +43,14 @@ from ..intersect import (RAY_TMAX, RAY_TMIN, compile_scene,
                          sphere_candidates, triangle_candidates)
 from ..render import _mis_chunk, _mis_sample_tables, pixel_coords
 from ..types import RenderConfig, Scene
-from ..utils.host import resolve_device
+from ..utils.host import resolve_device, upload
+from ..utils.metrics import traced
 from . import _build
 from .cuda_path import (SMEM_LIMIT, SUPER, GroupedTables, _pack_grouped,
-                        _raise_on_launch_error, _require, camera_vector,
-                        closest_bounds, closest_grouped, grouped_launch_tables,
-                        grouped_tier, occluded_grouped, prefilter_passes,
-                        faster_below, shadow_count,
+                        _require, camera_vector, closest_bounds,
+                        closest_grouped, count_pack, grouped_launch_tables,
+                        grouped_tier, launch, occluded_grouped,
+                        prefilter_passes, faster_below, shadow_count,
                         shadow_indices)
 
 # Rows of the packed tables (the JAX package's layout).
@@ -96,9 +97,13 @@ TRACE_ALONE_BYTES = 228 * 1024 // 3 - 1024
 BACKWARD_LANE_STEPS = 1 << 21
 
 # Kernel launches since the process started (or since a caller reset them):
-# the wrapper adds one where it launches the kernel and nowhere else. The
-# grouped tier (K4g) counts apart from the static tier.
+# ``cuda_path.launch`` adds one where the wrapper launches the kernel and
+# nowhere else. The grouped tier (K4g) counts apart from the static tier.
 LAUNCHES = {"mis_kernel": 0, "mis_kernel_grouped": 0}
+
+# Scene packs since the process started, as ``cuda_path.PACKS`` counts them.
+PACKS = {"scene": 0, "same_geometry": 0}
+_last_geometry = None
 
 
 class MisRecords(NamedTuple):
@@ -121,6 +126,7 @@ class PackedMisScene(NamedTuple):
     grouped: Optional[GroupedTables] = None  # the grouped tier's tables
 
 
+@traced("pack.samples")
 def sample_table(config: RenderConfig) -> torch.Tensor:
     """The kernel's pixel-independent sample table, [NTAB_EXT, s_per] float32
     on the CPU: rows 0-9 are the shared draws
@@ -144,6 +150,7 @@ def sample_table(config: RenderConfig) -> torch.Tensor:
     return torch.cat([rows, derived], dim=0)
 
 
+@traced("pack")
 def _pack_inputs(scene: Scene, config: RenderConfig, grouped: bool = False,
                  occluders=None) -> PackedMisScene:
     """Marshal a scene for the kernel: triangle constants to a [NROWS, T]
@@ -155,6 +162,8 @@ def _pack_inputs(scene: Scene, config: RenderConfig, grouped: bool = False,
     tier's tables from the first 12 rows of the triangle table, the light
     probes' table culled by ``occluders`` (the JAX package's
     ``pallas_mis._pack_inputs(grouped=True)``)."""
+    global _last_geometry
+    _last_geometry = count_pack(PACKS, _last_geometry, scene, occluders)
     c = compile_scene(scene.triangles)
     f32 = torch.float32
     tri = torch.stack([
@@ -206,7 +215,7 @@ def _pack_inputs(scene: Scene, config: RenderConfig, grouped: bool = False,
         cam=camera_vector(scene.camera, config).contiguous(),
         light=light_vec.contiguous(), sph=sph.contiguous(),
         atab=atab.contiguous(),
-        tabs=sample_table(config).to(dev).contiguous(),
+        tabs=upload(sample_table(config), dev).contiguous(),
         num_spheres=sp.num_spheres,
         grouped=_pack_grouped(scene, tri, occluders) if grouped else None)
 
@@ -645,6 +654,7 @@ def static_smem_bytes(s_per: int, num_spheres: int, num_tris: int,
     return smem
 
 
+@traced("plan")
 def mis_plan(scene: Scene, occluders, mis_samples: int,
              alone: bool = False):
     """K4's shared-memory plan on ``scene`` at ``mis_samples``, as
@@ -728,19 +738,17 @@ def mis_trace_kernel(n_local: int, rid_base: int, packed: PackedMisScene,
             torch.empty((config.camera_rays, s_per, n_local), dtype=i32,
                         device=dev))
     with torch.cuda.device(dev):
-        code = lib.grt_mis_trace(
-            *ptrs, hdr.data_ptr(),
-            rec.camera.data_ptr() if emit_records else None,
-            rec.samples.data_ptr() if emit_records else None,
-            *[None if t is None else t.data_ptr() for t in tables],
-            None if taken is None else taken.data_ptr(), n_local, rid_base,
-            config.width, config.height,
-            config.camera_rays, s_per, T, S, n_shadow, int(emit_records),
-            *supers, int(grp is not None),
-            torch.cuda.current_stream(dev).cuda_stream)
-    name = "mis_kernel" if grp is None else "mis_kernel_grouped"
-    _raise_on_launch_error(code, name)
-    LAUNCHES[name] += 1
+        launch(LAUNCHES, "mis_kernel" if grp is None
+               else "mis_kernel_grouped", lib.grt_mis_trace,
+               *ptrs, hdr.data_ptr(),
+               rec.camera.data_ptr() if emit_records else None,
+               rec.samples.data_ptr() if emit_records else None,
+               *[None if t is None else t.data_ptr() for t in tables],
+               None if taken is None else taken.data_ptr(), n_local, rid_base,
+               config.width, config.height,
+               config.camera_rays, s_per, T, S, n_shadow, int(emit_records),
+               *supers, int(grp is not None),
+               torch.cuda.current_stream(dev).cuda_stream)
     return hdr, rec
 
 
@@ -748,6 +756,7 @@ def mis_trace_kernel(n_local: int, rid_base: int, packed: PackedMisScene,
 # Entry points
 # ---------------------------------------------------------------------------
 
+@traced("render")
 def render_mis_cuda_impl(scene: Scene, config: RenderConfig,
                          emit_records: bool = False, occluders=None,
                          local_n: Optional[int] = None, rid_base: int = 0,
@@ -765,7 +774,8 @@ def render_mis_cuda_impl(scene: Scene, config: RenderConfig,
     ``local_n`` / ``rid_base`` / ``flat_output`` render the pixels
     [rid_base, rid_base + local_n) and return flat [local_n, 3] hdr: the
     hooks a sharded renderer needs. Not differentiable: a scene that asks
-    for gradients raises."""
+    for gradients raises. The call is the span ``render``; a route that
+    holds its own calls ``__wrapped__``."""
     device = resolve_device(device)
     if any(t.requires_grad for t in scene.tensors()):
         raise NotImplementedError(

@@ -49,15 +49,16 @@ import torch
 from .. import sampling as smp
 from ..intersect import RAY_TMAX, RAY_TMIN, compile_scene
 from ..types import RenderConfig, Scene
-from ..utils.host import resolve_device
+from ..utils.host import resolve_device, upload
+from ..utils.metrics import traced
 from . import _build
 from .cuda_mis import (NTAB_EXT, REC_CODE_MASK, REC_SHIFT_C, REC_SHIFT_V,
                        TAB_CSU0, TAB_CSU1, TAB_CTH, TAB_K0V, TAB_K1V, TAB_LU0,
                        TAB_LU1, TAB_VCT, TAB_VSU0, TAB_VSU1, TAB_W0C, TAB_W1C,
                        MisRecords, mis_plan, render_mis_cuda_impl,
                        sample_table)
-from .cuda_path import (SMEM_LIMIT, _raise_on_launch_error, _require,
-                        camera_vector, grouped_tier)
+from .cuda_path import (SMEM_LIMIT, _require, camera_vector, grouped_tier,
+                        launch)
 
 # Differentiable table rows: n xyz, c0, diffuse rgb, metallic, roughness,
 # is_emissive (a selector: no gradient); sphere scenes add center xyz,
@@ -109,6 +110,7 @@ def grouped_state_floats(ndif: int) -> int:
     return 2 * NCS + NLIGHT + 2 * ndif
 
 
+@traced("plan")
 def mis_bwd_plan(scene: Scene, mis_samples: int):
     """K5's shared-memory plan on ``scene`` at ``mis_samples``, as
     ``cuda_path.grouped_tier`` takes it: (``static_smem_bytes``, its
@@ -119,6 +121,7 @@ def mis_bwd_plan(scene: Scene, mis_samples: int):
                                NDIF_SPH if num_spheres else NDIF)
 
 
+@traced("plan")
 def fused_tier(scene: Scene, mis_samples: int, occluders=None) -> bool:
     """The fused MIS route's tier, one for its trace and its backward:
     grouped above 64 triangles or where K4's or K5's tables do not fit a
@@ -159,7 +162,8 @@ def static_smem_bytes(s_per: int, num_prims: int, ndif: int) -> int:
 
 
 # Kernel launches since the process started (or since a caller reset them):
-# the wrapper adds one where it launches the kernel and nowhere else.
+# ``cuda_path.launch`` adds one where the wrapper launches the kernel and
+# nowhere else.
 LAUNCHES = {"mis_bwd_kernel": 0, "mis_bwd_grouped_kernel": 0}
 
 
@@ -1469,16 +1473,15 @@ def mis_bwd_kernel(g: torch.Tensor, records: MisRecords, table: torch.Tensor,
             blocks = rows = lib.grt_mis_bwd_blocks(n, config.camera_rays)
         partials = torch.empty((rows, count), dtype=torch.float32, device=dev)
         out = torch.empty(count, dtype=torch.float32, device=dev)
-        code = lib.grt_mis_bwd(
-            g.data_ptr(), records.camera.data_ptr(),
-            records.samples.data_ptr(), table.data_ptr(), cam_vec.data_ptr(),
-            light_vec.data_ptr(), stab.data_ptr(), partials.data_ptr(),
-            out.data_ptr(), n, int(rid_base), config.width, config.height,
-            config.camera_rays, s_per, P, num_spheres, int(grouped), blocks,
-            torch.cuda.current_stream(dev).cuda_stream)
-    name = "mis_bwd_grouped_kernel" if grouped else "mis_bwd_kernel"
-    _raise_on_launch_error(code, name)
-    LAUNCHES[name] += 1
+        launch(LAUNCHES, "mis_bwd_grouped_kernel" if grouped
+               else "mis_bwd_kernel", lib.grt_mis_bwd,
+               g.data_ptr(), records.camera.data_ptr(),
+               records.samples.data_ptr(), table.data_ptr(),
+               cam_vec.data_ptr(), light_vec.data_ptr(), stab.data_ptr(),
+               partials.data_ptr(), out.data_ptr(), n, int(rid_base),
+               config.width, config.height, config.camera_rays, s_per, P,
+               num_spheres, int(grouped), blocks,
+               torch.cuda.current_stream(dev).cuda_stream)
     return out[:P * ndif].view(P, ndif), out[P * ndif:]
 
 
@@ -1486,6 +1489,7 @@ def mis_bwd_kernel(g: torch.Tensor, records: MisRecords, table: torch.Tensor,
 # Parameter views and the autograd glue
 # ---------------------------------------------------------------------------
 
+@traced("pack_diff")
 def _pack_diff_inputs_mis(scene: Scene, config: RenderConfig):
     """Differentiable packing of the views the backward differentiates:
     ``table`` [10, T] (or [15, T + S] with spheres), ``cam_vec`` [12] and
@@ -1541,6 +1545,7 @@ class _AttachGradMis(torch.autograd.Function):
 
     @staticmethod
     @torch.autograd.function.once_differentiable
+    @traced("attach")
     def backward(ctx, g):
         table, cam_vec, light_vec, cam_rec, samp_rec, stab = ctx.saved_tensors
         gs = g.reshape(-1, 3).T.contiguous()
@@ -1559,6 +1564,7 @@ class _AttachGradMis(torch.autograd.Function):
                 None, None, None)
 
 
+@traced("render")
 def _render_fused(scene: Scene, config: RenderConfig, local_n, rid_base,
                   flat_output, occluders, device):
     device = resolve_device(device)
@@ -1569,15 +1575,16 @@ def _render_fused(scene: Scene, config: RenderConfig, local_n, rid_base,
     grouped = (fused_tier(scene, config.mis_samples, occluders) if needs_grad
                else None)
     # The discrete decisions are constants of the gradient: trace a detached
-    # copy, keep the graph for the parameter views only.
-    hdr, rec = render_mis_cuda_impl(
+    # copy, keep the graph for the parameter views only. This call's span
+    # holds the trace's.
+    hdr, rec = render_mis_cuda_impl.__wrapped__(
         scene.detach(), config, emit_records=True, occluders=occluders,
         local_n=local_n, rid_base=rid_base, flat_output=flat_output,
         grouped=grouped, device=device)
     if not needs_grad:
         return hdr
     table, cam_vec, light_vec = _pack_diff_inputs_mis(scene, config)
-    stab = sample_table(config).to(device).contiguous()
+    stab = upload(sample_table(config), device).contiguous()
     return _AttachGradMis.apply(config, int(rid_base), grouped, hdr, table,
                                 cam_vec, light_vec, rec.camera, rec.samples,
                                 stab)

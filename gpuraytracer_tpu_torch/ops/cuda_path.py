@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -44,7 +45,8 @@ from ..intersect import (RAY_TMAX, RAY_TMIN, compile_scene,
                          sphere_candidates, triangle_candidates)
 from ..render import pixel_rng_offsets
 from ..types import RenderConfig, Scene
-from ..utils.host import resolve_device
+from ..utils.host import resolve_device, upload
+from ..utils.metrics import span, traced
 from . import _build
 
 OCC_BIT = 1 << 20  # record code = (prim + 1) + OCC_BIT * shadow_occluded
@@ -86,10 +88,17 @@ SROWS = 11   # sph: center xyz, radius, diffuse rgb, is_em, emissive rgb
 NATTR = 13   # atab: normal xyz, diffuse rgb, emissive rgb, is_em, sphere center xyz
 
 # Kernel launches since the process started (or since a caller reset them):
-# each wrapper adds one where it launches its kernel and nowhere else.
+# ``launch`` adds one where a wrapper launches its kernel and nowhere else.
 # The grouped tier (K2g, ``path_grouped_kernel``) counts apart from the
 # static tier.
 LAUNCHES = {"draws_kernel": 0, "path_kernel": 0, "path_kernel_grouped": 0}
+
+# Scene packs since the process started: every ``_pack_inputs`` call, and
+# among them those whose geometry is that of this module's previous pack
+# (``count_pack``): tables made again from the same vertices, spheres and
+# cull.
+PACKS = {"scene": 0, "same_geometry": 0}
+_last_geometry = None
 
 
 class TraceAux(NamedTuple):
@@ -200,7 +209,7 @@ def pack_shadow_tables(tri, verts, occluders, tri_geo, aabb_main, sup_main):
     dev = tri.device
     keep = [i for i, k in enumerate(occluders) if k]
     if keep:
-        kidx = torch.tensor(keep, dtype=torch.int64, device=dev)
+        kidx = upload(torch.tensor(keep, dtype=torch.int64), dev)
         shadow_geo = pad_geo(tri[:12, kidx])
         aabb_shadow, sup_shadow = group_aabbs(verts[kidx])
     else:
@@ -210,6 +219,7 @@ def pack_shadow_tables(tri, verts, occluders, tri_geo, aabb_main, sup_main):
     return shadow_geo, aabb_shadow, sup_shadow
 
 
+@traced("pack.grouped")
 def _pack_grouped(scene: Scene, tri: torch.Tensor,
                   occluders) -> GroupedTables:
     verts = scene.triangles.verts.to(torch.float32)
@@ -225,6 +235,31 @@ def _pack_grouped(scene: Scene, tri: torch.Tensor,
                          num_tris=tri.shape[1], num_shadow=n_shadow)
 
 
+def _geometry(scene: Scene, occluders):
+    """What a pack's geometry is made from: the triangles' vertices and the
+    spheres' centers and radii, each as its storage (held weakly), offset,
+    shape, strides and version, and the occluder tuple's identity."""
+    ts = (scene.triangles.verts, scene.spheres.center, scene.spheres.radius)
+    return (tuple(weakref.ref(t.untyped_storage()) for t in ts),
+            tuple((t.storage_offset(), t.shape, t.stride(), t._version)
+                  for t in ts),
+            id(occluders))
+
+
+def count_pack(packs, last, scene: Scene, occluders):
+    """Count one pack of ``scene`` in ``packs``, as same_geometry where its
+    geometry is ``last``'s: the same storages, still alive, at the same
+    layout and version, and the same cull. Returns the geometry, the
+    ``last`` of the next call. Counts only; keeps nothing alive."""
+    now = _geometry(scene, occluders)
+    packs["scene"] += 1
+    if last is not None and last[1:] == now[1:] and all(
+            a() is not None and a() is b() for a, b in zip(last[0], now[0])):
+        packs["same_geometry"] += 1
+    return now
+
+
+@traced("pack")
 def _pack_inputs(scene: Scene, config: RenderConfig, grouped: bool = False,
                  occluders=None) -> PackedScene:
     """Marshal a scene for the trace kernel: triangle constants to a
@@ -233,6 +268,8 @@ def _pack_inputs(scene: Scene, config: RenderConfig, grouped: bool = False,
     of every primitive (triangles first, then spheres) to a [NATTR, T + S]
     table read by the winner's index. ``grouped`` adds the grouped tier's
     tables, the shadow table culled by ``occluders``."""
+    global _last_geometry
+    _last_geometry = count_pack(PACKS, _last_geometry, scene, occluders)
     c = compile_scene(scene.triangles)
     f32 = torch.float32
     tri = torch.stack([
@@ -370,6 +407,16 @@ def _raise_on_launch_error(code: int, what: str) -> None:
             "(cudaGetLastError after the launch)")
 
 
+def launch(launches, name: str, fn, *args) -> None:
+    """Call the library's launcher ``fn(*args)`` as the span
+    ``launch.<name>``, raise on the error code it returns, and count the
+    launch in ``launches[name]``: one boundary for the span and the
+    count."""
+    with span("launch." + name):
+        _raise_on_launch_error(fn(*args), name)
+        launches[name] += 1
+
+
 def _draw_shapes(config: RenderConfig, n: int):
     sb = (config.spp, config.bounces, n)
     s = (config.spp, n)
@@ -408,12 +455,10 @@ def pregen_draws_kernel(offsets: torch.Tensor, config: RenderConfig):
     planes = [torch.empty(shape, dtype=torch.float32, device=dev)
               for shape in _draw_shapes(config, n)]
     with torch.cuda.device(dev):
-        code = lib.grt_pregen_draws(
-            off_ptr, n, config.spp, config.bounces, k,
-            1.0 / k if k else 0.0, *[p.data_ptr() for p in planes],
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on_launch_error(code, "draws_kernel")
-    LAUNCHES["draws_kernel"] += 1
+        launch(LAUNCHES, "draws_kernel", lib.grt_pregen_draws,
+               off_ptr, n, config.spp, config.bounces, k,
+               1.0 / k if k else 0.0, *[p.data_ptr() for p in planes],
+               torch.cuda.current_stream(dev).cuda_stream)
     return tuple(planes)
 
 
@@ -428,7 +473,7 @@ def pregen_draws(config: RenderConfig, local_offsets=None, device="cuda"):
     _stratified_k(config)
     if local_offsets is None:
         local_offsets = pixel_rng_offsets(config, device)
-    offsets = torch.as_tensor(local_offsets).to(device)
+    offsets = upload(local_offsets, device)
     if offsets.device.type == "cuda":
         return pregen_draws_kernel(offsets.to(torch.int32).contiguous(),
                                    config)
@@ -1000,18 +1045,17 @@ def path_trace_kernel(offsets: torch.Tensor, rid_base: int,
            if emit_records else None)
     k = _stratified_k(config)
     with torch.cuda.device(dev):
-        code = lib.grt_path_trace(
-            *ptrs, hdr.data_ptr(), rec.data_ptr() if emit_records else None,
-            *[None if t is None else t.data_ptr() for t in tables],
-            None if taken is None else taken.data_ptr(),
-            n, rid_base, config.width, config.height, config.spp,
-            config.bounces, T, S, n_shadow, k, *supers,
-            1.0 / k if k else 0.0, config.area_light_half_extent,
-            int(emit_records), int(draws is not None), int(grp is not None),
-            torch.cuda.current_stream(dev).cuda_stream)
-    name = "path_kernel" if grp is None else "path_kernel_grouped"
-    _raise_on_launch_error(code, name)
-    LAUNCHES[name] += 1
+        launch(LAUNCHES, "path_kernel" if grp is None
+               else "path_kernel_grouped", lib.grt_path_trace,
+               *ptrs, hdr.data_ptr(), rec.data_ptr() if emit_records else None,
+               *[None if t is None else t.data_ptr() for t in tables],
+               None if taken is None else taken.data_ptr(),
+               n, rid_base, config.width, config.height, config.spp,
+               config.bounces, T, S, n_shadow, k, *supers,
+               1.0 / k if k else 0.0, config.area_light_half_extent,
+               int(emit_records), int(draws is not None),
+               int(grp is not None),
+               torch.cuda.current_stream(dev).cuda_stream)
     return hdr, rec
 
 
@@ -1046,6 +1090,7 @@ def faster_below(limit: int, plan):
     return checked
 
 
+@traced("plan")
 def trace_plan(scene: Scene, occluders=None, alone: bool = False):
     """K2's shared-memory plan on ``scene``, as ``grouped_tier`` takes it:
     (``static_smem_bytes``, its arguments). ``alone``: for a trace without
@@ -1057,6 +1102,7 @@ def trace_plan(scene: Scene, occluders=None, alone: bool = False):
                   scene.spheres.num_spheres)
 
 
+@traced("plan")
 def grouped_tier(scene: Scene, *plans) -> bool:
     """The tier a route takes when the caller does not force one: the
     grouped tier above STATIC_TIER_MAX triangles, as the JAX entry does, and
@@ -1077,6 +1123,7 @@ def grouped_tier(scene: Scene, *plans) -> bool:
     return False
 
 
+@traced("pack")
 def shadow_indices(occluders, num_tris: int, device) -> torch.Tensor:
     """int32 indices of the triangles kept in the shadow loop: all of them,
     or those an ``intersect.potential_occluders`` tuple marks True."""
@@ -1088,9 +1135,10 @@ def shadow_indices(occluders, num_tris: int, device) -> torch.Tensor:
                 f"occluders has {len(occluders)} entries for {num_tris} "
                 "triangles")
         keep = [i for i, k in enumerate(occluders) if k]
-    return torch.tensor(keep, dtype=torch.int32, device=device)
+    return upload(torch.tensor(keep, dtype=torch.int32), device)
 
 
+@traced("render")
 def render_path_cuda_impl(scene: Scene, config: RenderConfig,
                           emit_records: bool = False,
                           records_only: bool = False,
@@ -1114,7 +1162,8 @@ def render_path_cuda_impl(scene: Scene, config: RenderConfig,
     planes. ``occluders``: an ``intersect.potential_occluders`` tuple that
     culls the shadow loop. ``local_offsets`` / ``rid_base`` / ``flat_output``
     render the pixel range [rid_base, rid_base + len(local_offsets)) and
-    return flat [n, 3] hdr: the hooks a sharded renderer needs."""
+    return flat [n, 3] hdr: the hooks a sharded renderer needs. The call is
+    the span ``render``; a route that holds its own calls ``__wrapped__``."""
     device = resolve_device(device)
     reject_grad(scene)
     _check_bounces(config)
@@ -1142,7 +1191,7 @@ def render_path_cuda_impl(scene: Scene, config: RenderConfig,
     packed = _pack_inputs(scene.to(device), config, grouped, occluders)
     if local_offsets is None:
         local_offsets = pixel_rng_offsets(config, device)
-    offsets = torch.as_tensor(local_offsets).to(device)
+    offsets = upload(local_offsets, device)
     n_local = offsets.shape[0]
     if not flat_output and n_local != config.num_pixels:
         raise ValueError(
@@ -1161,7 +1210,7 @@ def render_path_cuda_impl(scene: Scene, config: RenderConfig,
                     "draws= does not match this (config, shard): expected "
                     f"plane shapes {expect}, got {got} — regenerate with "
                     "pregen_draws(config, local_offsets)")
-            draws = tuple(d.to(device) for d in draws)
+            draws = tuple(upload(d, device) for d in draws)
 
     if device.type == "cuda":
         hdr, rec = path_trace_kernel(

@@ -43,11 +43,12 @@ from .. import sampling as smp
 from ..intersect import compile_scene
 from ..render import pixel_rng_offsets
 from ..types import RenderConfig, Scene
-from ..utils.host import resolve_device
+from ..utils.host import resolve_device, upload
+from ..utils.metrics import traced
 from . import _build
 from .cuda_path import (OCC_BIT, SMEM_LIMIT, _check_bounces,
-                        _draw_shapes, _raise_on_launch_error, _require,
-                        _stratified_k, camera_vector, grouped_tier,
+                        _draw_shapes, _require, _stratified_k,
+                        camera_vector, grouped_tier, launch,
                         pregen_draws_plain, render_path_cuda_impl,
                         trace_plan)
 
@@ -96,6 +97,7 @@ def shade_plan(scene: Scene):
                                num_spheres > 0)
 
 
+@traced("plan")
 def fused_tier(scene: Scene, occluders=None) -> bool:
     """The fused route's tier, one for its trace and its backward: grouped
     above 64 triangles or where K2's or K3's tables do not fit a block."""
@@ -121,7 +123,8 @@ def grouped_blocks(n_local: int, num_prims: int, has_spheres: bool,
                       (tiles + _KERNEL_WARPS - 1) // _KERNEL_WARPS, cap))
 
 # Kernel launches since the process started (or since a caller reset them):
-# the wrapper adds one where it launches the kernel and nowhere else.
+# ``cuda_path.launch`` adds one where the wrapper launches the kernel and
+# nowhere else.
 # The grouped tier (K3g) counts apart from the static tier.
 LAUNCHES = {"shade_bwd_kernel": 0, "shade_bwd_grouped_kernel": 0}
 
@@ -141,6 +144,7 @@ def _auto_records_only(config: RenderConfig, n_pixels=None) -> bool:
 # Parameter views
 # ---------------------------------------------------------------------------
 
+@traced("pack_diff")
 def _pack_diff_inputs(scene: Scene, config: RenderConfig):
     """Differentiable packing of the parameter views the backward kernel
     differentiates: ``table`` [11, T] (or [16, T + S] with spheres),
@@ -465,17 +469,15 @@ def shade_bwd_kernel(g: torch.Tensor, records: torch.Tensor, draws,
         partials = torch.empty((rows, count), dtype=torch.float32, device=dev)
         out = torch.empty(count, dtype=torch.float32, device=dev)
         k = _stratified_k(config)
-        code = lib.grt_shade_bwd(
-            g.data_ptr(), records.data_ptr(), *ptrs, table.data_ptr(),
-            cam_vec.data_ptr(), light_vec.data_ptr(), partials.data_ptr(),
-            out.data_ptr(), n, int(rid_base), config.width, config.height,
-            config.spp, config.bounces, P, int(has_spheres), k,
-            1.0 / k if k else 0.0, config.area_light_half_extent,
-            int(draws is None), int(grouped), blocks,
-            torch.cuda.current_stream(dev).cuda_stream)
-    name = "shade_bwd_grouped_kernel" if grouped else "shade_bwd_kernel"
-    _raise_on_launch_error(code, name)
-    LAUNCHES[name] += 1
+        launch(LAUNCHES, "shade_bwd_grouped_kernel" if grouped
+               else "shade_bwd_kernel", lib.grt_shade_bwd,
+               g.data_ptr(), records.data_ptr(), *ptrs, table.data_ptr(),
+               cam_vec.data_ptr(), light_vec.data_ptr(), partials.data_ptr(),
+               out.data_ptr(), n, int(rid_base), config.width, config.height,
+               config.spp, config.bounces, P, int(has_spheres), k,
+               1.0 / k if k else 0.0, config.area_light_half_extent,
+               int(draws is None), int(grouped), blocks,
+               torch.cuda.current_stream(dev).cuda_stream)
     return out[:P * ntab].view(P, ntab), out[P * ntab:]
 
 
@@ -500,6 +502,7 @@ class _AttachGrad(torch.autograd.Function):
 
     @staticmethod
     @torch.autograd.function.once_differentiable
+    @traced("attach")
     def backward(ctx, g):
         table, cam_vec, light_vec, records, offsets, *draws = ctx.saved_tensors
         config = ctx.config
@@ -526,13 +529,14 @@ class _AttachGrad(torch.autograd.Function):
                 None, None) + (None,) * len(draws)
 
 
+@traced("render")
 def _render_fused(scene: Scene, config: RenderConfig, records_only,
                   local_offsets, rid_base: int, flat_output: bool, draws,
                   occluders, device):
     device = resolve_device(device)
     scene = scene.to(device)
     if local_offsets is not None:
-        local_offsets = torch.as_tensor(local_offsets).to(device)
+        local_offsets = upload(local_offsets, device)
     if records_only is None:
         records_only = _auto_records_only(
             config, None if local_offsets is None else local_offsets.shape[0])
@@ -541,8 +545,9 @@ def _render_fused(scene: Scene, config: RenderConfig, records_only,
     needs_grad = any(t.requires_grad for t in scene.tensors())
     grouped = fused_tier(scene, occluders) if needs_grad else None
     # The discrete decisions are constants of the gradient: trace a detached
-    # copy, keep the graph for the parameter views only.
-    hdr, aux = render_path_cuda_impl(
+    # copy, keep the graph for the parameter views only. This call's span
+    # holds the trace's.
+    hdr, aux = render_path_cuda_impl.__wrapped__(
         scene.detach(), config, emit_records=True, records_only=records_only,
         local_offsets=local_offsets, rid_base=rid_base,
         flat_output=flat_output, draws=draws, occluders=occluders,

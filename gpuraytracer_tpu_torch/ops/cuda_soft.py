@@ -54,8 +54,8 @@ from ..types import RenderConfig, Scene
 from ..utils.host import resolve_device
 from . import _build
 from .cuda_path import (STATIC_TIER_MAX, PackedScene, _camera_jitter,
-                        _pack_inputs, _raise_on_launch_error, _require,
-                        _stratified_k, plane_ahead, plane_within,
+                        _pack_inputs, _require, _stratified_k, launch,
+                        plane_ahead, plane_within,
                         render_path_cuda_impl, shadow_indices)
 from .cuda_shade import NROWS_TAB_SPH, NTAB_SPH, _pack_diff_inputs
 
@@ -85,7 +85,8 @@ _KERNEL_WARPS = _KERNEL_THREADS // 32
 MAX_PRIMS = STATIC_TIER_MAX + MAX_SPHERES
 
 # Kernel launches since the process started (or since a caller reset them):
-# each wrapper adds one where it launches its kernel and nowhere else.
+# ``cuda_path.launch`` adds one where a wrapper launches its kernel and
+# nowhere else.
 LAUNCHES = {"silh_kernel": 0, "soft_bwd_kernel": 0}
 
 
@@ -364,13 +365,11 @@ def silh_records_kernel(offsets: torch.Tensor, packed: PackedScene,
     codes = torch.empty((config.spp, n), dtype=i32, device=dev)
     k = _stratified_k(config)
     with torch.cuda.device(dev):
-        err = lib.grt_silh_records(
-            *ptrs, codes.data_ptr(), n, config.width, config.height,
-            config.spp, T, S, n_shadow, k, 1.0 / k if k else 0.0,
-            config.area_light_half_extent,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on_launch_error(err, "silh_kernel")
-    LAUNCHES["silh_kernel"] += 1
+        launch(LAUNCHES, "silh_kernel", lib.grt_silh_records,
+               *ptrs, codes.data_ptr(), n, config.width, config.height,
+               config.spp, T, S, n_shadow, k, 1.0 / k if k else 0.0,
+               config.area_light_half_extent,
+               torch.cuda.current_stream(dev).cuda_stream)
     return codes
 
 
@@ -807,15 +806,14 @@ def soft_bwd_kernel(g: torch.Tensor, codes: torch.Tensor,
         partials = torch.empty((blocks, count), dtype=torch.float32,
                                device=dev)
         out = torch.empty(count, dtype=torch.float32, device=dev)
-        err = lib.grt_soft_bwd(
-            g.data_ptr(), codes.data_ptr(), offsets.data_ptr(),
-            table.data_ptr(), cam_vec.data_ptr(), light_vec.data_ptr(),
-            partials.data_ptr(), out.data_ptr(), n, config.width,
-            config.height, config.spp, P, num_tris, k, 1.0 / k if k else 0.0,
-            config.area_light_half_extent, smp._f32(kappa), blocks,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on_launch_error(err, "soft_bwd_kernel")
-    LAUNCHES["soft_bwd_kernel"] += 1
+        launch(LAUNCHES, "soft_bwd_kernel", lib.grt_soft_bwd,
+               g.data_ptr(), codes.data_ptr(), offsets.data_ptr(),
+               table.data_ptr(), cam_vec.data_ptr(), light_vec.data_ptr(),
+               partials.data_ptr(), out.data_ptr(), n, config.width,
+               config.height, config.spp, P, num_tris, k,
+               1.0 / k if k else 0.0, config.area_light_half_extent,
+               smp._f32(kappa), blocks,
+               torch.cuda.current_stream(dev).cuda_stream)
     return out[:P * NTAB_SPH].view(P, NTAB_SPH), out[P * NTAB_SPH:]
 
 

@@ -32,6 +32,7 @@ from .brdf import brdf_contribution
 from .intersect import RAY_TMAX, RAY_TMIN, any_hit, closest_hit, compile_scene
 from .types import CompiledScene, RenderConfig, Scene
 from .utils.host import resolve_device
+from .utils.metrics import traced
 
 
 class RenderOutput(NamedTuple):
@@ -47,6 +48,7 @@ def pixel_coords(config: RenderConfig,
     return idx % config.width, idx // config.width
 
 
+@traced("pack")
 def pixel_rng_offsets(config: RenderConfig, device="cpu") -> torch.Tensor:
     """Per-pixel Halton index offsets, [N] int64 in [0, 2^20).
 

@@ -38,6 +38,7 @@ from .scene import cornell_box
 from .types import RenderConfig, Scene
 from .utils.checkpoint import accumulate, init_accumulator, resolve
 from .utils.host import fetch, resolve_device
+from .utils.metrics import span
 
 KERNELS = ("eager", "cuda", "decoupled")
 
@@ -126,10 +127,12 @@ class Renderer:
 
     def render_hdr(self) -> torch.Tensor:
         """One frame of linear radiance [H, W, 3], waited for (the
-        reference's waitUntilCompleted, renderer.swift:144)."""
+        reference's waitUntilCompleted, renderer.swift:144): the wait is
+        the span ``sync``."""
         hdr = self._route.frame()
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with span("sync"):
+                torch.cuda.synchronize(self.device)
         self.last_hdr = hdr
         return hdr
 

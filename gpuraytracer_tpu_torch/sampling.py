@@ -260,11 +260,13 @@ def align_hemisphere_with_normal(sample: torch.Tensor, normal: torch.Tensor):
 def build_orthonormal_basis(normal: torch.Tensor):
     """Branching basis (sampling.metal:159-172): the reference picks (0,1,0)
     when |n.x| > 0.9 else (1,0,0), then Gram-Schmidts. Returns
-    (tangent, bitangent)."""
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32,
-                      device=normal.device)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
-                      device=normal.device)
+    (tangent, bitangent). The two axes are copied from the host (spans
+    ``upload``: on a card each waits for the stream)."""
+    from .utils.host import upload  # utils.metrics imports this module
+    ex = upload(torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32),
+                normal.device)
+    ey = upload(torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32),
+                normal.device)
     a = torch.where((normal[..., 0].abs() > 0.9)[..., None], ey, ex)
     tangent = normalize(a - dot(a, normal)[..., None] * normal)
     bitangent = cross(normal, tangent)

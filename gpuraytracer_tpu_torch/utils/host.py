@@ -1,4 +1,4 @@
-"""Device selection and device -> host readback.
+"""Device selection, host -> device copies and device -> host readback.
 
 Every entry point of the port takes a ``device`` argument whose default is
 ``"cuda"``. ``resolve_device`` is the one place that turns it into a
@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .metrics import span
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -22,6 +24,19 @@ def resolve_device(device="cuda") -> torch.device:
     return device
 
 
+def upload(x, device) -> torch.Tensor:
+    """``x`` (a tensor, an array or a list) on ``device``. A copy from the
+    host to a card is the span ``upload``: from pageable memory it waits
+    for the stream."""
+    x = torch.as_tensor(x)
+    if x.device.type == "cpu" and torch.device(device).type != "cpu":
+        with span("upload"):
+            return x.to(device)
+    return x.to(device)
+
+
 def fetch(x: torch.Tensor) -> np.ndarray:
-    """Tensor -> numpy on the host (waits for the device)."""
-    return x.detach().cpu().numpy()
+    """Tensor -> numpy on the host (waits for the device): the span
+    ``fetch``."""
+    with span("fetch"):
+        return x.detach().cpu().numpy()

@@ -1,27 +1,25 @@
-"""Observability: ray accounting, structured metrics, timing, profiler
-traces, and the H100 roofline.
+"""Observability: ray accounting, the program's spans, profiler traces, and
+the H100 roofline.
 
 Counterpart of ``gpuraytracer_tpu/utils/metrics.py``: one formula for rays
-per frame and Mrays/s, a JSON-lines metric logger, a timing context, a
-``torch.profiler`` trace, and the "speed-of-light" model that says what share
-of the card's floor a measured time reaches. The card's figures replace the
-JAX module's TPU v5e figures, and the operation counts are the hand counts
-``chip_smoke.py`` charges its kernels (it imports them from here).
+per frame and Mrays/s, spans at the port's layer boundaries (``span``,
+``traced``), a ``torch.profiler`` trace, and the "speed-of-light" bound of a
+kernel's work. The card's figures replace the JAX module's TPU v5e figures,
+and the operation counts are the hand counts ``chip_smoke.py`` charges its
+kernels (it imports them from here).
 """
 from __future__ import annotations
 
-import json
+import contextlib
+import functools
 import math
 import os
-import sys
 import time
-from contextlib import contextmanager
-from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+
+import torch
 
 from ..sampling import PRIMES
 from ..types import RenderConfig
-
 
 def nominal_rays(config: RenderConfig) -> int:
     """Rays per frame, counted whether or not a path is still alive.
@@ -47,41 +45,13 @@ def mrays_per_s(config: RenderConfig, seconds: float) -> float:
     return nominal_rays(config) / seconds / 1e6
 
 
-@dataclass
-class MetricLogger:
-    """JSON-lines metric sink: a file, or standard error."""
-
-    path: Optional[str] = None
-    records: List[Dict[str, Any]] = field(default_factory=list)
-
-    def log(self, name: str, value: Any, **tags: Any) -> None:
-        rec = {"metric": name, "value": value, "time": time.time(), **tags}
-        self.records.append(rec)
-        line = json.dumps(rec)
-        if self.path:
-            with open(self.path, "a") as f:
-                f.write(line + "\n")
-        else:
-            print(line, file=sys.stderr)
-
-
-@contextmanager
-def timed(logger: Optional[MetricLogger], name: str, **tags: Any):
-    """Wall-clock a block into ``logger`` (seconds). The caller waits for
-    the device inside the block (``torch.cuda.synchronize()``)."""
-    t0 = time.perf_counter()
-    yield
-    dt = time.perf_counter() - t0
-    if logger is not None:
-        logger.log(name, dt, unit="s", **tags)
-
-
-@contextmanager
+@contextlib.contextmanager
 def profiler_trace(log_dir: str):
     """``torch.profiler`` over the block, the card's activity included where
     there is a card; writes a Chrome trace (``trace_<pid>_<ns>.json``, for
-    chrome://tracing or Perfetto) into ``log_dir`` and yields the profiler."""
-    import torch
+    chrome://tracing or Perfetto) into ``log_dir`` and yields the profiler.
+    The trace holds the program's ``grt.`` spans (``span``) beside the
+    kernels and copies."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -95,6 +65,36 @@ def profiler_trace(log_dir: str):
     finally:
         prof.export_chrome_trace(os.path.join(
             log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+# The program's spans. Each opens a ``torch.profiler.record_function`` named
+# "grt." + name while torch's profiler records, and does nothing otherwise:
+# the profiler is the only switch. They land in the profiler's Chrome trace
+# beside the card's kernels and copies, on the same clock. Three classes, by
+# what the host does inside: work (render, plan, pack, pack.grouped,
+# pack.samples, pack_diff, attach), a kernel launch (launch.<LAUNCHES key>),
+# a wait on the stream (upload, fetch, sync).
+_profiling = torch.autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager: the span "grt." + ``name`` while the profiler
+    records, else a shared no-op (one C call)."""
+    if _profiling():
+        return torch.profiler.record_function("grt." + name)
+    return _OFF
+
+
+def traced(name: str):
+    """Decorator form of ``span``: the whole call is the span."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 # ---------------------------------------------------------------------------
@@ -213,116 +213,3 @@ def halton_ops(cfg: RenderConfig, n: int) -> int:
     dims = [0, 1] + [2 + 5 * b + k for b in range(cfg.bounces)
                      for k in range(4)]
     return halton_dim_ops(dims, cfg) * cfg.spp * n
-
-
-def _model(nbytes: int, ops: int) -> dict:
-    t_ops = ops / H100["f32_ops_per_s"]
-    t_hbm = nbytes / H100["hbm_bytes_per_s"]
-    return {"t_ops_s": t_ops, "t_hbm_s": t_hbm, "t_floor_s": max(t_ops, t_hbm),
-            "bound_by": "operations" if t_ops > t_hbm else "bytes",
-            "ops": int(ops), "bytes": int(nbytes)}
-
-
-def _path_cfg(config: RenderConfig) -> RenderConfig:
-    return (config.replace(bounces=1) if config.integrator == "direct"
-            else config)
-
-
-# The four helpers below are a model of a frame on its config alone: every
-# lane live at every bounce or sample, every primitive test counted whole.
-# The bounds chip_smoke.py prints (and PERF.md keeps) count what a run's data
-# needs instead: the live lanes, and in K2 and K4 the prefilter's share of a
-# triangle test where the rest does not run. Those bounds are lower.
-
-def roofline_path_fwd(config: RenderConfig, num_tris: int = 36,
-                      num_spheres: int = 0, in_kernel_rng: bool = True,
-                      shadow_tris: Optional[int] = None) -> dict:
-    """Floor of the variant-B trace kernel (K2) on a frame of ``config``,
-    every lane live at every bounce and every test counted whole: per
-    (pixel, sample, bounce) a closest hit over every primitive, a shadow
-    probe over ``shadow_tris`` triangles (those the occluder cull keeps;
-    default all) and every sphere, and the shading; per (pixel, sample) the
-    camera ray and, with ``in_kernel_rng``, the radical inverses. Bytes: the
-    pixel offsets in, the hdr out. Returns t_ops_s, t_hbm_s, t_floor_s,
-    bound_by, ops, bytes. The whole-test model: above the prefilter-aware
-    bound chip_smoke.py prints for K2."""
-    config = _path_cfg(config)
-    if shadow_tris is None:
-        shadow_tris = num_tris
-    n = config.num_pixels
-    per_bounce = (num_tris * OPS_TRI_CLOSEST + shadow_tris * OPS_TRI_SHADOW
-                  + num_spheres * (OPS_SPH_CLOSEST + OPS_SPH_SHADOW)
-                  + OPS_SHADE)
-    ops = n * config.spp * (config.bounces * per_bounce + OPS_CAMERA)
-    if in_kernel_rng:
-        ops += halton_ops(config, n)
-    return _model(n * (4 + 12), ops)
-
-
-def roofline_path_bwd(config: RenderConfig, num_spheres: int = 0,
-                      recompute_rng: bool = False) -> dict:
-    """Floor of the variant-B backward kernel (K3): no ray tests (the
-    records replay the decisions); per (pixel, sample, bounce) one live
-    bounce forward and reversed, a sphere's share of them where
-    ``num_spheres``, per (pixel, sample) the camera ray, and with
-    ``recompute_rng`` the radical inverses. Bytes: the records, the hdr
-    cotangent, and the draw planes (or, regenerated, the offsets). Every
-    bounce counted live: above the bound chip_smoke.py prints for K3, which
-    counts the live bounces of the run's records."""
-    config = _path_cfg(config)
-    n = config.num_pixels
-    nsb = n * config.spp * config.bounces
-    ops = nsb * OPS_BWD_BOUNCE + n * config.spp * OPS_BWD_CAMERA
-    if num_spheres:
-        ops += nsb * OPS_BWD_SPHERE
-    nbytes = 4 * nsb + 12 * n
-    if recompute_rng:
-        ops += halton_ops(config, n)
-        nbytes += 4 * n
-    else:
-        nbytes += 4 * (4 * config.bounces + 2) * config.spp * n
-    return _model(nbytes, ops)
-
-
-def roofline_mis_fwd(config: RenderConfig, num_tris: int = 34,
-                     num_spheres: int = 0,
-                     shadow_tris: Optional[int] = None) -> dict:
-    """Floor of the variant-A MIS kernel (K4): per (pixel, camera ray) the
-    primary closest hit and its shading; per sample (``mis_samples // 3``)
-    the light probe, two lobe closest hits and two secondary probes over
-    every primitive, the sample's shading and two reached secondary light
-    samples. Bytes: the hdr out. The whole-test model: above the
-    prefilter-aware bound chip_smoke.py prints for K4."""
-    if shadow_tris is None:
-        shadow_tris = num_tris
-    rays = config.num_pixels * config.camera_rays
-    closest = num_tris * OPS_TRI_CLOSEST + num_spheres * OPS_SPH_CLOSEST
-    probe = shadow_tris * OPS_TRI_SHADOW + num_spheres * OPS_SPH_SHADOW
-    per_sample = (3 * probe + 2 * closest + OPS_MIS_SAMPLE
-                  + 2 * OPS_MIS_SECONDARY)
-    ops = rays * (closest + OPS_MIS_CAMERA
-                  + (config.mis_samples // 3) * per_sample)
-    return _model(12 * config.num_pixels, ops)
-
-
-def roofline_mis_bwd(config: RenderConfig, num_spheres: int = 0) -> dict:
-    """Floor of the MIS backward kernel (K5): per (pixel, camera ray) the
-    hoisted stage, per sample the light strategy and both lobe strategies on
-    geometry (their costliest paths), a sphere winner's share where
-    ``num_spheres``. Bytes: the camera and sample records, the hdr
-    cotangent. Every path counted at its costliest: above the bound
-    chip_smoke.py prints for K5, which counts the paths of the run's
-    records."""
-    rays = config.num_pixels * config.camera_rays
-    s = config.mis_samples // 3
-    per_sample = OPS_K5_LIGHT + OPS_K5_COS_ON_GEO + OPS_K5_VNDF_ON_GEO
-    ops = rays * (OPS_K5_HOIST + s * per_sample)
-    if num_spheres:
-        ops += rays * (1 + 2 * s) * OPS_K5_SPHERE_HIT
-    nbytes = 4 * rays * (1 + s) + 12 * config.num_pixels
-    return _model(nbytes, ops)
-
-
-def roofline_pct(measured_s: float, model: dict) -> float:
-    """Achieved share of the modelled floor, in percent."""
-    return 100.0 * model["t_floor_s"] / measured_s
