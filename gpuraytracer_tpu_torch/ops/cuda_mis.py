@@ -46,12 +46,12 @@ from ..types import RenderConfig, Scene
 from ..utils.host import resolve_device, upload
 from ..utils.metrics import traced
 from . import _build
-from .cuda_path import (SMEM_LIMIT, SUPER, GroupedTables, _pack_grouped,
-                        _require, camera_vector, closest_bounds,
-                        closest_grouped, count_pack, grouped_launch_tables,
-                        grouped_tier, launch, occluded_grouped,
-                        prefilter_passes, faster_below, shadow_count,
-                        shadow_indices)
+from .cuda_path import (SMEM_LIMIT, SUPER, GroupedTables, _require,
+                        closest_bounds, closest_grouped, count_pack,
+                        device_key, grouped_launch_tables, grouped_tables,
+                        grouped_tier, kept, kept_camera_vector, launch,
+                        occluded_grouped, prefilter_passes, faster_below,
+                        shadow_count, shadow_indices, triangle_table)
 
 # Rows of the packed tables (the JAX package's layout).
 NROWS = 21   # tri: n xyz, c0, s1 xyz, c1, s2 xyz, c2, diffuse rgb, is_em, emissive rgb, metallic, roughness
@@ -101,8 +101,9 @@ BACKWARD_LANE_STEPS = 1 << 21
 # nowhere else. The grouped tier (K4g) counts apart from the static tier.
 LAUNCHES = {"mis_kernel": 0, "mis_kernel_grouped": 0}
 
-# Scene packs since the process started, as ``cuda_path.PACKS`` counts them.
-PACKS = {"scene": 0, "same_geometry": 0}
+# Scene packs since the process started, as ``cuda_path.PACKS`` counts them
+# (its "reused" counts packs whose geometry tables were kept ones).
+PACKS = {"scene": 0, "same_geometry": 0, "reused": 0}
 _last_geometry = None
 
 
@@ -150,6 +151,16 @@ def sample_table(config: RenderConfig) -> torch.Tensor:
     return torch.cat([rows, derived], dim=0)
 
 
+def kept_sample_table(config: RenderConfig, device) -> torch.Tensor:
+    """``sample_table`` on ``device``, kept (``cuda_path.kept``) under
+    (mis_samples, sampler, device): made and uploaded once per process and
+    config, for the trace's packing and the backward's alike."""
+    device = device_key(device)
+    return kept("samples",
+                lambda: upload(sample_table(config), device).contiguous(),
+                values=(config.mis_samples, config.sampler, device))[0]
+
+
 @traced("pack")
 def _pack_inputs(scene: Scene, config: RenderConfig, grouped: bool = False,
                  occluders=None) -> PackedMisScene:
@@ -161,20 +172,22 @@ def _pack_inputs(scene: Scene, config: RenderConfig, grouped: bool = False,
     winner's index, and the sample table. ``grouped`` adds the grouped
     tier's tables from the first 12 rows of the triangle table, the light
     probes' table culled by ``occluders`` (the JAX package's
-    ``pallas_mis._pack_inputs(grouped=True)``)."""
+    ``pallas_mis._pack_inputs(grouped=True)``).
+
+    Kept as ``cuda_path._pack_inputs`` keeps them: the table's geometry
+    rows, the grouped tables and the camera; besides them the sample table
+    on the device (``kept_sample_table``). ``PACKS`` counts the pack as
+    ``cuda_path.PACKS`` does."""
     global _last_geometry
-    _last_geometry = count_pack(PACKS, _last_geometry, scene, occluders)
-    c = compile_scene(scene.triangles)
+    tris = scene.triangles
+    tri, geo, reused = triangle_table(tris, (tris.metallic, tris.roughness))
+    grp = None
+    if grouped:
+        grp, grp_reused = grouped_tables(scene, geo, occluders)
+        reused = reused and grp_reused
+    _last_geometry = count_pack(PACKS, _last_geometry, scene, occluders,
+                                reused)
     f32 = torch.float32
-    tri = torch.stack([
-        c.n[:, 0], c.n[:, 1], c.n[:, 2], c.c0,
-        c.s1[:, 0], c.s1[:, 1], c.s1[:, 2], c.c1,
-        c.s2[:, 0], c.s2[:, 1], c.s2[:, 2], c.c2,
-        c.diffuse[:, 0], c.diffuse[:, 1], c.diffuse[:, 2],
-        c.is_emissive.to(f32),
-        c.emissive[:, 0], c.emissive[:, 1], c.emissive[:, 2],
-        c.metallic, c.roughness,
-    ])  # [NROWS, T]
     dev = tri.device
 
     light = scene.light
@@ -211,13 +224,10 @@ def _pack_inputs(scene: Scene, config: RenderConfig, grouped: bool = False,
         sph = torch.zeros((SROWS, 1), dtype=f32, device=dev)
         atab = tri_cols
     return PackedMisScene(
-        tri=tri.contiguous(),
-        cam=camera_vector(scene.camera, config).contiguous(),
+        tri=tri.contiguous(), cam=kept_camera_vector(scene.camera, config),
         light=light_vec.contiguous(), sph=sph.contiguous(),
-        atab=atab.contiguous(),
-        tabs=upload(sample_table(config), dev).contiguous(),
-        num_spheres=sp.num_spheres,
-        grouped=_pack_grouped(scene, tri, occluders) if grouped else None)
+        atab=atab.contiguous(), tabs=kept_sample_table(config, dev),
+        num_spheres=sp.num_spheres, grouped=grp)
 
 
 # ---------------------------------------------------------------------------

@@ -49,14 +49,14 @@ import torch
 from .. import sampling as smp
 from ..intersect import RAY_TMAX, RAY_TMIN, compile_scene
 from ..types import RenderConfig, Scene
-from ..utils.host import resolve_device, upload
+from ..utils.host import resolve_device
 from ..utils.metrics import traced
 from . import _build
 from .cuda_mis import (NTAB_EXT, REC_CODE_MASK, REC_SHIFT_C, REC_SHIFT_V,
                        TAB_CSU0, TAB_CSU1, TAB_CTH, TAB_K0V, TAB_K1V, TAB_LU0,
                        TAB_LU1, TAB_VCT, TAB_VSU0, TAB_VSU1, TAB_W0C, TAB_W1C,
-                       MisRecords, mis_plan, render_mis_cuda_impl,
-                       sample_table)
+                       MisRecords, kept_sample_table, mis_plan,
+                       render_mis_cuda_impl)
 from .cuda_path import (SMEM_LIMIT, _require, camera_vector, grouped_tier,
                         launch)
 
@@ -1584,7 +1584,7 @@ def _render_fused(scene: Scene, config: RenderConfig, local_n, rid_base,
     if not needs_grad:
         return hdr
     table, cam_vec, light_vec = _pack_diff_inputs_mis(scene, config)
-    stab = upload(sample_table(config), device).contiguous()
+    stab = kept_sample_table(config, device)
     return _AttachGradMis.apply(config, int(rid_base), grouped, hdr, table,
                                 cam_vec, light_vec, rec.camera, rec.samples,
                                 stab)

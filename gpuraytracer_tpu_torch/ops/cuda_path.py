@@ -10,6 +10,10 @@ sweeps a two-level hierarchy of bounding boxes in triangle order:
   * ``group_aabbs``, ``pad_geo``, ``pack_shadow_tables``  the grouped tier's
     tables (groups of 16 triangles, supers of 8 groups, the occluder-culled
     shadow table), as the JAX package packs them
+  * ``kept``                   the packing's memo: the tables made from what a
+    loop of frames or steps leaves unchanged (the triangle table's geometry
+    rows, the grouped tables, the cull, the camera, the MIS sample table)
+    are made again only where their sources changed
 
   * ``pregen_draws``           the Halton draw planes (kernel ``draws_kernel``)
   * ``render_path_cuda_impl``  the full spp x bounces trace (``path_kernel``,
@@ -93,12 +97,16 @@ NATTR = 13   # atab: normal xyz, diffuse rgb, emissive rgb, is_em, sphere center
 # static tier.
 LAUNCHES = {"draws_kernel": 0, "path_kernel": 0, "path_kernel_grouped": 0}
 
-# Scene packs since the process started: every ``_pack_inputs`` call, and
-# among them those whose geometry is that of this module's previous pack
-# (``count_pack``): tables made again from the same vertices, spheres and
-# cull.
-PACKS = {"scene": 0, "same_geometry": 0}
+# Scene packs since the process started (``count_pack``): every
+# ``_pack_inputs`` call under "scene"; under "reused" those whose geometry
+# tables (the triangle rows and, in the grouped tier, ``GroupedTables``) came
+# from ``KEPT``; under "same_geometry" those that made them again although
+# the vertices, spheres and cull were those of this module's previous pack.
+PACKS = {"scene": 0, "same_geometry": 0, "reused": 0}
 _last_geometry = None
+# The tables the packing layer keeps (``kept``): per slot, the last tables
+# made and the key they were made under.
+KEPT = {}
 
 
 class TraceAux(NamedTuple):
@@ -235,28 +243,115 @@ def _pack_grouped(scene: Scene, tri: torch.Tensor,
                          num_tris=tri.shape[1], num_shadow=n_shadow)
 
 
-def _geometry(scene: Scene, occluders):
-    """What a pack's geometry is made from: the triangles' vertices and the
-    spheres' centers and radii, each as its storage (held weakly), offset,
-    shape, strides and version, and the occluder tuple's identity."""
-    ts = (scene.triangles.verts, scene.spheres.center, scene.spheres.radius)
-    return (tuple(weakref.ref(t.untyped_storage()) for t in ts),
-            tuple((t.storage_offset(), t.shape, t.stride(), t._version)
-                  for t in ts),
-            id(occluders))
+class _Key(NamedTuple):
+    """What a table is made from: each source tensor's storage (held
+    weakly) with its offset, shape, strides, dtype and version; plain
+    values; and the occluder tuple itself (held, compared by identity)."""
+
+    storages: tuple
+    layout: tuple
+    values: tuple
+    occluders: object
+
+    @staticmethod
+    def of(tensors=(), values=(), occluders=None) -> "_Key":
+        return _Key(tuple(weakref.ref(t.untyped_storage()) for t in tensors),
+                    tuple((t.storage_offset(), t.shape, t.stride(), t.dtype,
+                           t._version) for t in tensors),
+                    tuple(values), occluders)
+
+    def holds(self, now: "_Key") -> bool:
+        """``now`` is this key: the same storages, still alive, at the same
+        layout and version, equal values and the same cull object."""
+        return (self.occluders is now.occluders and self.layout == now.layout
+                and self.values == now.values
+                and all(a() is not None and a() is b()
+                        for a, b in zip(self.storages, now.storages)))
 
 
-def count_pack(packs, last, scene: Scene, occluders):
-    """Count one pack of ``scene`` in ``packs``, as same_geometry where its
-    geometry is ``last``'s: the same storages, still alive, at the same
-    layout and version, and the same cull. Returns the geometry, the
-    ``last`` of the next call. Counts only; keeps nothing alive."""
-    now = _geometry(scene, occluders)
+def kept(slot: str, make, tensors=(), values=(), occluders=None):
+    """``make()``'s tables, kept while what they are made from holds: the
+    tables of ``KEPT[slot]`` where its key holds (``_Key.holds``), else
+    made now and kept in place of the slot's last. ``tensors``, ``values``
+    and ``occluders`` are all that ``make`` reads. Tables of a source that
+    requires grad are never kept (they would carry its graph), nor those of
+    a cull that is not a tuple (a list can change in place). A write the
+    version counter does not see (through ``.data``, a fused optimizer
+    step, an array sharing the memory) is not seen here either, as autograd
+    does not see it in its saved tensors. Returns the tables and whether
+    they were kept ones."""
+    if any(t.requires_grad for t in tensors):
+        return make(), False
+    key = _Key.of(tensors, values, occluders)
+    entry = KEPT.get(slot)
+    if entry is not None and entry[0].holds(key):
+        return entry[1], True
+    tables = make()
+    if occluders is None or isinstance(occluders, tuple):
+        KEPT[slot] = (key, tables)
+    return tables, False
+
+
+def device_key(device) -> torch.device:
+    """``device`` with its index, so that a table kept for "cuda" is one for
+    the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def count_pack(packs, last, scene: Scene, occluders, reused: bool) -> _Key:
+    """Count one pack of ``scene`` in ``packs``: every pack under "scene";
+    under "reused" one whose geometry tables were kept ones; under
+    "same_geometry" one that made them again although its vertices, sphere
+    centers and radii and cull are ``last``'s (the previous pack's, as
+    ``_Key.holds`` compares them). Returns this pack's key, the ``last`` of
+    the next call."""
+    sp = scene.spheres
+    now = _Key.of((scene.triangles.verts, sp.center, sp.radius),
+                  occluders=occluders)
     packs["scene"] += 1
-    if last is not None and last[1:] == now[1:] and all(
-            a() is not None and a() is b() for a, b in zip(last[0], now[0])):
+    if reused:
+        packs["reused"] += 1
+    elif last is not None and last.holds(now):
         packs["same_geometry"] += 1
     return now
+
+
+def triangle_table(tris, extra_rows=()):
+    """The [NROWS, T] triangle table, ``extra_rows`` after it (``cuda_mis``
+    adds metallic and roughness): the geometry rows 0-11 (n xyz, c0, s1 xyz,
+    c1, s2 xyz, c2, ``compile_scene``'s geometric outputs) kept under the
+    vertices' key, the material rows made now. Returns the table, its
+    geometry rows and whether they were kept ones."""
+    def geometry_rows():
+        c = compile_scene(tris)
+        return torch.stack([c.n[:, 0], c.n[:, 1], c.n[:, 2], c.c0,
+                            c.s1[:, 0], c.s1[:, 1], c.s1[:, 2], c.c1,
+                            c.s2[:, 0], c.s2[:, 1], c.s2[:, 2], c.c2])
+    geo, reused = kept("geometry", geometry_rows, (tris.verts,))
+    d, e = tris.diffuse, tris.emissive
+    rows = [d[:, 0], d[:, 1], d[:, 2],
+            (torch.linalg.norm(e, dim=-1) > 0.0).to(torch.float32),
+            e[:, 0], e[:, 1], e[:, 2], *extra_rows]
+    return torch.cat([geo, torch.stack(rows)]), geo, reused
+
+
+def grouped_tables(scene: Scene, geo: torch.Tensor, occluders):
+    """``_pack_grouped``'s tables from the geometry rows ``geo``, kept under
+    the vertices' key and the cull. Returns them and whether they were kept
+    ones."""
+    return kept("grouped", lambda: _pack_grouped(scene, geo, occluders),
+                (scene.triangles.verts,), occluders=occluders)
+
+
+def kept_camera_vector(cam, config: RenderConfig) -> torch.Tensor:
+    """``camera_vector``, kept under the camera's tensors and the
+    resolution."""
+    return kept("camera", lambda: camera_vector(cam, config).contiguous(),
+                (cam.position, cam.direction, cam.up, cam.horizontal_fov),
+                (config.resolution, config.integer_aspect))[0]
 
 
 @traced("pack")
@@ -267,22 +362,26 @@ def _pack_inputs(scene: Scene, config: RenderConfig, grouped: bool = False,
     scalars, the spheres to a [SROWS, S] table, and the shading attributes
     of every primitive (triangles first, then spheres) to a [NATTR, T + S]
     table read by the winner's index. ``grouped`` adds the grouped tier's
-    tables, the shadow table culled by ``occluders``."""
+    tables, the shadow table culled by ``occluders``.
+
+    What a loop of frames or steps does not change is kept (``kept``): the
+    table's geometry rows under the vertices, the grouped tables under the
+    vertices and the cull, the camera under its tensors and the resolution.
+    The material rows, the light, the spheres and the attribute table are
+    made at every call. ``PACKS`` counts the pack, as "reused" where its
+    geometry tables were kept ones."""
     global _last_geometry
-    _last_geometry = count_pack(PACKS, _last_geometry, scene, occluders)
-    c = compile_scene(scene.triangles)
+    tri, geo, reused = triangle_table(scene.triangles)
+    grp = None
+    if grouped:
+        grp, grp_reused = grouped_tables(scene, geo, occluders)
+        reused = reused and grp_reused
+    _last_geometry = count_pack(PACKS, _last_geometry, scene, occluders,
+                                reused)
     f32 = torch.float32
-    tri = torch.stack([
-        c.n[:, 0], c.n[:, 1], c.n[:, 2], c.c0,
-        c.s1[:, 0], c.s1[:, 1], c.s1[:, 2], c.c1,
-        c.s2[:, 0], c.s2[:, 1], c.s2[:, 2], c.c2,
-        c.diffuse[:, 0], c.diffuse[:, 1], c.diffuse[:, 2],
-        c.is_emissive.to(f32),
-        c.emissive[:, 0], c.emissive[:, 1], c.emissive[:, 2],
-    ])  # [NROWS, T]
     dev = tri.device
 
-    cam_vec = camera_vector(scene.camera, config)
+    cam_vec = kept_camera_vector(scene.camera, config)
 
     light = scene.light
     light_vec = torch.cat([light.center.to(f32).reshape(-1),
@@ -315,11 +414,10 @@ def _pack_inputs(scene: Scene, config: RenderConfig, grouped: bool = False,
     else:
         sph = torch.zeros((SROWS, 1), dtype=f32, device=dev)
         atab = tri_cols
-    return PackedScene(tri=tri.contiguous(), cam=cam_vec.contiguous(),
+    return PackedScene(tri=tri.contiguous(), cam=cam_vec,
                        light=light_vec.contiguous(), sph=sph.contiguous(),
                        atab=atab.contiguous(), num_spheres=sp.num_spheres,
-                       grouped=(_pack_grouped(scene, tri, occluders)
-                                if grouped else None))
+                       grouped=grp)
 
 
 def _stratified_k(config: RenderConfig) -> int:
@@ -1126,16 +1224,20 @@ def grouped_tier(scene: Scene, *plans) -> bool:
 @traced("pack")
 def shadow_indices(occluders, num_tris: int, device) -> torch.Tensor:
     """int32 indices of the triangles kept in the shadow loop: all of them,
-    or those an ``intersect.potential_occluders`` tuple marks True."""
-    if occluders is None:
-        keep = list(range(num_tris))
-    else:
-        if len(occluders) != num_tris:
-            raise ValueError(
-                f"occluders has {len(occluders)} entries for {num_tris} "
-                "triangles")
-        keep = [i for i, k in enumerate(occluders) if k]
-    return upload(torch.tensor(keep, dtype=torch.int32), device)
+    or those an ``intersect.potential_occluders`` tuple marks True. Kept
+    (``kept``) under the cull, ``num_tris`` and the device."""
+    if occluders is not None and len(occluders) != num_tris:
+        raise ValueError(
+            f"occluders has {len(occluders)} entries for {num_tris} "
+            "triangles")
+    device = device_key(device)
+
+    def make():
+        keep = (range(num_tris) if occluders is None
+                else [i for i, k in enumerate(occluders) if k])
+        return upload(torch.tensor(keep, dtype=torch.int32), device)
+    return kept("shadow", make, values=(num_tris, device),
+                occluders=occluders)[0]
 
 
 @traced("render")

@@ -1,7 +1,8 @@
 """The port's spans and counters on the CPU, at 8x8 pixels: a span records
 only while torch's profiler records and changes no number; a fit step of
 each integrator opens its spans in the layers' order, its backward the
-attached body's; ``PACKS`` counts a pack of the same geometry; every kernel
+attached body's; ``PACKS`` counts a pack whose geometry tables were kept
+ones; every kernel
 launch goes through the one helper that counts it and spans it."""
 import contextlib
 import dataclasses
@@ -89,6 +90,9 @@ def test_a_fit_step_opens_the_layers_spans_in_order(integrator, tmp_path):
 
 @pytest.mark.parametrize("integrator", ["path", "mis"])
 def test_packs_count_a_pack_of_the_same_geometry(integrator):
+    """A pack of unchanged geometry takes its tables from the memo
+    ("reused") instead of making them again ("same_geometry"); an in-place
+    edit of the vertices makes them again once."""
     mod, render, cfg = ((cuda_path, ops.render_path_cuda, PATH)
                         if integrator == "path"
                         else (cuda_mis, ops.render_mis_cuda, MIS))
@@ -97,15 +101,15 @@ def test_packs_count_a_pack_of_the_same_geometry(integrator):
 
     def counted():
         render(scene, cfg, device="cpu")
-        return (mod.PACKS["scene"] - before["scene"],
-                mod.PACKS["same_geometry"] - before["same_geometry"])
+        return tuple(mod.PACKS[k] - before[k]
+                     for k in ("scene", "same_geometry", "reused"))
 
-    assert counted() == (1, 0)
-    assert counted() == (2, 1)
+    assert counted() == (1, 0, 0)
+    assert counted() == (2, 0, 1)
     with torch.no_grad():
         scene.triangles.verts[0, 0, 0] += 1e-3
-    assert counted() == (3, 1)
-    assert counted() == (4, 2)
+    assert counted() == (3, 0, 1)
+    assert counted() == (4, 0, 2)
 
 
 def test_the_launch_helper_counts_and_spans_each_launch(tmp_path):
