@@ -11,7 +11,9 @@ the program on many seeds in one process (for setting the limits).
 Prints one JSON line per seed: the numbers the check compares and the
 limits. The control runs at the cell's own sizes, so it needs the card; a
 fit's control takes its three steps, a frame's renders the pixels a run
-keeps.
+keeps. A cell on more than one card is read by its ranks, one a card, as
+its runs are (``portbench.ranks``): the program's step is the sharded one,
+and each rank's card takes the reference's blocks of its rows.
 """
 from __future__ import annotations
 
@@ -40,12 +42,15 @@ def _setup(cell_name: str, seed: int, traffic_override=None):
 
 
 def control_numbers(cell_name: str, seed: int, device="cuda",
-                    traffic_override=None, frames: int = 200):
-    """The check's numbers with the bfloat16 reference as the program."""
+                    traffic_override=None, frames: int = 200,
+                    reference=Reference):
+    """The check's numbers with the bfloat16 reference as the program.
+    ``reference``: the reference's class, or a rank's share of it
+    (``ranks.ShardedReference``)."""
     from . import program
     cell, traffic, tree = _setup(cell_name, seed, traffic_override)
-    low = Reference(tree, traffic, dtype=CONTROL_DTYPE, device=device)
-    ref = Reference(tree, traffic, device=device)
+    low = reference(tree, traffic, dtype=CONTROL_DTYPE, device=device)
+    ref = reference(tree, traffic, device=device)
     if traffic["job"] == "frame":
         rng = np.random.Generator(np.random.PCG64(seed))
         n = traffic["width"] * traffic["height"]
@@ -71,18 +76,19 @@ def control_numbers(cell_name: str, seed: int, device="cuda",
 
 
 def program_numbers(cell_name: str, seed: int, device="cuda",
-                    traffic_override=None, fault=None):
+                    traffic_override=None, fault=None, reference=Reference):
     """A fit's readings: the program's first three steps, as a run makes
     them in set-up, against the reference; sound, or with one of
     ``program.FAULTS`` planted."""
     from . import program
     from .tracing import Spans
     cell, traffic, tree = _setup(cell_name, seed, traffic_override)
-    job = program.FitJob(tree, traffic, seed, device, Spans(False), fault)
+    job = program.JOBS[traffic["job"]](tree, traffic, seed, device,
+                                       Spans(False), fault)
     r = job.first_steps()
     target = job.target.detach().clone()
     job.release()
-    ref = Reference(tree, traffic, device=device)
+    ref = reference(tree, traffic, device=device)
     opt = traffic["optimizer"]
     return cell, check.fit_numbers(
         r["losses"], r["first_grad"], r["start"], r["after"], ref, target,
@@ -98,9 +104,19 @@ def main(argv=None) -> int:
     parser.add_argument("--fault", default=None,
                         help="with --program: a fault of program.FAULTS")
     args = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("no card", file=sys.stderr)
+    cell = spec.load_cell(args.workload)
+    if not torch.cuda.is_available() or (
+            torch.cuda.device_count() < cell.chips):
+        print(f"needs {cell.chips} card(s)", file=sys.stderr)
         return 2
+    if cell.chips > 1:
+        from . import ranks
+        lines = ranks.launch_readings(
+            args.workload, args.seeds, "program" if args.program
+            else "control", cell.chips, fault=args.fault)
+        for line in lines:
+            print(line, flush=True)
+        return 0 if lines else 1
     for seed in args.seeds:
         t = time.perf_counter()
         if args.program:
@@ -108,15 +124,21 @@ def main(argv=None) -> int:
                                             fault=args.fault)
         else:
             cell, numbers = control_numbers(args.workload, seed)
-        correct, table = check.verdict(numbers, cell.limits)
-        side = ("control" if not args.program
-                else args.fault or "program")
-        print(json.dumps({"workload": args.workload, "seed": seed,
-                          "side": side,
-                          "correct": correct, "numbers": numbers,
-                          "seconds": time.perf_counter() - t}), flush=True)
+        print(reading_line(args.workload, seed, args.program, args.fault,
+                           cell, numbers, time.perf_counter() - t),
+              flush=True)
         torch.cuda.empty_cache()
     return 0
+
+
+def reading_line(workload: str, seed: int, program: bool, fault, cell,
+                 numbers, seconds: float) -> str:
+    """One seed's JSON line: the side, the verdict and the numbers."""
+    correct, _ = check.verdict(numbers, cell.limits)
+    side = "control" if not program else fault or "program"
+    return json.dumps({"workload": workload, "seed": seed, "side": side,
+                       "correct": correct, "numbers": numbers,
+                       "seconds": seconds})
 
 
 if __name__ == "__main__":

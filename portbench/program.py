@@ -11,6 +11,9 @@ Two jobs, both closed loops of one client:
   made at set-up. The parameters are scene tensors named in the traffic
   (``triangles.diffuse`` clamped to [0, 1], as ``apply_params`` clamps the
   spheres'; the light's emission).
+* ``sharded_fit``: the variant-B fit step of
+  ``parallel.train.make_train_step_fused`` on every rank of a process group,
+  one rank a card (``portbench.ranks`` starts them).
 
 Everything the program is given comes from the benchmark's scene arrays and
 the run's seed. ``fault`` breaks the timed path on purpose, for the test
@@ -28,6 +31,8 @@ from gpuraytracer_tpu_torch import Renderer, RenderConfig, convert, ops
 from gpuraytracer_tpu_torch.grad import inverse
 from gpuraytracer_tpu_torch.intersect import potential_occluders
 from gpuraytracer_tpu_torch.ops.cuda_shade import _auto_records_only
+from gpuraytracer_tpu_torch.parallel.fast import render_path_fused_sharded
+from gpuraytracer_tpu_torch.parallel.mesh import make_ray_mesh
 from gpuraytracer_tpu_torch.utils.host import fetch
 
 FAULTS = ("frozen_step", "half_batch", "altered_answer")
@@ -170,6 +175,10 @@ class FitJob:
             img = ops.render_mis_decoupled(scene, self.cfg,
                                            occluders=self.occluders,
                                            device=self.device)
+        return self._loss(img, target)
+
+    def _loss(self, img: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """The mean squared pixel loss, with ``fault`` planted."""
         if self.fault == "altered_answer":
             img = img * 1.01
         if self.fault == "half_batch":
@@ -217,4 +226,29 @@ class FitJob:
         self.draws = None
 
 
-JOBS = {"frame": FrameJob, "fit": FitJob}
+class ShardedFitJob(FitJob):
+    """``FitJob``'s variant-B step with the forward of
+    ``parallel.train.make_train_step_fused``:
+    ``parallel.fast.render_path_fused_sharded`` over
+    ``parallel.mesh.make_ray_mesh()``. Each rank of the process group
+    renders its rows of pixels on its card (the records_only and draws
+    choice made for its own pixel count), the image is gathered on every
+    rank, every rank takes the loss from it, and ``mesh.replicate``'s
+    backward sums the parameters' gradients across the ranks. Every rank
+    draws the same start and target from the seed and steps the same Adam
+    on the same sum, so the parameters stay equal on all of them.
+    ``make_train_step``'s ``SceneParams`` carry no triangle albedos, so the
+    scene is built as ``FitJob._scene`` builds it."""
+
+    def __init__(self, tree, traffic, seed, device, spans,
+                 fault: Optional[str] = None):
+        super().__init__(tree, traffic, seed, device, spans, fault)
+        self.mesh = make_ray_mesh(device)
+
+    def _forward(self) -> torch.Tensor:
+        img = render_path_fused_sharded(self._scene(), self.cfg, self.mesh,
+                                        occluders=self.occluders)
+        return self._loss(img, self.target)
+
+
+JOBS = {"frame": FrameJob, "fit": FitJob, "sharded_fit": ShardedFitJob}

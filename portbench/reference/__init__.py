@@ -8,7 +8,7 @@ bfloat16). Matrix products run without TF32.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -97,20 +97,30 @@ class Reference:
         return out
 
     def loss_and_grads(self, values: Dict[str, torch.Tensor],
-                       target: torch.Tensor):
+                       target: torch.Tensor,
+                       pixels: Optional[torch.Tensor] = None):
         """The mean squared pixel loss over the whole frame and its
         gradients in ``values``: the image once without gradients, then
         each block again with them, its vector-Jacobian product taken
         against the loss's cotangent. The first call tests every ray and
-        keeps the decisions; later calls replay them."""
+        keeps the decisions; later calls replay them. ``pixels``: flat ids
+        of a share of the frame; the loss and gradients are then that
+        share's terms of the whole frame's, which add up over the shares."""
         t = self.traffic
-        pixels = torch.arange(t["width"] * t["height"], device=self.device)
+        n = t["width"] * t["height"]
+        whole = pixels is None
+        if whole:
+            pixels = torch.arange(n, device=self.device)
         img = self.image(pixels, values,
                          "replay" if self.traced else "record")
         self.traced = True
-        flat_target = target.reshape(-1, 3).to(self.dtype)
-        loss = torch.mean((img - flat_target) ** 2)
-        cot = 2.0 * (img - flat_target) / img.numel()
+        flat_target = target.reshape(-1, 3)
+        if not whole:
+            flat_target = flat_target[pixels]
+        flat_target = flat_target.to(self.dtype)
+        loss = (torch.mean((img - flat_target) ** 2) if whole
+                else torch.sum((img - flat_target) ** 2) / (3 * n))
+        cot = 2.0 * (img - flat_target) / (3 * n)
         leaves = {k: v.detach().clone().requires_grad_(True)
                   for k, v in values.items()}
         light = self._materials(leaves)

@@ -12,7 +12,9 @@ reference checks what the timed path produced once the window has closed.
 The last line of standard output is one JSON object; the numbers the check
 compared are the last lines of standard error. With ``--trace 1`` the window
 runs under ``torch.profiler`` (at most ``TRACE_SECONDS``) and the line holds
-the per-layer metrics instead of the end-to-end ones.
+the per-layer metrics instead of the end-to-end ones. A cell on more than
+one card runs one rank a card (``portbench.ranks``); this process launches
+them and prints rank 0's line.
 """
 from __future__ import annotations
 
@@ -221,7 +223,16 @@ def main(argv=None) -> int:
               f"device_count() {torch.cuda.device_count()}",
               file=sys.stderr)
         return 2
-    result = run(args.workload, args.seed, args.seconds, bool(args.trace))
+    if cell.chips > 1:
+        from .ranks import launch_run
+        result = launch_run(args.workload, args.seed, args.seconds,
+                            bool(args.trace), cell.chips,
+                            started=PROCESS_START)
+        if result is None:
+            return 1
+    else:
+        result = run(args.workload, args.seed, args.seconds,
+                     bool(args.trace))
     found = forbidden_modules()
     if found:
         print(f"no result: the process loaded {found}", file=sys.stderr)

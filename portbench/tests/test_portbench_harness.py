@@ -89,9 +89,15 @@ def test_the_command_prints_the_contracts_last_line(monkeypatch, trace):
                        "--seconds", "0.2", "--trace", str(trace)])
     assert rc == 0
     last = json.loads(buf.getvalue().strip().splitlines()[-1])
-    for key in ("correct", "attempted", "failed", "metrics", "device"):
-        assert key in last
-    assert list(last)[-1] == "checks"
+    # A one-card cell's line has the keys it had before the launcher of
+    # multi-card cells, in the same order.
+    assert list(last) == (["correct", "attempted", "failed"]
+                          + ["breakdown"] * trace
+                          + ["metrics", "device", "checks"])
+    assert list(last["device"]) == (["platform", "kind", "count",
+                                     "memory_peak_bytes"]
+                                    + ["busy_s", "window_s"] * trace)
+    assert last["device"]["count"] == 1
     assert last["correct"] is True
     names = set(last["metrics"])
     if trace:

@@ -11,6 +11,7 @@ from conftest import ROOT
 CODE = r"""
 import importlib, json, pathlib, sys
 import portbench.run, portbench.program, portbench.check, portbench.control
+import portbench.ranks
 from portbench import spec
 here = pathlib.Path(spec.__file__).parent
 bench = json.loads((spec.ROOT / "BENCHMARK.json").read_text())
