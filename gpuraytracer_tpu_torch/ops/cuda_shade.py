@@ -110,23 +110,44 @@ def grouped_smem_bytes(has_spheres: bool) -> int:
     return 4 * _KERNEL_THREADS * _stage(has_spheres)
 
 
+def full_blocks(n_local: int, blocks_per_sm: int, sms: int) -> int:
+    """Blocks of K3g's persistent grid without its table cap: all that a
+    card of ``sms`` SMs holding ``blocks_per_sm`` blocks each runs at once,
+    at most one per ``_KERNEL_WARPS`` tiles of 32 pixels."""
+    tiles = (n_local + 31) // 32
+    return max(1, min(sms * blocks_per_sm,
+                      (tiles + _KERNEL_WARPS - 1) // _KERNEL_WARPS))
+
+
 def grouped_blocks(n_local: int, num_prims: int, has_spheres: bool,
                    blocks_per_sm: int, sms: int) -> int:
-    """Blocks of K3g's persistent grid (``grt_shade_bwd_grouped_blocks``) on
-    a card of ``sms`` SMs that hold ``blocks_per_sm`` blocks each: all of
-    them, at most one per ``_KERNEL_WARPS`` tiles of 32 pixels, and at most
-    as many as keep one partial table per warp within 768 MiB."""
-    tiles = (n_local + 31) // 32
+    """Blocks of K3g's persistent grid (``grt_shade_bwd_grouped_blocks``):
+    ``full_blocks``, and at most as many as keep one partial table per warp
+    within 768 MiB."""
     row = num_prims * (NTAB_SPH if has_spheres else NTAB) + NSCAL
     cap = _GROUPED_TABLE_BYTES // (4 * _KERNEL_WARPS * row)
-    return max(1, min(sms * blocks_per_sm,
-                      (tiles + _KERNEL_WARPS - 1) // _KERNEL_WARPS, cap))
+    return max(1, min(full_blocks(n_local, blocks_per_sm, sms), cap))
 
 # Kernel launches since the process started (or since a caller reset them):
 # ``cuda_path.launch`` adds one where the wrapper launches the kernel and
 # nowhere else.
 # The grouped tier (K3g) counts apart from the static tier.
 LAUNCHES = {"shade_bwd_kernel": 0, "shade_bwd_grouped_kernel": 0}
+# The partial tables of K3 and K3g since the process started
+# (``count_partials``, at the launch): launches; bytes of the tables each
+# zeroes, scatters into and reduces; its grid's blocks; and the blocks it
+# would run without K3g's table cap (``full_blocks``; K3's grid of one block
+# per 128 pixels has no cap).
+PARTIALS = {"launches": 0, "bytes": 0, "blocks": 0, "blocks_full": 0}
+
+
+def count_partials(partials: torch.Tensor, blocks: int,
+                   blocks_full: int) -> None:
+    """Count one launch of K3 or K3g with its ``partials`` tables."""
+    PARTIALS["launches"] += 1
+    PARTIALS["bytes"] += partials.numel() * partials.element_size()
+    PARTIALS["blocks"] += blocks
+    PARTIALS["blocks_full"] += blocks_full
 
 
 def _auto_records_only(config: RenderConfig, n_pixels=None) -> bool:
@@ -464,8 +485,12 @@ def shade_bwd_kernel(g: torch.Tensor, records: torch.Tensor, draws,
                                    "query failed")
             rows = blocks * _KERNEL_WARPS  # one table per warp
             table = table.T.contiguous()  # [P, nrows]
+            blocks_full = full_blocks(
+                n, lib.grt_shade_bwd_blocks_per_sm(
+                    P, int(has_spheres), int(draws is None), 1),
+                torch.cuda.get_device_properties(dev).multi_processor_count)
         else:
-            blocks = rows = lib.grt_shade_bwd_blocks(n)
+            blocks = rows = blocks_full = lib.grt_shade_bwd_blocks(n)
         partials = torch.empty((rows, count), dtype=torch.float32, device=dev)
         out = torch.empty(count, dtype=torch.float32, device=dev)
         k = _stratified_k(config)
@@ -478,6 +503,7 @@ def shade_bwd_kernel(g: torch.Tensor, records: torch.Tensor, draws,
                1.0 / k if k else 0.0, config.area_light_half_extent,
                int(draws is None), int(grouped), blocks,
                torch.cuda.current_stream(dev).cuda_stream)
+        count_partials(partials, blocks, blocks_full)
     return out[:P * ntab].view(P, ntab), out[P * ntab:]
 
 
